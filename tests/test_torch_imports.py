@@ -1,0 +1,42 @@
+"""The port imports neither JAX nor anything of the reference package."""
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in FILES}
+    assert {"chip_smoke.py", "surrogate.py", "chain.py", "rank.py", "mftune.py"} <= names
+    assert len(FILES) > 30
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scanner_flags_forbidden_imports():
+    assert _forbidden("jax.numpy") and _forbidden("repro.core") and _forbidden("repro")
+    assert not _forbidden("repro_torch.core") and not _forbidden("torch")
