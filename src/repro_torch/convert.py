@@ -4,7 +4,8 @@ The reference and the port share their data formats: a packed forest is
 the same struct-of-arrays arena, and a knowledge base is the same JSON.
 These helpers take the reference's objects as plain numpy arrays and JSON
 (never by importing it) and build the port's counterparts, so one fitted
-forest or one knowledge base can be fed to both packages.
+forest, one knowledge base or one set of LM weights can be fed to both
+packages.
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ import json
 import os
 from typing import Any, Mapping, Union
 
+import numpy as np
+import torch
+
 from .core.knowledge import KnowledgeBase, TaskRecord
 from .core.surrogate import PackedForest
-from .device import DeviceLike
+from .device import DeviceLike, resolve_device
 
-__all__ = ["packed_forest_from_numpy", "knowledge_base_from_json"]
+__all__ = ["packed_forest_from_numpy", "knowledge_base_from_json", "lm_params_from_numpy"]
 
 _ARENA_FIELDS = ("feat", "thr", "child", "mean", "var", "roots", "depth", "y_mean", "y_std")
 
@@ -59,3 +63,28 @@ def knowledge_base_from_json(src: Union[str, os.PathLike, Mapping[str, Any]]) ->
     for d in records:
         kb.add_task(TaskRecord.from_json(d), persist=False)
     return kb
+
+
+def _tensor_from_numpy(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> dict:
+    """The port's LM parameter tree on ``device`` from the reference's.
+
+    ``tree`` is the reference's parameter pytree as nested dicts with numpy
+    arrays at the leaves (``jax.tree.map(np.asarray, params)``); bfloat16
+    leaves keep their bits. The result has the same keys and shapes.
+    """
+    dev = resolve_device(device)
+
+    def one(x):
+        if isinstance(x, Mapping):
+            return {k: one(v) for k, v in x.items()}
+        return _tensor_from_numpy(x).to(dev)
+
+    return one(tree)

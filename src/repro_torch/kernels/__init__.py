@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``forest_eval``: K1 descent, ``rank``: K2 radix rank, ``chain``:
-K3 Shapley chain walk)."""
+K3 Shapley chain walk; ``flash_attn``: K4 flash-attention forward)."""

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-KERNEL_SOURCES = ("forest_eval", "radix_rank", "chain_ordinals")
+KERNEL_SOURCES = ("forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -13,7 +13,7 @@ from typing import Dict
 
 __all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "reset", "snapshot"]
 
-KERNELS = ("forest_eval", "radix_rank", "chain_ordinals")
+KERNELS = ("forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd")
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(KERNELS, 0)

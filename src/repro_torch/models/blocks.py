@@ -1,0 +1,99 @@
+"""Shared building blocks: norms, FFN variants, rotary embeddings.
+
+Each function computes what its namesake in the reference's
+``models/blocks.py`` computes, with the same casts. ``jax.nn.gelu``
+defaults to the tanh approximation, so ``ffn_apply`` takes
+``approximate="tanh"``. The reference's ``shard_batch`` constrains a
+layout on a mesh; on one card it is the identity, and the port has none.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .params import ParamSpec
+
+__all__ = [
+    "rmsnorm", "ffn_specs", "ffn_apply", "rope_freqs", "apply_rope", "mrope_positions",
+]
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return ((x32 * rms) * w.float()).to(dt)
+
+
+# ---------------------------------------------------------------------- FFN
+
+
+def ffn_specs(d_model: int, d_ff: int, act: str, stacked: Optional[int] = None,
+              dtype: torch.dtype = torch.bfloat16) -> Dict[str, ParamSpec]:
+    lead = (stacked,) if stacked else ()
+    lax = ("layers",) if stacked else ()
+    if act == "swiglu":
+        return {
+            "w_gate": ParamSpec(lead + (d_model, d_ff), lax + ("embed", "mlp"), dtype, "scaled"),
+            "w_up": ParamSpec(lead + (d_model, d_ff), lax + ("embed", "mlp"), dtype, "scaled"),
+            "w_down": ParamSpec(lead + (d_ff, d_model), lax + ("mlp", "embed"), dtype, "scaled"),
+        }
+    # two-matrix FFNs: squared-ReLU (Primer / Nemotron-4) or GELU (StarCoder2)
+    return {
+        "w_up": ParamSpec(lead + (d_model, d_ff), lax + ("embed", "mlp"), dtype, "scaled"),
+        "w_down": ParamSpec(lead + (d_ff, d_model), lax + ("mlp", "embed"), dtype, "scaled"),
+    }
+
+
+def ffn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif act == "gelu":
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    else:
+        r = F.relu(x @ p["w_up"])
+        h = r * r
+    return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------- RoPE
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               mrope_sections: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)
+    or (..., seq, 3) for M-RoPE (t/h/w position ids, arXiv:2409.12191)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    if mrope_sections is None:
+        ang = positions[..., None].float() * freqs  # (..., seq, hd/2)
+    else:
+        # split the rotary dims into (t, h, w) sections, each section driven
+        # by its own position id stream
+        secs = []
+        start = 0
+        for i, n in enumerate(mrope_sections):
+            f = freqs[start:start + n]
+            secs.append(positions[..., i][..., None].float() * f)
+            start += n
+        ang = torch.cat(secs, dim=-1)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    """Stub 3D positions for the VLM backbone: text-linear in all sections.
+    The vision frontend would supply true (t, h, w) ids per patch."""
+    p = torch.arange(seq, dtype=torch.int32, device=device)
+    return p[None, :, None].expand(batch, seq, 3)

@@ -4,9 +4,15 @@ Needs an NVIDIA GPU with nvcc; skipped elsewhere. On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Small shapes and the tuner's real shapes; every comparison is exact.
+Small shapes and the tuner's real shapes; every comparison of K1-K3 is
+exact. K4 (flash-attention forward) is held to the float32 and bfloat16
+tolerances of the reference's ``tests/test_kernels.py`` (2e-5, 2e-2), at
+small shapes with every mask variant and at the llama3-8b prefill's shape;
+the model's flash route is held to its plain blocked route on the card.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -101,3 +107,130 @@ def test_ei_and_scores_match_host(cuda):
     assert torch.equal(got.cpu(), want)
     w = [0.4, 0.3, 0.2, 0.1]
     assert torch.equal(aggregate_ranks(got, w).cpu(), aggregate_ranks(want, w))
+
+
+# --------------------------------------------------------------------- K4
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (causal, window, q offset): the offset case drops the first half of the
+# queries, so Sq < Sk and the rows sit at positions Sk - Sq ...
+FLASH_MASKS = [(True, None, False), (False, None, False), (True, 32, False),
+               (False, 32, False), (True, None, True)]
+
+
+def _flash_inputs(BH, Sq, Sk, G, D, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((BH, Sq, G, D), generator=g).to(device=device, dtype=dtype)
+    k = torch.randn((BH, Sk, D), generator=g).to(device=device, dtype=dtype)
+    v = torch.randn((BH, Sk, D), generator=g).to(device=device, dtype=dtype)
+    return q, k, v
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,G,D", [(2, 64, 64, 1, 16), (4, 128, 128, 2, 32),
+                                          (3, 48, 80, 3, 64), (2, 64, 192, 4, 128),
+                                          (1, 32, 96, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,offset", FLASH_MASKS)
+def test_flash_fwd_matches_plain(cuda, BH, Sq, Sk, G, D, dtype, causal, window, offset):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops
+
+    q, k, v = _flash_inputs(BH, Sq, Sk, G, D, dtype, cuda)
+    q_offset = 0
+    if offset:
+        q = q[:, Sq // 2:].contiguous()
+        q_offset = Sk - q.shape[1]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, q_block=8, kv_block=16)
+    before = counts.LAUNCHES["flash_attn_fwd"]
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    assert counts.LAUNCHES["flash_attn_fwd"] == before + 1
+    o_ref, lse_ref = ops.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    _close(o, o_ref, FLASH_TOL[dtype])
+    _close(lse, lse_ref, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_rows_with_no_visible_key_match_plain(cuda, dtype, causal):
+    from repro_torch.kernels.flash_attn import ops
+
+    # positions 96..223 over 64 keys with a window of 32: the rows from
+    # position 95 + 32 = 127 on see no key, and the reference gives them
+    # the mean of every V row with lse -1e30
+    q, k, v = _flash_inputs(2, 128, 64, 2, 64, dtype, cuda, seed=3)
+    kw = dict(causal=causal, window=32, q_offset=96, q_block=8, kv_block=16)
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = ops.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bool((lse_ref[:, 32:] == -1e30).all())
+    _close(o, o_ref, FLASH_TOL[dtype])
+    _close(lse, lse_ref, FLASH_TOL[dtype])
+
+
+def test_flash_attention_matches_oracle(cuda):
+    from repro_torch.kernels.flash_attn import ops, ref
+
+    B, S, Hkv, G, D = 2, 96, 2, 3, 64
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q = torch.randn((B, S, Hkv, G, D), generator=g).to(cuda)
+    k = torch.randn((B, S, Hkv, D), generator=g).to(cuda)
+    v = torch.randn((B, S, Hkv, D), generator=g).to(cuda)
+    for causal, window in [(True, None), (False, None), (True, 32)]:
+        o = ops.flash_attention(q, k, v, causal=causal, window=window, q_block=32, kv_block=32)
+        _close(o, ref.attention_ref(q, k, v, causal=causal, window=window), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_fwd_at_llama3_prefill_shape(cuda, dtype):
+    from repro_torch.kernels.flash_attn import ops
+
+    # llama3-8b prefill of 2 x 4096 tokens: B*Hkv = 16, G = 4, head dim 128
+    q, k, v = _flash_inputs(16, 4096, 4096, 4, 128, dtype, cuda, seed=2)
+    kw = dict(causal=True, q_block=512, kv_block=1024)
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = ops.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(o, o_ref, FLASH_TOL[dtype])
+    _close(lse, lse_ref, FLASH_TOL[dtype])
+
+
+def test_flash_fwd_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attn import ops
+
+    for D in (48, 192):
+        q, k, v = _flash_inputs(1, 64, 64, 1, D, torch.float32, cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_fwd(q, k, v)
+    q, k, v = _flash_inputs(1, 64, 64, 1, 64, torch.float16, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_fwd(q, k, v)
+    q, k, v = _flash_inputs(1, 64, 64, 1, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="divide"):
+        ops.flash_fwd(q, k, v, q_block=48)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_flash_route_matches_plain_route(cuda, dtype):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, forward, init_params
+
+    cfg = reduced(get_arch("llama3-8b"))
+    rt = Runtime(param_dtype=dtype, compute_dtype=dtype, attn_chunk=16, q_block=32,
+                 kv_block=32)
+    params = init_params(build_param_specs(cfg, rt),
+                         torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab, (2, 64))).to(cuda)
+    counts.reset()
+    flash = forward(params, cfg, dataclasses.replace(rt, attn_impl="flash"), tokens=tokens)
+    assert counts.LAUNCHES["flash_attn_fwd"] == cfg.n_layers
+    assert counts.PLAIN_CALLS["flash_attn_fwd"] == 0
+    plain = forward(params, cfg, rt, tokens=tokens)
+    err = (torch.softmax(flash.float(), -1) - torch.softmax(plain.float(), -1)).abs().max()
+    assert float(err) < (1e-5 if dtype == "float32" else 5e-2), float(err)

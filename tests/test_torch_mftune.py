@@ -66,9 +66,12 @@ def test_trajectory_and_result_identical(runs):
     assert port[3].mfo_activation_time == ref[3].mfo_activation_time
 
 
+TUNER_KERNELS = ("forest_eval", "radix_rank", "chain_ordinals")
+
+
 def test_every_kernel_plain_version_ran(runs):
     _, _, snap = runs
-    assert all(v > 0 for v in snap["plain_calls"].values()), snap
+    assert all(snap["plain_calls"][k] > 0 for k in TUNER_KERNELS), snap
     assert all(v == 0 for v in snap["launches"].values()), snap
 
 
