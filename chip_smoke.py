@@ -6,9 +6,9 @@
 Phases, in order:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the build of the four CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, all at once), with the ``-Xptxas -v`` register and spill
-   lines;
+2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
+   spill lines;
 3. ``tuner``: ``repro_torch.core.MFTune`` on TPC-H 100 GB, hardware A, for
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
@@ -38,9 +38,26 @@ Phases, in order:
    ``scaled_dot_product_attention`` with KV expanded to all heads (timed
    only), and K4 at small shapes in both dtypes for every mask variant,
    rows that see no key included;
-6. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+6. ``train``: the dense training path at llama3-8b's full width with its
+   depth cut from 32 to 8 layers (the cut, with its reason, is printed): bf16
+   weights drawn on the card from seed 0, float32 AdamW moments, a batch of
+   2 x 4096 tokens from ``SyntheticTokenPipeline(seed=0)``, ``attn_impl=
+   "flash"``, lr 1e-5. ``Trainer.run(3)`` with the counts of K4, K5 and K6 reset
+   just before it and read just after (8 x 3 launches each, no plain call),
+   finite losses and a first loss within 1 of ln(128256); three
+   ``make_train_step`` steps on one repeated batch, whose loss must fall;
+   one ``loss_fn`` gradient through the flash route and the plain ``xla``
+   route from the same weights and batch (loss within 1e-2, each gradient
+   leaf within 5e-2 relative in L2 and 4x under what another batch does to
+   it); a ``torch.profiler`` breakdown of one step; then K5 and K6 on the
+   first layer's own inputs against their plain versions (bf16 within one
+   bf16 step plus 1e-3 of the largest magnitude, float32 within 2e-5),
+   timed beside them, beside the backward of
+   ``scaled_dot_product_attention`` (timed only) and against their bounds,
+   and at small shapes in both dtypes for every mask variant;
+7. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
    observation streams and trajectories must be identical;
-7. one JSON line with the kernels' numbers, the card line, and as the last
+8. one JSON line with the kernels' numbers, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -443,27 +460,35 @@ def k4_errs(o, lse, po, plse) -> tuple:
 
 
 @contextlib.contextmanager
-def keep_first_flash_call():
-    """While active, a copy of the inputs of K4's first launch is kept in
-    the yielded dict (``args``, ``kwargs``)."""
+def keep_flash_call(index: int, *wrappers: str):
+    """While active, a copy of the inputs of the ``index``-th launch (from
+    0) of each named CUDA wrapper of ``kernels.flash_attn.ops`` is kept in
+    the yielded dict, as ``{wrapper: (args, kwargs)}``."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops
 
     kept: dict = {}
-    launch = ops.flash_fwd_cuda
+    originals = {name: getattr(ops, name) for name in wrappers}
 
-    def wrapped(*args, **kwargs):
-        if not kept:
-            kept["args"] = tuple(a.clone() for a in args)
-            kept["kwargs"] = dict(kwargs)
-        return launch(*args, **kwargs)
+    def wrap(name):
+        launch, calls = originals[name], [0]
 
-    ops.flash_fwd_cuda = wrapped
+        def wrapped(*args, **kwargs):
+            if calls[0] == index:
+                kept[name] = (tuple(a.clone() for a in args), dict(kwargs))
+            calls[0] += 1
+            return launch(*args, **kwargs)
+
+        return wrapped
+
+    for name in wrappers:
+        setattr(ops, name, wrap(name))
     try:
         yield kept
     finally:
-        ops.flash_fwd_cuda = launch
+        for name, launch in originals.items():
+            setattr(ops, name, launch)
         torch.cuda.synchronize()
 
 
@@ -572,12 +597,12 @@ def check_flash_small() -> list:
     return bad
 
 
-def device_profile(fn, label: str, reps: int) -> None:
+def device_profile(fn, label: str, reps: int, tag: str = "serve") -> None:
     """Time ``fn`` on the host clock (mean of ``reps`` calls), then run it
     once under ``torch.profiler`` and print the number of CUDA kernels it
     ran, their summed device time, the device busy share of the
-    unprofiled wall (the profiler's own wall is longer) and the kernels
-    that took the most."""
+    unprofiled wall (the profiler's own wall is longer), the kernels that
+    took the most and the device time by class of kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -594,17 +619,35 @@ def device_profile(fn, label: str, reps: int) -> None:
         pwall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"[serve] profile {label}: wall_s={wall:.6f}; the profiler saw no device "
+        print(f"[{tag}] profile {label}: wall_s={wall:.6f}; the profiler saw no device "
               f"kernels (device time not measured)", flush=True)
         return
     by_name: Counter = Counter()
+    by_class: Counter = Counter()
     for e in kernels:
-        by_name[e.name[:60]] += e.time_range.elapsed_us()
+        us = e.time_range.elapsed_us()
+        by_name[e.name[:60]] += us
+        by_class[kernel_class(e.name)] += us
     busy = sum(by_name.values()) / 1e6
-    top = ", ".join(f"{n} {us / 1e3:.3f}ms" for n, us in by_name.most_common(4))
-    print(f"[serve] profile {label}: wall_s={wall:.6f} (mean of {reps}, unprofiled) "
+    top = ", ".join(f"{n} {us / 1e3:.3f}ms" for n, us in by_name.most_common(6))
+    classes = ", ".join(f"{n} {us / 1e3:.3f}ms" for n, us in by_class.most_common())
+    print(f"[{tag}] profile {label}: wall_s={wall:.6f} (mean of {reps}, unprofiled) "
           f"profiled_wall_s={pwall:.6f} kernels={len(kernels)} device_busy_s={busy:.6f} "
-          f"busy_share={busy / wall:.4f}; top: {top}", flush=True)
+          f"busy_share={busy / wall:.4f}; top: {top}; by class: {classes}", flush=True)
+
+
+def kernel_class(name: str) -> str:
+    """A coarse class of a CUDA kernel, by its name."""
+    if "flash_" in name:
+        return "attention K4-K6"
+    if "f32f32" in name or "sgemm" in name:
+        return "float32 GEMM"
+    if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "bf16 GEMM"
+    if any(t in name for t in ("elementwise", "reduce", "Reduce", "index", "gather", "scatter",
+                               "cat", "copy", "fill", "softmax", "norm")):
+        return "elementwise, copies and reductions"
+    return "other"
 
 
 def run_serve(device) -> tuple:
@@ -638,7 +681,7 @@ def run_serve(device) -> tuple:
     with torch.no_grad():
         forward(params, cfg, rt, tokens=tokens[:1, :512])   # warm-up: cuBLAS, K4 load
         torch.cuda.synchronize()
-        with keep_first_flash_call() as kept:
+        with keep_flash_call(0, "flash_fwd_cuda") as kept:
             counts.reset()
             t0 = time.perf_counter()
             logits = forward(params, cfg, rt, tokens=tokens)
@@ -726,13 +769,327 @@ def run_serve(device) -> tuple:
         device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
                        f"decode step at position {SERVE_PROMPT}", 10)
 
-    row = hold_flash(kept["args"], kept["kwargs"], launches)
+    row = hold_flash(*kept["flash_fwd_cuda"], launches)
     bad = check_flash_small()
     if not row["match"] or bad:
         fail(f"K4 disagrees with its plain version: prefill match={row['match']} small={bad}")
     del params, engine, cache, kept
     torch.cuda.empty_cache()
     return row, launches
+
+
+# ---------------------------------------------------------------------------
+# LM training path (llama3-8b at full width, depth cut to 8 layers)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8              # llama3-8b's 32 layers cut to 8 (see run_train)
+TRAIN_BATCH = (2, 4096)       # global batch x sequence length
+TRAIN_STEPS = 3
+# a step early in a warm-up towards llama3's published peak of 3e-4: at 3e-4
+# from initialisation, AdamW's first sign-like step moves every logit by
+# about 1 and the loss on the next batch rises from 11.9 to 17 (H100 run)
+TRAIN_LR = 1e-5
+# |first loss - ln(vocab)|: at initialisation the logits are about unit
+# normal, which puts the expected loss near ln(vocab) + 1/2
+LOSS_MARGIN = 1.0
+# flash vs xla route from the same weights and batch: the loss within 1e-2,
+# and each gradient leaf within 5e-2 relative in L2 (bf16 roundings of the
+# attention outputs, carried through 8 layers), which must also sit 4x under
+# what another batch does to that leaf
+ROUTE_LOSS_TOL = 1e-2
+ROUTE_GRAD_TOL = 5e-2
+# K5/K6 against their plain versions, (atol as a fraction of the plain
+# output's largest magnitude, rtol): float32 2e-5 of both (the summation
+# order differs); bfloat16 one bf16 rounding step (2**-7 relative: both
+# compute in float32 from the same inputs, then round) plus 1e-3 of the
+# largest magnitude for values near zero
+BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
+K5_SOURCE = ("src/repro_torch/csrc/flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:144")
+K6_SOURCE = ("src/repro_torch/csrc/flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:211")
+
+
+def bwd_errs(got, want) -> tuple:
+    """(every output within BWD_TOL, max abs error, largest magnitude) of
+    K5's or K6's outputs against the plain version's."""
+    import torch
+
+    frac, rtol = BWD_TOL[str(want[0].dtype)[6:]]
+    ok, err, scale = True, 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        s = float(w.abs().max())
+        ok = ok and bool(torch.allclose(g, w, atol=frac * s, rtol=rtol))
+        err, scale = max(err, float((g - w).abs().max())), max(scale, s)
+    return ok, err, scale
+
+
+def sdpa_bwd_yardstick(q, k, v, do, batch: int):
+    """The backward of one ``scaled_dot_product_attention(is_causal=True)``
+    on K5's inputs with KV expanded to every query head: delta, dq, dk and
+    dv in one library call (timed beside K5 and K6, never used)."""
+    import torch
+    import torch.nn.functional as F
+
+    BHkv, S, G, D = q.shape
+    Hkv = BHkv // batch
+
+    def heads(t):
+        return t.reshape(batch, Hkv, S, G, D).permute(0, 1, 3, 2, 4).reshape(batch, Hkv * G, S, D)
+
+    def expand(t):
+        return t.reshape(batch, Hkv, 1, S, D).expand(batch, Hkv, G, S, D).reshape(
+            batch, Hkv * G, S, D)
+
+    qs = heads(q).contiguous().requires_grad_(True)
+    ks = expand(k).contiguous().requires_grad_(True)
+    vs = expand(v).contiguous().requires_grad_(True)
+    dos = heads(do).contiguous()
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    return lambda: torch.autograd.grad(o, (qs, ks, vs), dos, retain_graph=True)
+
+
+def hold_bwd(kept, launches: dict) -> list:
+    """K5 and K6 on the first layer's inputs from the training step against
+    their plain versions, in bf16 and upcast to float32, then timed beside
+    them, beside SDPA's backward, and against their bounds."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops
+
+    (q, k, v, do, lse, delta), kw = kept["flash_dq_cuda"]
+    plain_kw = dict(q_block=512, kv_block=1024, **kw)
+    rows = []
+    checks = {}
+    for label, args in (("bf16", (q, k, v, do)),
+                        ("upcast to float32", tuple(t.float() for t in (q, k, v, do)))):
+        dq = ops.flash_dq_cuda(*args, lse, delta, **kw)
+        pdq = ops.flash_dq_plain(*args, lse, delta, **plain_kw)
+        dk, dv = ops.flash_dkv_cuda(*args, lse, delta, **kw)
+        pdk, pdv = ops.flash_dkv_plain(*args, lse, delta, **plain_kw)
+        torch.cuda.synchronize()
+        checks[label] = (bwd_errs((dq,), (pdq,)), bwd_errs((dk, dv), (pdk, pdv)))
+        (ok5, e5, s5), (ok6, e6, s6) = checks[label]
+        print(f"[train] K5/K6 vs plain at the first layer's inputs, {label}: dq max|plain| {s5} "
+              f"err {e5} match={ok5}; dk/dv max|plain| {s6} err {e6} match={ok6}", flush=True)
+        del dq, pdq, dk, dv, pdk, pdv
+    BH, Sq, G, D = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], kw["causal"], kw["window"], kw["q_offset"])
+    in_bytes = nbytes(q, k, v, do, lse, delta)
+    library_ms = cuda_time_ms(sdpa_bwd_yardstick(q, k, v, do, TRAIN_BATCH[0]), 10)
+    shape = f"q={tuple(q.shape)} kv={tuple(k.shape)} {str(q.dtype)[6:]} causal={kw['causal']}"
+    for name, source, n_products, out_bytes, fn, plain, ck in (
+            ("flash_attn_dq", K5_SOURCE, 3, nbytes(q),
+             lambda: ops.flash_dq_cuda(q, k, v, do, lse, delta, **kw),
+             lambda: ops.flash_dq_plain(q, k, v, do, lse, delta, **plain_kw), 0),
+            ("flash_attn_dkv", K6_SOURCE, 4, nbytes(k, v),
+             lambda: ops.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
+             lambda: ops.flash_dkv_plain(q, k, v, do, lse, delta, **plain_kw), 1)):
+        flops = 2.0 * n_products * BH * G * D * pairs   # a multiply and an add per term
+        b_ms, b_by = bound(in_bytes + out_bytes, flops, BF16_OPS_PER_S)
+        match = all(checks[lb][ck][0] for lb in checks)
+        row = dict(name=name, source=source[0], replaces=source[1], shape=shape, match=match,
+                   max_abs_err=max(checks[lb][ck][1] for lb in checks),
+                   ms=cuda_time_ms(fn, 10), plain_ms=cuda_time_ms(plain, 3), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=library_ms,
+                   library="backward of scaled_dot_product_attention (delta, dq, dk and dv "
+                           "in one call, KV expanded to every head)")
+        print(f"[train] {name} at the first layer's inputs: {shape} match={match} "
+              f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} plain_ms="
+              f"{row['plain_ms']:.6f} sdpa_bwd_ms={library_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+              f"flops={flops:.4g} launches={launches[name]}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_bwd_small() -> list:
+    """K5 and K6 against their plain versions at small shapes, both dtypes,
+    every mask variant; returns the names of the cases that disagree."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops
+
+    bad, worst = [], {}
+    g = torch.Generator(device="cpu").manual_seed(1)
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for BH, Sq, Sk, G, D in [(2, 64, 64, 1, 16), (3, 48, 80, 3, 64), (1, 40, 72, 2, 32),
+                                 (2, 128, 256, 4, 128)]:
+            # (causal, window, q rows, q_offset): the last two put the rows
+            # at the end of the keys and past them, where rows see no key
+            for causal, window, sq, offset in [
+                    (True, None, Sq, 0), (False, None, Sq, 0), (True, 32, Sq, 0),
+                    (False, 32, Sq, 0), (True, None, Sq // 2, Sk - Sq // 2),
+                    (False, 32, Sq, Sk - 16), (True, 16, Sq, Sk)]:
+                q, do = (torch.randn((BH, sq, G, D), generator=g).to("cuda", td)
+                         for _ in range(2))
+                k, v = (torch.randn((BH, Sk, D), generator=g).to("cuda", td) for _ in range(2))
+                kw = dict(causal=causal, window=window, q_offset=offset)
+                o, lse = ops.flash_fwd_cuda(q, k, v, **kw)
+                delta = (do.float() * o.float()).sum(-1)
+                pkw = dict(q_block=sq, kv_block=8, **kw)
+                ok5, e5, _ = bwd_errs((ops.flash_dq_cuda(q, k, v, do, lse, delta, **kw),),
+                                      (ops.flash_dq_plain(q, k, v, do, lse, delta, **pkw),))
+                ok6, e6, _ = bwd_errs(ops.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
+                                      ops.flash_dkv_plain(q, k, v, do, lse, delta, **pkw))
+                w = worst.setdefault(dtype, [0.0, 0.0])
+                w[0], w[1] = max(w[0], e5), max(w[1], e6)
+                if not (ok5 and ok6):
+                    bad.append(f"{dtype} {(BH, sq, Sk, G, D)} {kw} dq={ok5} dkv={ok6}")
+    print(f"[train] K5/K6 small shapes x masks x dtypes: max abs err [dq, dk/dv] {worst} "
+          f"disagree={bad}", flush=True)
+    return bad
+
+
+def grads_of(params, cfg, rt, batch) -> tuple:
+    """(loss, gradient leaves) of ``loss_fn`` through autograd."""
+    import torch
+
+    from repro_torch.models import loss_fn
+    from repro_torch.models.params import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = loss_fn(params, cfg, rt, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def run_train(device) -> tuple:
+    """The ``train`` phase; returns (K5's and K6's rows, launches by kernel in
+    ``Trainer.run``)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, param_bytes
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    full = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    rt = Runtime(attn_impl="flash", remat="none")
+    B, S = TRAIN_BATCH
+    n_full, n_cut = (sum(math.prod(s.shape) for s in tree_leaves(build_param_specs(c, rt)))
+                     for c in (full, cfg))
+    print(f"[train] {cfg.name} cut from {full.n_layers} to {cfg.n_layers} layers: at "
+          f"{full.n_layers} layers {n_full / 1e9:.2f} B params x (2 bf16 weight + 2 bf16 grad "
+          f"+ 8 float32 AdamW moment) bytes = {n_full * 12 / 1e9:.1f} GB, over the card's 80 GB "
+          f"before any activation; at {cfg.n_layers}, {n_cut / 1e9:.2f} B x 12 = "
+          f"{n_cut * 12 / 1e9:.1f} GB. Widths as published: d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"memory in use before the phase {torch.cuda.memory_allocated()} bytes", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, rt, seq_len=S, global_batch=B, lr=TRAIN_LR, seed=0, device=device)
+    torch.cuda.synchronize()
+    print(f"[train] {param_bytes(build_param_specs(cfg, rt))} weight bytes ({rt.param_dtype}) and "
+          f"{rt.opt_state_dtype} AdamW moments on {device} in {time.perf_counter() - t0:.1f}s; "
+          f"batch {B} x {S} from SyntheticTokenPipeline(seed=0), lr {trainer.lr}", flush=True)
+
+    step_s: list = []
+    # K5's inputs at layer 0 of the first step (the backward runs the layers
+    # in reverse)
+    with keep_flash_call(cfg.n_layers - 1, "flash_dq_cuda") as kept:
+        counts.reset()
+        t0 = time.perf_counter()
+        losses = trainer.run(TRAIN_STEPS, log_every=1,
+                             on_metrics=lambda step, m: step_s.append(m["s_per_step"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(counts.LAUNCHES)
+        plain = dict(counts.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    print(f"[train] Trainer.run({TRAIN_STEPS}): losses {losses}; wall_s={wall:.6f}; step_s "
+          f"{step_s} (the first includes warm-up); steady step_ms={steady * 1e3:.3f} "
+          f"tokens_per_s={B * S / steady:.1f}; max_memory_allocated={peak}; launches "
+          f"{ {k: launches[k] for k in ('flash_attn_fwd', 'flash_attn_dq', 'flash_attn_dkv')} } "
+          f"plain_calls {plain}", flush=True)
+    want = cfg.n_layers * TRAIN_STEPS
+    for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+        if launches[name] != want or plain[name] != 0:
+            fail(f"Trainer.run launched {name} {launches[name]} times (want {want}) and its "
+                 f"plain version {plain[name]} times (want 0)")
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - ln_v) > LOSS_MARGIN:
+        fail(f"losses {losses} are not finite or the first is not within {LOSS_MARGIN} of "
+             f"ln({cfg.vocab}) = {ln_v}")
+
+    # three steps on one repeated batch, continuing from the trainer's
+    # state; the loss must fall, as in the reference's
+    # test_train_step_reduces_loss
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in trainer.pipeline.batch_at(TRAIN_STEPS).items()}
+    step = make_train_step(cfg, rt, lr=trainer.lr)
+    rep = []
+    for _ in range(3):
+        trainer.params, trainer.opt, m = step(trainer.params, trainer.opt, batch)
+        rep.append(float(m["loss"]))
+    print(f"[train] make_train_step x 3 on one repeated batch: losses {rep}", flush=True)
+    if not rep[-1] < rep[0]:
+        fail(f"the loss does not fall on a repeated batch: {rep}")
+
+    # where a step's time goes
+    device_profile(lambda: step(trainer.params, trainer.opt, batch),
+                   f"train step {B}x{S}", 2, tag="train")
+
+    # the flash route against the plain xla route, from the same weights and
+    # batch; the yardstick is what another batch does to the gradients
+    del trainer.opt
+    torch.cuda.empty_cache()
+    names = [".".join(p) for p in _leaf_paths(trainer.params)]
+    other = {k: torch.from_numpy(v).to(device)
+             for k, v in trainer.pipeline.batch_at(TRAIN_STEPS + 1).items()}
+    loss_x, g_x = grads_of(trainer.params, cfg, dataclasses.replace(rt, attn_impl="xla"), batch)
+    loss_f, g_f = grads_of(trainer.params, cfg, rt, batch)
+    route = [rel_l2(a, b) for a, b in zip(g_f, g_x)]
+    del g_x
+    loss_o, g_o = grads_of(trainer.params, cfg, rt, other)
+    moved = [rel_l2(a, b) for a, b in zip(g_o, g_f)]
+    del g_o, g_f
+    print(f"[train] loss_fn flash vs xla: losses {loss_f} / {loss_x} (diff "
+          f"{abs(loss_f - loss_x)}, bound {ROUTE_LOSS_TOL}); another batch: loss {loss_o}", flush=True)
+    for n, r, mv in zip(names, route, moved):
+        print(f"[train]   grad {n}: |g_flash - g_xla| / |g_xla| = {r:.6g}; another batch "
+              f"moves it by {mv:.6g}", flush=True)
+    bad = [n for n, r, mv in zip(names, route, moved)
+           if not (r <= ROUTE_GRAD_TOL and 4 * r <= mv)]
+    if abs(loss_f - loss_x) > ROUTE_LOSS_TOL or bad:
+        fail(f"flash and xla routes disagree: loss diff {abs(loss_f - loss_x)}, leaves {bad}")
+
+    del trainer, batch, other
+    torch.cuda.empty_cache()
+    rows = hold_bwd(kept, launches)
+    del kept
+    bad = check_bwd_small()
+    if not all(r["match"] for r in rows) or bad:
+        fail(f"K5/K6 disagree with their plain versions: "
+             f"{[(r['name'], r['match']) for r in rows]} small={bad}")
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _leaf_paths(tree, prefix=()):
+    """Key paths of a parameter tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], prefix + (k,))]
+    return [prefix]
 
 
 def main() -> int:
@@ -775,18 +1132,29 @@ def main() -> int:
     k4_row, k4_launches = run_serve(device)
     launches["flash_attn_fwd"] = k4_launches
     main_rows.append(k4_row)
+    bwd_rows, train_launches = run_train(device)
+    for name in ("flash_attn_dq", "flash_attn_dkv"):
+        launches[name] = train_launches[name]
+    main_rows.extend(bwd_rows)
     run_agreement()
 
     def line(r, n_launches):
-        return {"name": r["name"], "route": "cuda", "source": r["source"],
-                "replaces": r["replaces"], "launches": n_launches, "shape": r["shape"],
-                "max_abs_err": r["max_abs_err"], "match": r["match"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        out = {"name": r["name"], "route": "cuda", "source": r["source"],
+               "replaces": r["replaces"], "launches": n_launches, "shape": r["shape"],
+               "max_abs_err": r["max_abs_err"], "match": r["match"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if "library" in r:
+            out["library"] = r["library"]
+        if r["name"] == "flash_attn_fwd" and n_launches is not None:
+            out["train_launches"] = train_launches["flash_attn_fwd"]
+        return out
 
     # "kernels": K1-K3 at the largest call of the tuner run, with the run's
-    # launch counts, and K4 at the serve phase's prefill with its launch
-    # count there; "at_scale": K1 and K2 at 131072 candidates, which the
+    # launch counts; K4 at the serve phase's prefill with its launch count
+    # there (and its count in the train phase's Trainer.run beside it); K5
+    # and K6 at the train phase's first layer with their counts in
+    # Trainer.run; "at_scale": K1 and K2 at 131072 candidates, which the
     # tuner run does not reach (no launch count)
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],
                       "at_scale": [line(r, None) for r in scale_rows]}), flush=True)

@@ -4,8 +4,8 @@ The reference and the port share their data formats: a packed forest is
 the same struct-of-arrays arena, and a knowledge base is the same JSON.
 These helpers take the reference's objects as plain numpy arrays and JSON
 (never by importing it) and build the port's counterparts, so one fitted
-forest, one knowledge base or one set of LM weights can be fed to both
-packages.
+forest, one knowledge base, one set of LM weights or one AdamW state can
+be fed to both packages.
 """
 
 from __future__ import annotations
@@ -20,8 +20,12 @@ import torch
 from .core.knowledge import KnowledgeBase, TaskRecord
 from .core.surrogate import PackedForest
 from .device import DeviceLike, resolve_device
+from .optim import AdamWState
 
-__all__ = ["packed_forest_from_numpy", "knowledge_base_from_json", "lm_params_from_numpy"]
+__all__ = [
+    "adamw_state_from_numpy", "knowledge_base_from_json", "lm_params_from_numpy",
+    "packed_forest_from_numpy",
+]
 
 _ARENA_FIELDS = ("feat", "thr", "child", "mean", "var", "roots", "depth", "y_mean", "y_std")
 
@@ -88,3 +92,14 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> 
         return _tensor_from_numpy(x).to(dev)
 
     return one(tree)
+
+
+def adamw_state_from_numpy(step: Any, m: Mapping[str, Any], v: Mapping[str, Any],
+                           device: DeviceLike = None) -> AdamWState:
+    """The port's ``AdamWState`` on ``device`` from the reference's: its
+    ``step`` (a scalar) and moment trees ``m`` and ``v`` as nested dicts of
+    numpy arrays (``jax.tree.map(np.asarray, opt)``), converted as
+    :func:`lm_params_from_numpy` converts parameters."""
+    dev = resolve_device(device)
+    step_t = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev)
+    return AdamWState(step_t, lm_params_from_numpy(m, dev), lm_params_from_numpy(v, dev))

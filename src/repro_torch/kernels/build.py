@@ -28,7 +28,9 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
-KERNEL_SOURCES = ("forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd")
+KERNEL_SOURCES = (
+    "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_bwd",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

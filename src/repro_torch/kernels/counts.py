@@ -13,7 +13,10 @@ from typing import Dict
 
 __all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "reset", "snapshot"]
 
-KERNELS = ("forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd")
+KERNELS = (
+    "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_dq",
+    "flash_attn_dkv",
+)
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(KERNELS, 0)

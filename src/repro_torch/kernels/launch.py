@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,15 +42,17 @@ def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int):
 
 
 def launch(kernel: str, symbol: str, device: torch.device,
-           tensors: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
-    """Call ``symbol`` of kernel library ``kernel`` on the current stream of
-    ``device``; raise on a nonzero CUDA error; count the launch."""
+           tensors: Sequence[torch.Tensor], ints: Sequence[int],
+           source: Optional[str] = None) -> None:
+    """Call ``symbol`` of the library built from ``source`` (by default
+    ``kernel``) on the current stream of ``device``; raise on a nonzero CUDA
+    error; count the launch under ``kernel``."""
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel needs tensors on the card, got {device}")
     for v in ints:
         if not 0 <= v < 2**31:
             raise ValueError(f"{kernel}: launch size {v} outside the int32 range")
-    fn = _fn(kernel, symbol, len(tensors), len(ints))
+    fn = _fn(source or kernel, symbol, len(tensors), len(ints))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*[t.data_ptr() for t in tensors], *[int(v) for v in ints], stream)

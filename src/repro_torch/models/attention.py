@@ -1,15 +1,20 @@
 """Attention: GQA (causal / bidirectional / sliding-window) and its decode step.
 
-The prefill path has two routes, chosen by ``Runtime.attn_impl`` as in the
-reference. ``"flash"`` runs kernel K4 through
-``kernels/flash_attn/ops.flash_attention``. Any other value runs
-``flash_attention_xla``: the reference's double-blocked, flash-style
-attention (a loop over query blocks, an inner loop over KV chunks with a
-running logsumexp) in plain PyTorch, so S x S score matrices are never
-materialised. The reference computes that route outside any Pallas kernel,
-and so does the port. Its casts are the reference's: scores from a
+The prefill and training path has two routes, chosen by
+``Runtime.attn_impl`` as in the reference. ``"flash"`` runs kernel K4
+forward and K5/K6 backward through ``kernels/flash_attn/ops.flash_attention``.
+Any other value runs ``flash_attention_xla``: the reference's
+double-blocked, flash-style attention (a loop over query blocks, an inner
+loop over KV chunks with a running logsumexp) in plain PyTorch, so S x S
+score matrices are never materialised, with the reference's custom
+backward as a ``torch.autograd.Function``: it keeps q, k, v, out and lse
+and recomputes p from lse in two block sweeps (dq over q blocks; dk and dv
+over KV blocks). The reference computes that route outside any Pallas
+kernel, and so does the port. Its casts are the reference's: scores from a
 compute-dtype product are rounded to that dtype before the softmax dtype
-and the scale, and ``p`` is cast to v's dtype before the P.V product.
+and the scale, ``p`` is cast to v's dtype before the P.V product, the
+backward's products run in the softmax dtype, and dq, dk and dv are cast
+back per block to q's, k's and v's dtypes.
 
 GQA is computed in grouped layout (B, S, Hkv, G, D) so repeated KV heads
 are never materialised. ``attention_decode_apply`` writes the new K/V into
@@ -79,6 +84,75 @@ def _flash_fwd(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, sm_dt):
     return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
+def _flash_bwd_impl(q, k, v, o, lse, do, causal, window, q_offset, q_chunk, kv_chunk, sm_dt):
+    """FlashAttention-2 backward: recompute p per block from lse; two block
+    sweeps (dq over q blocks; dk/dv over KV blocks)."""
+    B, Sq, Hkv, G, Dqk = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    scale = 1.0 / (Dqk ** 0.5)
+    qpb = torch.arange(q_chunk, device=dev)
+    kpb = torch.arange(kv_chunk, device=dev)
+    dsum = (do.to(sm_dt) * o.to(sm_dt)).sum(dim=-1)     # D_i = rowsum(do * o)
+
+    def p_block(qblk, kblk, lse_i, q0, k0):
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk).to(sm_dt) * scale
+        bias = _blk_bias(q_offset + q0 + qpb, k0 + kpb, causal, window, sm_dt)
+        return torch.exp(s + bias[None, :, None, None, :] - lse_i[..., None])
+
+    def q_slices(q0):
+        sl = slice(q0, q0 + q_chunk)
+        return q[:, sl], do[:, sl].to(sm_dt), lse[:, sl], dsum[:, sl]
+
+    # pass 1: dq, over KV blocks inside each q block
+    dq = torch.empty_like(q)
+    for q0 in range(0, Sq, q_chunk):
+        qblk, do_i, lse_i, d_i = q_slices(q0)
+        acc = torch.zeros((B, q_chunk, Hkv, G, Dqk), dtype=sm_dt, device=dev)
+        for k0 in range(0, Sk, kv_chunk):
+            kblk, vblk = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            p = p_block(qblk, kblk, lse_i, q0, k0)
+            dp = torch.einsum("bqhgd,bkhd->bqhgk", do_i, vblk.to(sm_dt))
+            ds = p * (dp - d_i[..., None]) * scale
+            acc = acc + torch.einsum("bqhgk,bkhd->bqhgd", ds, kblk.to(sm_dt))
+        dq[:, q0:q0 + q_chunk] = acc.to(q.dtype)
+
+    # pass 2: dk/dv, over q blocks inside each KV block
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, Sk, kv_chunk):
+        kblk, vblk = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+        dk_acc = torch.zeros((B, kv_chunk, Hkv, Dqk), dtype=sm_dt, device=dev)
+        dv_acc = torch.zeros((B, kv_chunk, Hkv, Dv), dtype=sm_dt, device=dev)
+        for q0 in range(0, Sq, q_chunk):
+            qblk, do_i, lse_i, d_i = q_slices(q0)
+            p = p_block(qblk, kblk, lse_i, q0, k0)
+            dv_acc = dv_acc + torch.einsum("bqhgk,bqhgd->bkhd", p, do_i)
+            dp = torch.einsum("bqhgd,bkhd->bqhgk", do_i, vblk.to(sm_dt))
+            ds = p * (dp - d_i[..., None]) * scale
+            dk_acc = dk_acc + torch.einsum("bqhgk,bqhgd->bkhd", ds, qblk.to(sm_dt))
+        dk[:, k0:k0 + kv_chunk] = dk_acc.to(k.dtype)
+        dv[:, k0:k0 + kv_chunk] = dv_acc.to(v.dtype)
+    return dq, dk, dv
+
+
+class _FlashCore(torch.autograd.Function):
+    """The reference's ``_flash_core`` custom VJP: the blocked forward,
+    keeping (q, k, v, out, lse), and :func:`_flash_bwd_impl` as backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk, sm_dt):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, sm_dt)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, q_chunk, kv_chunk, sm_dt)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention_xla(
     q: torch.Tensor,        # (B, Sq, Hkv, G, Dqk)
     k: torch.Tensor,        # (B, Sk, Hkv, Dqk)
@@ -91,8 +165,8 @@ def flash_attention_xla(
     kv_chunk: int = 1024,
     softmax_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Memory-efficient attention, the forward of the reference's route of
-    the same name. Returns (B, Sq, Hkv, G, Dv)."""
+    """Memory-efficient attention, the reference's route of the same name
+    (custom backward: p recomputed from lse). Returns (B, Sq, Hkv, G, Dv)."""
     Sq, Sk = q.shape[1], k.shape[1]
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
@@ -100,8 +174,7 @@ def flash_attention_xla(
         q_chunk //= 2
     while Sk % kv_chunk:
         kv_chunk //= 2
-    out, _ = _flash_fwd(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, softmax_dtype)
-    return out
+    return _FlashCore.apply(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, softmax_dtype)
 
 
 # ------------------------------------------------------------------ GQA block

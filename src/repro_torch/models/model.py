@@ -2,10 +2,16 @@
 family (``dense``, and the ``vlm`` backbone, which shares its code path).
 
 Layer stacks are *stacked* (leading "layers" axis) as in the reference,
-which scans over them; the port runs a Python loop over layer slices.
-The other families (MoE, MLA, SSM, hybrid, enc-dec) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item, and the loss
-(``loss_fn``, ``chunked_ce``) comes with training.
+which scans over them; the port runs a Python loop over layer slices, and
+autograd sums each slice's gradient into the stacked leaf. The other
+families (MoE, MLA, SSM, hybrid, enc-dec) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
+
+The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
+over the hidden states that ``forward(..., return_hidden=True)`` returns.
+Only ``Runtime.remat == "none"`` is taken (the value the reference's
+training launcher uses); DeepSeek's multi-token prediction comes with the
+MoE family.
 
 The decode path operates on a cache dict stacked over layers: K and V of
 shape (L, B, S, Hkv, hd) and ``pos`` (B,). ``decode_step`` writes the new
@@ -19,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
@@ -27,7 +34,7 @@ from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm
 from .params import ParamSpec, tree_map
 from .runtime import Runtime
 
-__all__ = ["build_param_specs", "forward", "decode_step", "init_cache"]
+__all__ = ["build_param_specs", "chunked_ce", "forward", "decode_step", "init_cache", "loss_fn"]
 
 _DENSE = ("dense", "vlm")
 _TODO = {
@@ -84,10 +91,13 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
 # =============================================================== forward
 
 
+def _head(params, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["out"]
+
+
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    out_w = params["embed"] if cfg.tie_embeddings else params["out"]
-    return torch.einsum("bsd,vd->bsv", x, out_w)
+    return torch.einsum("bsd,vd->bsv", x, _head(params, cfg))
 
 
 def forward(
@@ -98,8 +108,10 @@ def forward(
     inputs_embeds: Optional[torch.Tensor] = None,  # (B, S, D) modality stub
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
+    return_hidden: bool = False,
 ) -> torch.Tensor:
-    """Returns logits (B, S, V) in the compute dtype."""
+    """Returns logits (B, S, V) in the compute dtype, or with
+    ``return_hidden`` the hidden states (B, S, D) after ``final_ln``."""
     _require_dense(cfg)
     if inputs_embeds is not None:
         x = inputs_embeds.to(rt.cdtype)
@@ -118,7 +130,95 @@ def forward(
         x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
                                 positions, causal)
         x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    if return_hidden:
+        return rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return _logits(params, cfg, x)
+
+
+# ================================================================= loss
+
+
+class _HeadLogits(torch.autograd.Function):
+    """x (N, D) . w (V, D)^T -> float32 logits (N, V) from the stored dtype
+    without rounding, as ``preferred_element_type=jnp.float32`` takes them,
+    and without a float32 copy of the whole head: on the card a bf16
+    product writes float32 (``out_dtype``); otherwise, and in the backward
+    on both devices, the head is upcast ``_VOCAB_SLAB`` rows at a time.
+    The gradients are the float32 products, cast to x's and w's dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32, device=x.device)
+        x32 = x.float()
+        for v0 in range(0, w.shape[0], _VOCAB_SLAB):
+            out[:, v0:v0 + _VOCAB_SLAB] = x32 @ w[v0:v0 + _VOCAB_SLAB].float().t()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x32 = x.float()
+        gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        gw = torch.empty_like(w)
+        for v0 in range(0, w.shape[0], _VOCAB_SLAB):
+            gs = g[:, v0:v0 + _VOCAB_SLAB]
+            gx += gs @ w[v0:v0 + _VOCAB_SLAB].float()
+            gw[v0:v0 + _VOCAB_SLAB] = (gs.t() @ x32).to(w.dtype)
+        return gx.to(x.dtype), gw
+
+
+_VOCAB_SLAB = 16384  # head rows upcast at a time: 256 MB of float32 at d_model 4096
+
+
+def _chunk_ce_sum(xk: torch.Tensor, out_w: torch.Tensor, lk: torch.Tensor) -> torch.Tensor:
+    """Summed next-token CE of one chunk: xk (B, c, D), lk (B, c)."""
+    B, c, D = xk.shape
+    lg = _HeadLogits.apply(xk.reshape(B * c, D), out_w)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, lk.reshape(B * c, 1).long())[:, 0]
+    return (lse - gold).sum()
+
+
+def chunked_ce(x: torch.Tensor, out_w: torch.Tensor, labels: torch.Tensor,
+               chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the vocab head without materialising (B, S, V).
+
+    Loops over sequence chunks (halved until they divide S, as the
+    reference does); each chunk's float32 logits live only inside the
+    checkpointed chunk body and are recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). The
+    gold logit is gathered, which equals the reference's one-hot sum."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        xk, lk = x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_chunk_ce_sum, xk, out_w, lk, use_reentrant=False)
+        else:
+            tot = tot + _chunk_ce_sum(xk, out_w, lk)
+    return tot / (B * S)
+
+
+def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token CE of the ``dense`` and ``vlm`` families."""
+    _require_dense(cfg)
+    if rt.remat != "none":
+        raise NotImplementedError(
+            f"Runtime.remat={rt.remat!r} is not ported yet (ROADMAP.md item 11, with the "
+            f"memory scheduling of the distribution work); use remat='none'")
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-token prediction is not ported yet (ROADMAP.md item 10(c))")
+    x = forward(params, cfg, rt, tokens=batch.get("tokens"),
+                inputs_embeds=batch.get("inputs_embeds"), positions=batch.get("positions"),
+                return_hidden=True)
+    return chunked_ce(x, _head(params, cfg), batch["labels"])
 
 
 # ================================================================ decode

@@ -4,15 +4,17 @@ The same fields as the reference's ``Runtime``, so that one configuration
 names the same run in both packages. Everything here changes *how* a model
 runs, never *what* it computes.
 
-In the port only the numerics (``param_dtype``, ``compute_dtype``,
-``softmax_dtype``) and the attention route (``attn_impl``, ``attn_chunk``,
-``q_block``, ``kv_block``) take effect. The fields that steer XLA or
-sharding in the reference (``matmul_precision``, ``remat``, ``scan_layers``,
+In the port the numerics (``param_dtype``, ``compute_dtype``,
+``softmax_dtype``, and ``opt_state_dtype``, the dtype of the AdamW moments
+that ``Trainer`` allocates) and the attention route (``attn_impl``,
+``attn_chunk``, ``q_block``, ``kv_block``) take effect. ``remat`` takes
+only ``"none"`` and ``grad_compression`` only ``"none"`` in training:
+other values raise, naming their ROADMAP.md item. The fields that steer XLA
+or sharding in the reference (``matmul_precision``, ``scan_layers``,
 ``scan_unroll``, ``dp_size``, ``act_shard``, ``fsdp``, ``zero1``,
-``seq_shard``, ``grad_compression``, ``overlap_collective_matmul``,
-``pp_stages``, ``pp_microbatches``), the optimizer state dtype and the MoE
-fields are kept and have no effect: PyTorch runs eagerly on one card, and
-training and MoE are not ported yet.
+``seq_shard``, ``overlap_collective_matmul``, ``pp_stages``,
+``pp_microbatches``) and the MoE fields are kept and have no effect:
+PyTorch runs eagerly on one card, and MoE is not ported yet.
 """
 
 from __future__ import annotations

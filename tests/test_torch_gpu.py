@@ -9,6 +9,11 @@ exact. K4 (flash-attention forward) is held to the float32 and bfloat16
 tolerances of the reference's ``tests/test_kernels.py`` (2e-5, 2e-2), at
 small shapes with every mask variant and at the llama3-8b prefill's shape;
 the model's flash route is held to its plain blocked route on the card.
+K5 and K6 (the backward) are held to the same tolerances over the same
+grid, relative to the largest magnitude of each gradient where that
+exceeds 1 (a gradient sums over up to Sk keys or Sq * G rows); the flash
+autograd function and a reduced ``Trainer`` step on the card are held to
+the same on the CPU.
 """
 from __future__ import annotations
 
@@ -234,3 +239,136 @@ def test_model_flash_route_matches_plain_route(cuda, dtype):
     plain = forward(params, cfg, rt, tokens=tokens)
     err = (torch.softmax(flash.float(), -1) - torch.softmax(plain.float(), -1)).abs().max()
     assert float(err) < (1e-5 if dtype == "float32" else 5e-2), float(err)
+
+
+# ------------------------------------------------------------------ K5, K6
+
+
+def _close_scaled(got, want, tol):
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=tol)
+
+
+def _bwd_case(q, k, v, kw, seed=5):
+    from repro_torch.kernels.flash_attn import ops
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    do = torch.randn(q.shape, generator=g).to(device=q.device, dtype=q.dtype)
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    return do, lse, delta
+
+
+def _check_bwd(q, k, v, kw):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops
+
+    do, lse, delta = _bwd_case(q, k, v, kw)
+    before = dict(counts.LAUNCHES)
+    dq = ops.flash_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = ops.flash_dkv(q, k, v, do, lse, delta, **kw)
+    assert counts.LAUNCHES["flash_attn_dq"] == before["flash_attn_dq"] + 1
+    assert counts.LAUNCHES["flash_attn_dkv"] == before["flash_attn_dkv"] + 1
+    want = (ops.flash_dq_plain(q, k, v, do, lse, delta, **kw),
+            *ops.flash_dkv_plain(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == q.dtype
+        _close_scaled(got, ref, FLASH_TOL[q.dtype])
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,G,D", [(2, 64, 64, 1, 16), (4, 128, 128, 2, 32),
+                                          (3, 48, 80, 3, 64), (2, 64, 192, 4, 128),
+                                          (1, 32, 96, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,offset", FLASH_MASKS)
+def test_flash_bwd_matches_plain(cuda, BH, Sq, Sk, G, D, dtype, causal, window, offset):
+    q, k, v = _flash_inputs(BH, Sq, Sk, G, D, dtype, cuda)
+    q_offset = 0
+    if offset:
+        q = q[:, Sq // 2:].contiguous()
+        q_offset = Sk - q.shape[1]
+    _check_bwd(q, k, v, dict(causal=causal, window=window, q_offset=q_offset, q_block=8,
+                             kv_block=16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_rows_with_no_visible_key_match_plain(cuda, dtype, causal):
+    # as in the forward's test: rows from position 127 on see no key, have
+    # lse = -1e30, and give every key p = 1
+    q, k, v = _flash_inputs(2, 128, 64, 2, 64, dtype, cuda, seed=3)
+    _check_bwd(q, k, v, dict(causal=causal, window=32, q_offset=96, q_block=8, kv_block=16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_at_llama3_training_shape(cuda, dtype):
+    # the llama3-8b training step of 2 x 4096 tokens: B*Hkv = 16, G = 4
+    q, k, v = _flash_inputs(16, 4096, 4096, 4, 128, dtype, cuda, seed=4)
+    _check_bwd(q, k, v, dict(causal=True, q_block=512, kv_block=1024))
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attn import ops
+
+    q, k, v = _flash_inputs(1, 64, 64, 1, 48, torch.float32, cuda)
+    lse = torch.zeros((1, 64, 1), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_dq(q, k, v, q, lse, lse)
+    q, k, v = _flash_inputs(1, 64, 64, 1, 64, torch.float32, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.flash_dkv(q, k, v, q, lse.double(), lse)
+    with pytest.raises(ValueError, match="divide"):
+        ops.flash_dq(q, k, v, q, lse, lse, kv_block=48)
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops
+
+    B, S, Hkv, G, D = 2, 96, 2, 3, 64
+    g = torch.Generator(device="cpu").manual_seed(6)
+    host = [torch.randn(s, generator=g) for s in
+            ((B, S, Hkv, G, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, Hkv, G, D))]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in host[:3])
+        counts.reset()
+        o = ops.flash_attention(q, k, v, causal=True, window=48, q_block=32, kv_block=32)
+        o.backward(host[3].to(dev))
+        on_card = dev.type == "cuda"
+        for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+            assert counts.LAUNCHES[name] == int(on_card)
+            assert counts.PLAIN_CALLS[name] == int(not on_card)
+        grads[dev.type] = [o.detach().cpu()] + [t.grad.cpu() for t in (q, k, v)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _close_scaled(got, want, 2e-5)
+
+
+def test_reduced_trainer_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWState
+    from repro_torch.train.trainer import Trainer
+
+    cfg = reduced(get_arch("llama3-8b"))
+    rt = Runtime(param_dtype="float32", compute_dtype="float32", attn_impl="flash",
+                 q_block=32, kv_block=32)
+    kw = dict(seq_len=64, global_batch=2, lr=1e-3, seed=0)
+    host = Trainer(cfg, rt, device="cpu", **kw)
+    card = Trainer(cfg, rt, device=cuda, **kw)
+    card.params = tree_map(lambda t: t.to(cuda), host.params)
+    card.opt = AdamWState(host.opt.step.to(cuda), tree_map(lambda t: t.to(cuda), host.opt.m),
+                          tree_map(lambda t: t.to(cuda), host.opt.v))
+    counts.reset()
+    card_losses = card.run(2, log_every=100)
+    for name in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+        assert counts.LAUNCHES[name] == 2 * cfg.n_layers and counts.PLAIN_CALLS[name] == 0
+    host_losses = host.run(2, log_every=100)
+    np.testing.assert_allclose(card_losses, host_losses, rtol=1e-5)
+    # Adam divides by sqrt(v): float32 noise in a gradient near eps moves its
+    # parameter's update by up to a few hundredths of lr
+    for a, b in zip(tree_leaves(card.params), tree_leaves(host.params)):
+        torch.testing.assert_close(a.cpu(), b, atol=0.1 * 1e-3 * 2, rtol=0)
