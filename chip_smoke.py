@@ -55,9 +55,30 @@ Phases, in order:
    timed beside them, beside the backward of
    ``scaled_dot_product_attention`` (timed only) and against their bounds,
    and at small shapes in both dtypes for every mask variant;
-7. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+7. ``moe``: the MoE serving path at mixtral-8x22b's full width with its
+   depth cut from 56 to 8 layers (the cut, with its reason, is printed):
+   d_model 6144, 48/8 heads of 128, 8 experts top-2 of width 16384, vocab
+   32768, window 4096, bf16 weights drawn on the card from seed 0 (40.9
+   GB). A 1 x 8192-token prefill through ``forward`` with
+   ``attn_impl="flash"``, counts reset just before it and read just after
+   (24 K9 and 8 K4 launches, no plain call); layer 0's MoE rerun on that
+   prefill's own input with K9's plain version (identical routing, output
+   within 5e-2 of its largest magnitude); the prefill through the plain
+   route (K9's plain version, ``attn_impl="xla"``), its logits within 5e-2
+   of their largest magnitude at the sampled positions that both routes
+   route alike (the same kept experts at every layer; at least 90 % of the
+   positions must); ``ServingEngine`` answering 4 greedy requests of 64
+   prompt tokens with 32 new tokens each, and 24 K9 launches in one decode
+   step; a 64-token prompt teacher-forced through ``decode_step`` against
+   ``forward`` at a capacity that drops nothing (the same bounds, 4x under
+   what another first context token does); a profiled prefill and decode
+   step; K9 on the first layer's w_gate and w_down inputs against its plain
+   version in bf16 (one bf16 step of the largest magnitude) and upcast to
+   float32 (2e-5), timed beside it, ``torch.bmm`` and its bound, and at a
+   decode step's shape; then at small and ragged shapes with group sizes;
+8. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
    observation streams and trajectories must be identical;
-8. one JSON line with the kernels' numbers, the card line, and as the last
+9. one JSON line with the kernels' numbers, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -460,35 +481,28 @@ def k4_errs(o, lse, po, plse) -> tuple:
 
 
 @contextlib.contextmanager
-def keep_flash_call(index: int, *wrappers: str):
-    """While active, a copy of the inputs of the ``index``-th launch (from
-    0) of each named CUDA wrapper of ``kernels.flash_attn.ops`` is kept in
-    the yielded dict, as ``{wrapper: (args, kwargs)}``."""
+def keep_calls(module, wrapper: str, indices):
+    """While active, a copy of the inputs of each listed launch (counted from
+    0) of ``module.<wrapper>`` is kept in the yielded dict, as ``{index:
+    (args, kwargs)}``."""
     import torch
 
-    from repro_torch.kernels.flash_attn import ops
-
     kept: dict = {}
-    originals = {name: getattr(ops, name) for name in wrappers}
+    original = getattr(module, wrapper)
+    calls = [0]
 
-    def wrap(name):
-        launch, calls = originals[name], [0]
+    def wrapped(*args, **kwargs):
+        if calls[0] in indices:
+            kept[calls[0]] = (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                              dict(kwargs))
+        calls[0] += 1
+        return original(*args, **kwargs)
 
-        def wrapped(*args, **kwargs):
-            if calls[0] == index:
-                kept[name] = (tuple(a.clone() for a in args), dict(kwargs))
-            calls[0] += 1
-            return launch(*args, **kwargs)
-
-        return wrapped
-
-    for name in wrappers:
-        setattr(ops, name, wrap(name))
+    setattr(module, wrapper, wrapped)
     try:
         yield kept
     finally:
-        for name, launch in originals.items():
-            setattr(ops, name, launch)
+        setattr(module, wrapper, original)
         torch.cuda.synchronize()
 
 
@@ -640,6 +654,8 @@ def kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel, by its name."""
     if "flash_" in name:
         return "attention K4-K6"
+    if "gmm_" in name:
+        return "expert products K9"
     if "f32f32" in name or "sgemm" in name:
         return "float32 GEMM"
     if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -659,6 +675,7 @@ def run_serve(device) -> tuple:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
                                     init_cache, init_params, param_bytes)
     from repro_torch.serving import Request, ServingEngine
@@ -681,7 +698,7 @@ def run_serve(device) -> tuple:
     with torch.no_grad():
         forward(params, cfg, rt, tokens=tokens[:1, :512])   # warm-up: cuBLAS, K4 load
         torch.cuda.synchronize()
-        with keep_flash_call(0, "flash_fwd_cuda") as kept:
+        with keep_calls(flash_ops, "flash_fwd_cuda", (0,)) as kept:
             counts.reset()
             t0 = time.perf_counter()
             logits = forward(params, cfg, rt, tokens=tokens)
@@ -769,7 +786,7 @@ def run_serve(device) -> tuple:
         device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
                        f"decode step at position {SERVE_PROMPT}", 10)
 
-    row = hold_flash(*kept["flash_fwd_cuda"], launches)
+    row = hold_flash(*kept[0], launches)
     bad = check_flash_small()
     if not row["match"] or bad:
         fail(f"K4 disagrees with its plain version: prefill match={row['match']} small={bad}")
@@ -848,15 +865,16 @@ def sdpa_bwd_yardstick(q, k, v, do, batch: int):
     return lambda: torch.autograd.grad(o, (qs, ks, vs), dos, retain_graph=True)
 
 
-def hold_bwd(kept, launches: dict) -> list:
-    """K5 and K6 on the first layer's inputs from the training step against
-    their plain versions, in bf16 and upcast to float32, then timed beside
-    them, beside SDPA's backward, and against their bounds."""
+def hold_bwd(call, launches: dict) -> list:
+    """K5 and K6 on the first layer's inputs from the training step (``call``,
+    the (args, kwargs) of K5's launch there) against their plain versions,
+    in bf16 and upcast to float32, then timed beside them, beside SDPA's
+    backward, and against their bounds."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops
 
-    (q, k, v, do, lse, delta), kw = kept["flash_dq_cuda"]
+    (q, k, v, do, lse, delta), kw = call
     plain_kw = dict(q_block=512, kv_block=1024, **kw)
     rows = []
     checks = {}
@@ -975,6 +993,7 @@ def run_train(device) -> tuple:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.models import Runtime, build_param_specs, param_bytes
     from repro_torch.models.params import tree_leaves
     from repro_torch.train import make_train_step
@@ -1005,7 +1024,7 @@ def run_train(device) -> tuple:
     step_s: list = []
     # K5's inputs at layer 0 of the first step (the backward runs the layers
     # in reverse)
-    with keep_flash_call(cfg.n_layers - 1, "flash_dq_cuda") as kept:
+    with keep_calls(flash_ops, "flash_dq_cuda", (cfg.n_layers - 1,)) as kept:
         counts.reset()
         t0 = time.perf_counter()
         losses = trainer.run(TRAIN_STEPS, log_every=1,
@@ -1075,7 +1094,7 @@ def run_train(device) -> tuple:
 
     del trainer, batch, other
     torch.cuda.empty_cache()
-    rows = hold_bwd(kept, launches)
+    rows = hold_bwd(kept[cfg.n_layers - 1], launches)
     del kept
     bad = check_bwd_small()
     if not all(r["match"] for r in rows) or bad:
@@ -1090,6 +1109,392 @@ def _leaf_paths(tree, prefix=()):
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _leaf_paths(tree[k], prefix + (k,))]
     return [prefix]
+
+
+# ---------------------------------------------------------------------------
+# MoE serving path (mixtral-8x22b at full width, depth cut to 8 layers)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x22b"
+MOE_LAYERS = 8                # mixtral-8x22b's 56 layers cut to 8 (see run_moe)
+MOE_PREFILL = (1, 8192)       # twice the 4096-token window, so the window masks
+K9_SOURCE = ("src/repro_torch/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm/kernel.py:42")
+# K9 against its plain version, (atol as a fraction of the plain output's
+# largest magnitude, rtol): bfloat16 one bf16 rounding step (2**-7 relative:
+# both sum in float32 from the same inputs, then round); float32 2e-5 of
+# both (the summation order differs)
+GMM_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 0.0)}
+
+
+def kept_experts(route):
+    """(B, S) int64 bit masks of the experts that keep each token, from a
+    ``moe_route`` result (gate_vals, expert_idx, slot, Cr)."""
+    _, expert_idx, slot, Cr = route
+    B, S, K = expert_idx.shape
+    return ((slot.reshape(B, S, K) < Cr).long() << expert_idx).sum(-1)
+
+
+@contextlib.contextmanager
+def record_routing():
+    """While active, the result of every call of ``models.moe.moe_route`` is
+    appended to the yielded list, in call order (layer by layer, step by
+    step), and the first call's input is kept under ``first["x"]``."""
+    from repro_torch.models import moe
+
+    original = moe.moe_route
+    rec: list = []
+    first: dict = {}
+
+    def wrapped(router, x, cfg, rt):
+        route = original(router, x, cfg, rt)
+        rec.append(route)
+        if "x" not in first:
+            first["x"] = x.clone()
+        return route
+
+    moe.moe_route = wrapped
+    try:
+        yield rec, first
+    finally:
+        moe.moe_route = original
+
+
+@contextlib.contextmanager
+def replay_routing(pick):
+    """While active, the n-th call of ``models.moe.moe_route`` computes its
+    own routing but returns ``pick(n, own)``, a recorded one: two runs then
+    take the same discrete decisions (experts, slots, drops) and the same
+    gates, and differ by rounding alone. A token whose router scores sit
+    near a tie takes another expert under any rounding difference, and a
+    token kept or dropped at an expert's capacity moves with the tokens
+    before it. The yielded list gets, per call, the number of tokens whose
+    own kept experts differ from the replayed ones."""
+    from repro_torch.models import moe
+
+    original = moe.moe_route
+    otherwise: list = []
+
+    def wrapped(router, x, cfg, rt):
+        own = original(router, x, cfg, rt)
+        route = pick(len(otherwise), own)
+        otherwise.append(int((kept_experts(own) != kept_experts(route)).sum()))
+        return route
+
+    moe.moe_route = wrapped
+    try:
+        yield otherwise
+    finally:
+        moe.moe_route = original
+
+
+@contextlib.contextmanager
+def plain_gmm():
+    """While active, the MoE layer's expert products take K9's plain version
+    (for the comparison route; never the counted run)."""
+    from repro_torch.kernels.moe_gmm.ref import gmm_plain
+    from repro_torch.models import moe
+
+    original = moe.grouped_matmul
+    moe.grouped_matmul = gmm_plain
+    try:
+        yield
+    finally:
+        moe.grouped_matmul = original
+
+
+def gmm_errs(got, want) -> tuple:
+    """(within GMM_TOL, max abs error, largest magnitude) of K9's output
+    against the plain version's."""
+    import torch
+
+    frac, rtol = GMM_TOL[str(want.dtype)[6:]]
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    return (bool(torch.allclose(g, w, atol=frac * scale, rtol=rtol)),
+            float((g - w).abs().max()), scale)
+
+
+def gmm_bound(x, w):
+    """(bound_ms, bound_by, flop) of one grouped matmul on these inputs:
+    every row is a product (no group sizes), two flop a multiply-add."""
+    E, C, D = x.shape
+    flop = 2.0 * E * C * D * w.shape[-1]
+    out_bytes = E * C * w.shape[-1] * x.element_size()
+    return (*bound(nbytes(x, w) + out_bytes, flop, BF16_OPS_PER_S), flop)
+
+
+def hold_gmm(kept, launches: int, decode_launches: int, decode_x) -> dict:
+    """K9 on the first layer's w_gate and w_down inputs from the prefill
+    against its plain version, in bf16 and upcast to float32; timed beside
+    the plain version, ``torch.bmm`` (cuBLAS, bf16) and its bound; then the
+    same timings at a decode step's shape."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import ops
+
+    match, err = True, 0.0
+    for label, (x, w, gs) in (("w_gate", kept[0][0]), ("w_down", kept[2][0])):
+        for kind, args in (("bf16", (x, w, gs)), ("upcast to float32", (x.float(), w.float(), gs))):
+            got, want = ops.gmm_cuda(*args), ops.gmm_plain(*args)
+            torch.cuda.synchronize()
+            ok, e, scale = gmm_errs(got, want)
+            print(f"[moe] K9 vs plain at the first layer's {label} product {tuple(x.shape)} x "
+                  f"{tuple(w.shape)}, {kind}: max|plain| {scale} err {e} match={ok}", flush=True)
+            match, err = match and ok, max(err, e)
+            del got, want, args
+    x, w, gs = kept[0][0]
+    b_ms, b_by, flop = gmm_bound(x, w)
+    row = dict(name="moe_gmm", source=K9_SOURCE[0], replaces=K9_SOURCE[1],
+               shape=f"x={tuple(x.shape)} w={tuple(w.shape)} {str(x.dtype)[6:]} group_sizes=None",
+               match=match, max_abs_err=err,
+               ms=cuda_time_ms(lambda: ops.gmm_cuda(x, w), 10),
+               plain_ms=cuda_time_ms(lambda: ops.gmm_plain(x, w), 3),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=cuda_time_ms(lambda: torch.bmm(x, w), 10),
+               library="torch.bmm (cuBLAS, bf16)")
+    xd, wd, _ = kept[2][0]
+    down_ms = cuda_time_ms(lambda: ops.gmm_cuda(xd, wd), 10)
+    print(f"[moe] K9 at the first layer's w_gate product: {row['shape']} match={match} "
+          f"max_abs_err={err} ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} bmm_ms="
+          f"{row['library_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) flop={flop:.4g} "
+          f"launches={launches}; its w_down product ms={down_ms:.6f}", flush=True)
+    d_ms, d_by, d_flop = gmm_bound(decode_x, w)
+    row.update(
+        decode_shape=f"x={tuple(decode_x.shape)} w={tuple(w.shape)}",
+        decode_launches=decode_launches,
+        decode_ms=cuda_time_ms(lambda: ops.gmm_cuda(decode_x, w), 20),
+        decode_plain_ms=cuda_time_ms(lambda: ops.gmm_plain(decode_x, w), 5),
+        decode_bound_ms=d_ms, decode_bound_by=d_by,
+        decode_library_ms=cuda_time_ms(lambda: torch.bmm(decode_x, w), 20))
+    print(f"[moe] K9 at a decode step's shape {row['decode_shape']}: ms={row['decode_ms']:.6f} "
+          f"plain_ms={row['decode_plain_ms']:.6f} bmm_ms={row['decode_library_ms']:.6f} "
+          f"bound_ms={d_ms:.6f} ({d_by}) launches per step={decode_launches}", flush=True)
+    return row
+
+
+def check_gmm_small() -> list:
+    """K9 against its plain version at small and ragged shapes and at the
+    decode shape, both dtypes, with and without group sizes; returns the
+    cases that disagree."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import ops
+
+    bad, worst = [], {}
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        # C, D and F off the tile edges; D, F not multiples of 8; decode
+        for E, C, D, F in [(2, 32, 48, 24), (3, 130, 96, 200), (2, 77, 50, 30),
+                           (8, 16, 6144, 16384)]:
+            x = torch.randn((E, C, D), generator=g).to("cuda", td)
+            w = (torch.randn((E, D, F), generator=g) / D ** 0.5).to("cuda", td)
+            for gs in (None, torch.tensor([C] + [C // 2] * (E - 1), dtype=torch.int32,
+                                          device="cuda")):
+                ok, e, _ = gmm_errs(ops.gmm_cuda(x, w, gs), ops.gmm_plain(x, w, gs))
+                worst[dtype] = max(worst.get(dtype, 0.0), e)
+                if not ok:
+                    bad.append(f"{dtype} {(E, C, D, F)} masked={gs is not None}")
+    print(f"[moe] K9 small shapes x dtypes x group sizes: max abs err {worst} disagree={bad}",
+          flush=True)
+    return bad
+
+
+def run_moe(device) -> tuple:
+    """The ``moe`` phase; returns (K9's row, with its launches per decode
+    step, K9's launches in the prefill, K4's launches in the prefill)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params, param_bytes)
+    from repro_torch.models import moe
+    from repro_torch.serving import Request, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    rt = Runtime(attn_impl="flash")
+    b_full, b_cut = (param_bytes(build_param_specs(c, rt)) for c in (full, cfg))
+    per_layer = (b_full - b_cut) / (full.n_layers - cfg.n_layers)
+    fits = int((80e9 - (b_cut - cfg.n_layers * per_layer)) // per_layer)
+    print(f"[moe] {cfg.name} cut from {full.n_layers} to {cfg.n_layers} layers: its bf16 weights "
+          f"take {b_full / 1e9:.1f} GB at {full.n_layers} layers ({per_layer / 1e9:.2f} GB a "
+          f"layer), and at most {fits} layers fit the card's 80 GB at all, fewer beside a "
+          f"prefill's activations; at {cfg.n_layers}, {b_cut / 1e9:.1f} GB. Widths as "
+          f"published: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+          f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of width "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}, window {cfg.window}; memory in use before "
+          f"the phase {torch.cuda.memory_allocated()} bytes", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(build_param_specs(cfg, rt), torch.Generator(device=device).manual_seed(0),
+                         device)
+    torch.cuda.synchronize()
+    print(f"[moe] {b_cut} weight bytes drawn on {device} in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    B, S = MOE_PREFILL
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (B, S))).to(device)
+    with torch.no_grad():
+        forward(params, cfg, rt, tokens=tokens[:, :512])   # warm-up: cuBLAS, K4, K9 load
+        torch.cuda.synchronize()
+        with record_routing() as (routes, first), \
+                keep_calls(gmm_ops, "gmm_cuda", (0, 2)) as kept:
+            counts.reset()
+            t0 = time.perf_counter()
+            logits = forward(params, cfg, rt, tokens=tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k9, k4 = counts.LAUNCHES["moe_gmm"], counts.LAUNCHES["flash_attn_fwd"]
+            plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+        dropped = [int((r[2] == r[3]).sum()) for r in routes]
+        print(f"[moe] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} tokens_per_s="
+              f"{B * S / wall:.1f} max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"K9 launches={k9} K4 launches={k4} plain_calls={plain}; of {S * cfg.moe.top_k} "
+              f"assignments a layer, capacity {routes[0][3]} per expert drops, by layer: "
+              f"{dropped}", flush=True)
+        if k9 != 3 * L or k4 != L or plain:
+            fail(f"prefill launched K9 {k9} times (want {3 * L}) and K4 {k4} times (want {L}), "
+                 f"plain calls {plain} (want none)")
+        if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
+        sample = list(range(0, S, 512)) + [S - 1]
+        k9_rows = logits[0, sample].float()
+        del logits
+
+        # layer 0's MoE on the prefill's own input, the expert products
+        # through K9's plain version: the routing must be identical
+        x0 = first["x"]
+        p0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+        with record_routing() as (again, _):
+            out_k9 = moe.moe_apply(p0, x0, cfg, rt)
+            with plain_gmm():
+                out_plain = moe.moe_apply(p0, x0, cfg, rt)
+        same0 = all(torch.equal(a, b) for r in again for a, b in zip(r[1:3], routes[0][1:3]))
+        rel0 = float((out_k9.float() - out_plain.float()).abs().max()
+                     / out_plain.float().abs().max())
+        print(f"[moe] layer 0's MoE on its prefill input, K9 vs plain products: expert_idx and "
+              f"slots identical={same0}; max|out diff|/max|out| {rel0} (bound {LOGIT_TOL})",
+              flush=True)
+        if not (same0 and rel0 <= LOGIT_TOL):
+            fail(f"layer 0 with K9 and with its plain version: routing identical={same0}, "
+                 f"output diff {rel0}")
+        del x0, out_k9, out_plain, first, again
+
+        # the plain route (K9's and K4's plain versions), taking the K9
+        # route's routing decisions
+        with plain_gmm(), replay_routing(lambda n, own: routes[n]) as otherwise:
+            t0 = time.perf_counter()
+            plain_logits = forward(params, cfg, dataclasses.replace(rt, attn_impl="xla"),
+                                   tokens=tokens)
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+        rel, err, pmax = logit_errs(k9_rows, plain_logits[0, sample])
+        del plain_logits, routes
+        print(f"[moe] prefill through the plain route (plain K9, attn_impl=xla, the K9 route's "
+              f"routing replayed): wall_s={plain_wall:.6f}; K9 route vs plain route at positions "
+              f"{sample}: max|logit diff|/max|logit| {rel} (bound {LOGIT_TOL}), softmax max diff "
+              f"{err} beside a largest probability of {pmax}; of {S} tokens the plain route's own "
+              f"router would keep other experts for, by layer: {otherwise}", flush=True)
+        if not rel <= LOGIT_TOL:
+            fail(f"the K9 route and the plain route disagree: logit diff {rel}")
+
+        # serving: greedy requests through the engine, then K9's launches in
+        # one decode step of the engine's batch
+        engine = ServingEngine(params, cfg, rt, batch_size=SERVE_REQS, max_len=SERVE_MAX_LEN)
+        reqs = [Request(prompt=rng.integers(2, cfg.vocab, SERVE_PROMPT).astype(np.int32),
+                        max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        steps = SERVE_PROMPT + SERVE_NEW - 1
+        n_new = sum(len(r.generated) for r in reqs)
+        print(f"[moe] ServingEngine batch {SERVE_REQS} max_len {SERVE_MAX_LEN}: {SERVE_REQS} "
+              f"greedy requests x {SERVE_PROMPT} prompt tokens, {n_new} new tokens in wall_s="
+              f"{swall:.6f} ({steps} decode steps of {SERVE_REQS} slots: step_ms="
+              f"{swall / steps * 1e3:.3f}, new tokens_per_s={n_new / swall:.1f}); first "
+              f"request: {reqs[0].generated[:8]}...", flush=True)
+        if any(len(r.generated) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+            fail(f"not every request got {SERVE_NEW} tokens in range")
+        cache = init_cache(cfg, rt, SERVE_REQS, SERVE_MAX_LEN, device=device)
+        step_toks = torch.full((SERVE_REQS, 1), 7, device=device)
+        for _ in range(SERVE_PROMPT):
+            _, cache = decode_step(params, cfg, rt, cache, step_toks)
+        with keep_calls(gmm_ops, "gmm_cuda", (0,)) as kept_dec:
+            counts.reset()
+            decode_step(params, cfg, rt, cache, step_toks)
+            torch.cuda.synchronize()
+            dec_k9 = counts.LAUNCHES["moe_gmm"]
+        print(f"[moe] one decode step of {SERVE_REQS} slots: K9 launches={dec_k9} (want {3 * L}) "
+              f"plain_calls={counts.PLAIN_CALLS['moe_gmm']}", flush=True)
+        if dec_k9 != 3 * L or counts.PLAIN_CALLS["moe_gmm"]:
+            fail(f"a decode step launched K9 {dec_k9} times (want {3 * L})")
+        decode_x = kept_dec[0][0][0]
+
+        # decode against forward on a 64-token prompt, each decode step
+        # taking the forward's routing of its token: its experts, its gates,
+        # and a drop where the forward's capacity dropped the assignment
+        prompt = torch.from_numpy(reqs[0].prompt[None].astype(np.int64)).to(device)
+        with record_routing() as (par_routes, _):
+            par = forward(params, cfg, rt, tokens=prompt)[0].float()
+
+        def token_route(n, own):
+            g, idx, slot, Cr = par_routes[n % L]
+            t, K = n // L, idx.shape[-1]
+            kept = slot.reshape(1, -1, K)[:, t] < Cr
+            return (g[:, t:t + 1], idx[:, t:t + 1], torch.where(kept, 0, own[3]), own[3])
+
+        n_dropped = sum(int((r[2] == r[3]).sum()) for r in par_routes)
+        tf_cache = init_cache(cfg, rt, 1, SERVE_PROMPT, device=device)
+        dec = []
+        with replay_routing(token_route) as otherwise:
+            for t in range(SERVE_PROMPT):
+                lg, tf_cache = decode_step(params, cfg, rt, tf_cache, prompt[:, t:t + 1])
+                dec.append(lg[0, 0].float())
+        rel, derr, pmax = logit_errs(torch.stack(dec), par)
+        moved = prompt.clone()
+        moved[0, 0] = 1
+        sens = logit_errs(forward(params, cfg, rt, tokens=moved)[0, -1], par[-1])[0]
+        print(f"[moe] decode_step teacher-forced over {SERVE_PROMPT} tokens vs forward (the "
+              f"forward's routing replayed; it drops {n_dropped} of "
+              f"{SERVE_PROMPT * cfg.moe.top_k * L} assignments at capacity factor "
+              f"{cfg.moe.capacity_factor}; decode's own router would keep other experts for "
+              f"{sum(otherwise)} token-layers): max|logit diff|/max|logit| {rel} (bound "
+              f"{LOGIT_TOL}), softmax max diff {derr} beside a largest probability of {pmax}; "
+              f"another first token moves the last position's logits by {sens}", flush=True)
+        if not rel <= LOGIT_TOL:
+            fail(f"decode and forward disagree: logit diff {rel}")
+        if not sens > 4 * LOGIT_TOL:
+            fail(f"the logit bound {LOGIT_TOL} is not 4x under the move {sens} that another "
+                 f"context token makes")
+        del par, dec, par_routes, tf_cache
+
+        device_profile(lambda: forward(params, cfg, rt, tokens=tokens), f"prefill {B}x{S}", 2,
+                       tag="moe")
+        device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
+                       f"decode step of {SERVE_REQS} slots at position {SERVE_PROMPT + 1}", 10,
+                       tag="moe")
+
+    row = hold_gmm(kept, k9, dec_k9, decode_x)
+    del params, engine, cache, kept, kept_dec, decode_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = check_gmm_small()
+    if not row["match"] or bad:
+        fail(f"K9 disagrees with its plain version: first layer match={row['match']} small={bad}")
+    return row, k9, k4
 
 
 def main() -> int:
@@ -1136,6 +1541,8 @@ def main() -> int:
     for name in ("flash_attn_dq", "flash_attn_dkv"):
         launches[name] = train_launches[name]
     main_rows.extend(bwd_rows)
+    k9_row, launches["moe_gmm"], moe_k4 = run_moe(device)
+    main_rows.append(k9_row)
     run_agreement()
 
     def line(r, n_launches):
@@ -1144,18 +1551,22 @@ def main() -> int:
                "max_abs_err": r["max_abs_err"], "match": r["match"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if "library" in r:
-            out["library"] = r["library"]
+        out.update({k: v for k, v in r.items() if k.startswith(("library", "decode_"))
+                    and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
+            out["moe_launches"] = moe_k4
         return out
 
     # "kernels": K1-K3 at the largest call of the tuner run, with the run's
     # launch counts; K4 at the serve phase's prefill with its launch count
-    # there (and its count in the train phase's Trainer.run beside it); K5
-    # and K6 at the train phase's first layer with their counts in
-    # Trainer.run; "at_scale": K1 and K2 at 131072 candidates, which the
-    # tuner run does not reach (no launch count)
+    # there (and its counts in the train phase's Trainer.run and the moe
+    # phase's prefill beside it); K5 and K6 at the train phase's first layer
+    # with their counts in Trainer.run; K9 at the moe phase's
+    # first layer with its launches in that prefill (its launches per
+    # decode step and its times at a decode step's shape beside them);
+    # "at_scale": K1 and K2 at 131072 candidates, which the tuner run does
+    # not reach (no launch count)
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],
                       "at_scale": [line(r, None) for r in scale_rows]}), flush=True)
     print(card, flush=True)

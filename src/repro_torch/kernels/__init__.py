@@ -1,3 +1,4 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``forest_eval``: K1 descent, ``rank``: K2 radix rank, ``chain``:
-K3 Shapley chain walk; ``flash_attn``: K4 flash-attention forward)."""
+K3 Shapley chain walk; ``flash_attn``: K4 flash-attention forward, K5 and
+K6 its backward; ``moe_gmm``: K9 grouped expert matmul)."""

@@ -29,7 +29,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
 KERNEL_SOURCES = (
-    "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_bwd",
+    "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_bwd", "moe_gmm",
 )
 
 NVCC_FLAGS = (

@@ -42,11 +42,12 @@ def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int):
 
 
 def launch(kernel: str, symbol: str, device: torch.device,
-           tensors: Sequence[torch.Tensor], ints: Sequence[int],
+           tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
            source: Optional[str] = None) -> None:
     """Call ``symbol`` of the library built from ``source`` (by default
-    ``kernel``) on the current stream of ``device``; raise on a nonzero CUDA
-    error; count the launch under ``kernel``."""
+    ``kernel``) on the current stream of ``device`` (a ``None`` tensor passes
+    a null pointer); raise on a nonzero CUDA error; count the launch under
+    ``kernel``."""
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel needs tensors on the card, got {device}")
     for v in ints:
@@ -55,7 +56,8 @@ def launch(kernel: str, symbol: str, device: torch.device,
     fn = _fn(source or kernel, symbol, len(tensors), len(ints))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in tensors], *[int(v) for v in ints], stream)
+        rc = fn(*[None if t is None else t.data_ptr() for t in tensors], *[int(v) for v in ints],
+                stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
     LAUNCHES[kernel] += 1

@@ -1,17 +1,20 @@
 """Model assembly: param specs, forward, cache and decode for the dense
-family (``dense``, and the ``vlm`` backbone, which shares its code path).
+family (``dense``, and the ``vlm`` backbone, which shares its code path)
+and the MoE family without MLA (mixtral-8x22b: leading dense blocks, if
+any, then blocks whose FFN is ``moe_apply``).
 
 Layer stacks are *stacked* (leading "layers" axis) as in the reference,
 which scans over them; the port runs a Python loop over layer slices, and
-autograd sums each slice's gradient into the stacked leaf. The other
-families (MoE, MLA, SSM, hybrid, enc-dec) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+autograd sums each slice's gradient into the stacked leaf. What is not
+ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: MLA
+(deepseek-v3), the SSM, hybrid and enc-dec families, and training of the
+MoE family.
 
 The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
 over the hidden states that ``forward(..., return_hidden=True)`` returns.
 Only ``Runtime.remat == "none"`` is taken (the value the reference's
-training launcher uses); DeepSeek's multi-token prediction comes with the
-MoE family.
+training launcher uses); DeepSeek's multi-token prediction comes with
+MLA.
 
 The decode path operates on a cache dict stacked over layers: K and V of
 shape (L, B, S, Hkv, hd) and ``pos`` (B,). ``decode_step`` writes the new
@@ -31,28 +34,31 @@ from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import attention_apply, attention_decode_apply, attention_specs
 from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm
-from .params import ParamSpec, tree_map
+from .moe import moe_apply, moe_specs
+from .params import ParamSpec, tree_leaves, tree_map
 from .runtime import Runtime
 
 __all__ = ["build_param_specs", "chunked_ce", "forward", "decode_step", "init_cache", "loss_fn"]
 
 _DENSE = ("dense", "vlm")
 _TODO = {
-    "moe": "10(c) (the MoE family, with MLA)",
     "ssm": "10(c) (the SSM family: RWKV6)",
     "hybrid": "10(c) (the hybrid family: Mamba2 with shared attention)",
     "encdec": "10(c) (the enc-dec family)",
 }
+_MLA = "10(c) (MLA and deepseek-v3)"
+_MOE_TRAINING = "10(c) (training the MoE family, with K9's backward)"
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family in _DENSE:
+def _require_ported(cfg: ArchConfig) -> None:
+    """Raise unless the inference path of ``cfg``'s family is ported."""
+    if cfg.family in _DENSE or (cfg.family == "moe" and cfg.mla is None):
         return
-    item = _TODO.get(cfg.family)
+    item = _MLA if cfg.family == "moe" else _TODO.get(cfg.family)
     if item is None:
         raise ValueError(f"unknown family {cfg.family!r}")
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md item {item})")
+    what = "MLA attention" if cfg.family == "moe" else f"family {cfg.family!r}"
+    raise NotImplementedError(f"{cfg.name}: {what} is not ported yet (ROADMAP.md item {item})")
 
 
 def _ln(stacked: Optional[int], d: int, dtype: torch.dtype) -> ParamSpec:
@@ -65,11 +71,40 @@ def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
     return tree_map(lambda a: a[i], stacked)
 
 
+def _depth(stacked: Dict[str, Any]) -> int:
+    return tree_leaves(stacked)[0].shape[0]
+
+
+def _stacks(params):
+    """(stack, index of its first layer) of each layer stack in forward
+    order: the MoE family's leading dense blocks (if any), then the blocks."""
+    dense = params.get("dense_blocks")
+    if dense is None:
+        return [(params["blocks"], 0)]
+    return [(dense, 0), (params["blocks"], _depth(dense))]
+
+
+def _ffn(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
+    if "moe" in p:
+        return moe_apply(p["moe"], x, cfg, rt)
+    return ffn_apply(p["ffn"], x, cfg.act)
+
+
 # =========================================================== param specs
 
 
+def _dense_blocks(cfg: ArchConfig, n: int, dt: torch.dtype) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "attn": attention_specs(cfg, stacked=n, dtype=dt),
+        "ffn": ffn_specs(d, cfg.d_ff, cfg.act, stacked=n, dtype=dt),
+        "ln1": _ln(n, d, dt),
+        "ln2": _ln(n, d, dt),
+    }
+
+
 def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
-    _require_dense(cfg)
+    _require_ported(cfg)
     rt = rt or Runtime()
     dt = rt.pdtype
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
@@ -79,11 +114,17 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
     }
     if not cfg.tie_embeddings:
         specs["out"] = ParamSpec((V, d), ("vocab", "embed"), dt, "scaled", fan_in_axis=-1)
+    if cfg.family in _DENSE:
+        specs["blocks"] = _dense_blocks(cfg, L, dt)
+        return specs
+    nd = cfg.moe.first_dense_layers
+    if nd:
+        specs["dense_blocks"] = _dense_blocks(cfg, nd, dt)
     specs["blocks"] = {
-        "attn": attention_specs(cfg, stacked=L, dtype=dt),
-        "ffn": ffn_specs(d, cfg.d_ff, cfg.act, stacked=L, dtype=dt),
-        "ln1": _ln(L, d, dt),
-        "ln2": _ln(L, d, dt),
+        "attn": attention_specs(cfg, stacked=L - nd, dtype=dt),
+        "moe": moe_specs(cfg, stacked=L - nd, dtype=dt),
+        "ln1": _ln(L - nd, d, dt),
+        "ln2": _ln(L - nd, d, dt),
     }
     return specs
 
@@ -112,7 +153,7 @@ def forward(
 ) -> torch.Tensor:
     """Returns logits (B, S, V) in the compute dtype, or with
     ``return_hidden`` the hidden states (B, S, D) after ``final_ln``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if inputs_embeds is not None:
         x = inputs_embeds.to(rt.cdtype)
     else:
@@ -124,12 +165,12 @@ def forward(
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        p = _layer(blocks, i)
-        x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
-                                positions, causal)
-        x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    for blocks, _ in _stacks(params):
+        for i in range(_depth(blocks)):
+            p = _layer(blocks, i)
+            x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
+                                    positions, causal)
+            x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
     if return_hidden:
         return rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return _logits(params, cfg, x)
@@ -207,14 +248,18 @@ def chunked_ce(x: torch.Tensor, out_w: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token CE of the ``dense`` and ``vlm`` families."""
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE family is not ported yet (ROADMAP.md item "
+            f"{_MOE_TRAINING})")
     if rt.remat != "none":
         raise NotImplementedError(
             f"Runtime.remat={rt.remat!r} is not ported yet (ROADMAP.md item 11, with the "
             f"memory scheduling of the distribution work); use remat='none'")
     if cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is not ported yet (ROADMAP.md item 10(c))")
+            f"{cfg.name}: multi-token prediction is not ported yet (ROADMAP.md item {_MLA})")
     x = forward(params, cfg, rt, tokens=batch.get("tokens"),
                 inputs_embeds=batch.get("inputs_embeds"), positions=batch.get("positions"),
                 return_hidden=True)
@@ -233,7 +278,7 @@ def _cache_len(cfg: ArchConfig, max_len: int) -> int:
 def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: int = 0,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Stacked-over-layers cache dict. ``pos`` counts tokens generated."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     S = _cache_len(cfg, max_len)
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
@@ -247,14 +292,15 @@ def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: 
 def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor):
     """One decode step. tokens: (B, 1) -> logits (B, 1, V), cache."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][tokens.long()].to(rt.cdtype)
     pos = cache["pos"]
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        p = _layer(blocks, i)
-        sub = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
-        a, _ = attention_decode_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), sub, cfg, rt)
-        x = x + a
-        x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    for blocks, first in _stacks(params):
+        for i in range(_depth(blocks)):
+            p = _layer(blocks, i)
+            sub = {"k": cache["k"][first + i], "v": cache["v"][first + i], "pos": pos}
+            a, _ = attention_decode_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), sub,
+                                          cfg, rt)
+            x = x + a
+            x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
     return _logits(params, cfg, x), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

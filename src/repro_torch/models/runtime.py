@@ -6,15 +6,17 @@ runs, never *what* it computes.
 
 In the port the numerics (``param_dtype``, ``compute_dtype``,
 ``softmax_dtype``, and ``opt_state_dtype``, the dtype of the AdamW moments
-that ``Trainer`` allocates) and the attention route (``attn_impl``,
-``attn_chunk``, ``q_block``, ``kv_block``) take effect. ``remat`` takes
+that ``Trainer`` allocates), the attention route (``attn_impl``,
+``attn_chunk``, ``q_block``, ``kv_block``) and the MoE capacity
+(``capacity_factor``) take effect. ``remat`` takes
 only ``"none"`` and ``grad_compression`` only ``"none"`` in training:
 other values raise, naming their ROADMAP.md item. The fields that steer XLA
 or sharding in the reference (``matmul_precision``, ``scan_layers``,
 ``scan_unroll``, ``dp_size``, ``act_shard``, ``fsdp``, ``zero1``,
 ``seq_shard``, ``overlap_collective_matmul``, ``pp_stages``,
-``pp_microbatches``) and the MoE fields are kept and have no effect:
-PyTorch runs eagerly on one card, and MoE is not ported yet.
+``pp_microbatches``) and ``moe_impl`` are kept and have no effect:
+PyTorch runs eagerly on one card, and the reference's MoE layer reads no
+``moe_impl`` either.
 """
 
 from __future__ import annotations

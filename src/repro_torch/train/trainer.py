@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import signal
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -82,8 +83,14 @@ class Trainer:
         )
 
     def _install_preemption_hook(self) -> None:
+        # the handler outlives run(); a weak reference lets the trainer and
+        # its weights be freed when the caller drops it
+        ref = weakref.ref(self)
+
         def handler(signum, frame):
-            self._preempted = True
+            trainer = ref()
+            if trainer is not None:
+                trainer._preempted = True
 
         try:
             signal.signal(signal.SIGTERM, handler)

@@ -13,7 +13,11 @@ K5 and K6 (the backward) are held to the same tolerances over the same
 grid, relative to the largest magnitude of each gradient where that
 exceeds 1 (a gradient sums over up to Sk keys or Sq * G rows); the flash
 autograd function and a reduced ``Trainer`` step on the card are held to
-the same on the CPU.
+the same on the CPU. K9 (the grouped expert matmul) is held to its plain
+version within one bf16 step of the largest magnitude in bfloat16 and
+2e-5 in float32, at small and ragged shapes, at mixtral-8x22b's decode and
+prefill shapes and with group sizes; the reduced mixtral on the card is
+held to the CPU.
 """
 from __future__ import annotations
 
@@ -372,3 +376,119 @@ def test_reduced_trainer_step_on_the_card_matches_the_cpu(cuda):
     # parameter's update by up to a few hundredths of lr
     for a, b in zip(tree_leaves(card.params), tree_leaves(host.params)):
         torch.testing.assert_close(a.cpu(), b, atol=0.1 * 1e-3 * 2, rtol=0)
+
+
+# --------------------------------------------------------------------- K9
+
+def _gmm_inputs(E, C, D, F, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((E, C, D), generator=g).to(device=device, dtype=dtype)
+    w = (torch.randn((E, D, F), generator=g) / D ** 0.5).to(device=device, dtype=dtype)
+    return x, w
+
+
+def _gmm_close(got, want):
+    """bfloat16: within one bf16 step (2**-7 relative) of the largest
+    magnitude (both sum in float32 from the same inputs, then round);
+    float32: within 2e-5 of the largest magnitude and 2e-5 relative (the
+    summation order differs)."""
+    scale = float(want.float().abs().max())
+    frac, rtol = (2.0 ** -7, 0.0) if want.dtype == torch.bfloat16 else (2e-5, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=frac * scale, rtol=rtol)
+
+
+# (E, C, D, F): small; C, D and F off every tile edge (the scalar load path:
+# D and F not multiples of 8); mixtral-8x22b's decode (C = 16 for 4 slots)
+GMM_SHAPES = [(2, 32, 48, 24), (3, 130, 96, 200), (2, 77, 50, 30), (8, 16, 6144, 16384)]
+
+
+@pytest.mark.parametrize("E,C,D,F", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gmm_matches_plain(cuda, E, C, D, F, dtype, masked):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(E, C, D, F, dtype, cuda)
+    gs = (torch.tensor([C] + [C // 2] * (E - 1), dtype=torch.int32, device=cuda)
+          if masked else None)
+    before, plain = counts.LAUNCHES["moe_gmm"], counts.PLAIN_CALLS["moe_gmm"]
+    got = ops.grouped_matmul(x, w, gs)
+    assert counts.LAUNCHES["moe_gmm"] == before + 1 and counts.PLAIN_CALLS["moe_gmm"] == plain
+    want = ops.gmm_plain(x, w, gs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (E, C, F)
+    _gmm_close(got, want)
+    if masked:
+        assert not bool(got[1:, C // 2:].any())
+
+
+def test_gmm_at_mixtral_prefill_shape(cuda):
+    from repro_torch.kernels.moe_gmm import ops
+
+    # the first layer's w_gate product of a 1 x 8192 prefill: Cr = 2560
+    x, w = _gmm_inputs(8, 2560, 6144, 16384, torch.bfloat16, cuda, seed=1)
+    got = ops.grouped_matmul(x, w)
+    want = ops.gmm_plain(x, w)
+    torch.cuda.synchronize()
+    _gmm_close(got, want)
+
+
+def test_gmm_group_sizes_past_the_ends(cuda):
+    from repro_torch.kernels.moe_gmm import ops
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = _gmm_inputs(3, 140, 64, 72, dtype, cuda, seed=2)
+        x[2, 100:] = float("nan")   # rows past the group size are never read
+        gs = torch.tensor([0, 150, 100], dtype=torch.int32)
+        got = ops.grouped_matmul(x, w, gs)   # a host tensor is moved to the card
+        want = ops.gmm_plain(x, w, gs.to(cuda))
+        torch.cuda.synchronize()
+        assert not bool(got[0].any()) and not bool(got[2, 100:].any())
+        _gmm_close(got, want)
+
+
+def test_gmm_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(2, 8, 16, 8, torch.float32, cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.gmm_cuda(x, w.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="not supported"):
+        ops.gmm_cuda(x.half(), w.half())
+    with pytest.raises(ValueError, match="shape"):
+        ops.gmm_cuda(x, w[:, :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gmm_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(TypeError, match="int32"):
+        ops.gmm_cuda(x, w, torch.ones(2, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_mixtral_on_the_card_matches_the_cpu(cuda, dtype):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, decode_step, forward
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.params import tree_map
+
+    cfg = reduced(get_arch("mixtral-8x22b"))
+    rt = Runtime(param_dtype=dtype, compute_dtype=dtype, attn_impl="flash", q_block=32,
+                 kv_block=32)
+    host = init_params(build_param_specs(cfg, rt), torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    tokens = np.random.default_rng(0).integers(2, cfg.vocab, (2, 64))
+    counts.reset()
+    got = forward(card, cfg, rt, tokens=torch.from_numpy(tokens).to(cuda))
+    assert counts.LAUNCHES["moe_gmm"] == 3 * cfg.n_layers
+    cache = init_cache(cfg, rt, 2, 8, device=cuda)
+    lg, _ = decode_step(card, cfg, rt, cache, torch.from_numpy(tokens[:, :1]).to(cuda))
+    assert counts.LAUNCHES["moe_gmm"] == 6 * cfg.n_layers
+    assert counts.PLAIN_CALLS["moe_gmm"] == 0
+    want = forward(host, cfg, rt, tokens=torch.from_numpy(tokens))
+    err = (torch.softmax(got.float().cpu(), -1) - torch.softmax(want.float(), -1)).abs().max()
+    assert float(err) < (1e-5 if dtype == "float32" else 5e-2), float(err)
+    host_lg, _ = decode_step(host, cfg, rt, init_cache(cfg, rt, 2, 8, device="cpu"),
+                             torch.from_numpy(tokens[:, :1]))
+    err = (torch.softmax(lg.float().cpu(), -1) - torch.softmax(host_lg.float(), -1)).abs().max()
+    assert float(err) < (1e-5 if dtype == "float32" else 5e-2), float(err)

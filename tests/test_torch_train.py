@@ -507,6 +507,27 @@ def test_trainer_draws_its_own_weights_from_the_seed():
     assert int(a.opt.step) == 0 and a.opt.v["embed"].dtype == torch.float32
 
 
+def test_trainer_is_freed_after_run():
+    """The SIGTERM hook that run() installs keeps no reference to the
+    trainer, so dropping it frees its weights."""
+    import gc
+    import signal
+    import weakref
+
+    cfg = _cfgs()[1]
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        t = PTrainer(cfg, _runtimes("float32")[1], seq_len=8, global_batch=1, seed=4,
+                     device="cpu")
+        t.run(1, log_every=100)
+        ref = weakref.ref(t)
+        del t
+        gc.collect()
+        assert ref() is None
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+
+
 # ------------------------------------------------------------ checkpoints
 
 
