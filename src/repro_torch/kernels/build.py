@@ -30,6 +30,7 @@ _BUILD = _PKG / "_build"
 
 KERNEL_SOURCES = (
     "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_bwd", "moe_gmm",
+    "rmsnorm", "rwkv6_wkv",
 )
 
 NVCC_FLAGS = (

@@ -31,11 +31,12 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]
         raise ValueError(f"{name} must be contiguous")
 
 
-def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int):
+def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
     fn = _FNS.get(symbol)
     if fn is None:
         fn = getattr(build.load(kernel), symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn
     return fn
@@ -43,21 +44,22 @@ def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int):
 
 def launch(kernel: str, symbol: str, device: torch.device,
            tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
-           source: Optional[str] = None) -> None:
+           source: Optional[str] = None, floats: Sequence[float] = ()) -> None:
     """Call ``symbol`` of the library built from ``source`` (by default
-    ``kernel``) on the current stream of ``device`` (a ``None`` tensor passes
-    a null pointer); raise on a nonzero CUDA error; count the launch under
-    ``kernel``."""
+    ``kernel``) on the current stream of ``device`` with the pointers of
+    ``tensors`` (a ``None`` tensor passes a null pointer), then ``ints`` as
+    C ints and ``floats`` as C floats; raise on a nonzero CUDA error; count
+    the launch under ``kernel``."""
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel needs tensors on the card, got {device}")
     for v in ints:
         if not 0 <= v < 2**31:
             raise ValueError(f"{kernel}: launch size {v} outside the int32 range")
-    fn = _fn(source or kernel, symbol, len(tensors), len(ints))
+    fn = _fn(source or kernel, symbol, len(tensors), len(ints), len(floats))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*[None if t is None else t.data_ptr() for t in tensors], *[int(v) for v in ints],
-                stream)
+                *[float(v) for v in floats], stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
     LAUNCHES[kernel] += 1

@@ -1,8 +1,9 @@
 """The LM stack's model code, ported from the reference's ``models``
 package: the dense family (``dense`` and the ``vlm`` backbone), for
-inference and training (``loss_fn``), and the MoE family without MLA
-(mixtral-8x22b), for inference. The other families, MLA and MoE training
-come later (``ROADMAP.md`` item 10(c))."""
+inference and training (``loss_fn``), the MoE family without MLA
+(mixtral-8x22b) and the SSM family (rwkv6-7b), for inference. The other
+families, MLA and the training of the MoE and SSM families come later
+(``ROADMAP.md`` item 10(c))."""
 
 from .runtime import Runtime
 from .params import ParamSpec, init_params, param_bytes

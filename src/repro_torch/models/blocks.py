@@ -1,7 +1,9 @@
 """Shared building blocks: norms, FFN variants, rotary embeddings.
 
 Each function computes what its namesake in the reference's
-``models/blocks.py`` computes, with the same casts. ``jax.nn.gelu``
+``models/blocks.py`` computes, with the same casts. ``rmsnorm`` runs the
+fused RMSNorm of ``kernels/rmsnorm`` (K10 forward, K11 backward on the
+card), which computes the reference's jnp norm. ``jax.nn.gelu``
 defaults to the tanh approximation, so ``ffn_apply`` takes
 ``approximate="tanh"``. The reference's ``shard_batch`` constrains a
 layout on a mesh; on one card it is the identity, and the port has none.
@@ -14,18 +16,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.rmsnorm.ops import rmsnorm
 from .params import ParamSpec
 
 __all__ = [
     "rmsnorm", "ffn_specs", "ffn_apply", "rope_freqs", "apply_rope", "mrope_positions",
 ]
-
-
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
-    x32 = x.float()
-    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return ((x32 * rms) * w.float()).to(dt)
 
 
 # ---------------------------------------------------------------------- FFN

@@ -1,14 +1,16 @@
 """Model assembly: param specs, forward, cache and decode for the dense
-family (``dense``, and the ``vlm`` backbone, which shares its code path)
-and the MoE family without MLA (mixtral-8x22b: leading dense blocks, if
-any, then blocks whose FFN is ``moe_apply``).
+family (``dense``, and the ``vlm`` backbone, which shares its code path),
+the MoE family without MLA (mixtral-8x22b: leading dense blocks, if any,
+then blocks whose FFN is ``moe_apply``) and the SSM family (rwkv6-7b: a
+time-mix block, ``rwkv6_apply``, and a channel-mix block, ``_rwkv_cmix``,
+each behind an RMSNorm).
 
 Layer stacks are *stacked* (leading "layers" axis) as in the reference,
 which scans over them; the port runs a Python loop over layer slices, and
 autograd sums each slice's gradient into the stacked leaf. What is not
 ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: MLA
-(deepseek-v3), the SSM, hybrid and enc-dec families, and training of the
-MoE family.
+(deepseek-v3), the hybrid and enc-dec families, and training of the MoE
+and SSM families.
 
 The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
 over the hidden states that ``forward(..., return_hidden=True)`` returns.
@@ -17,8 +19,10 @@ training launcher uses); DeepSeek's multi-token prediction comes with
 MLA.
 
 The decode path operates on a cache dict stacked over layers: K and V of
-shape (L, B, S, Hkv, hd) and ``pos`` (B,). ``decode_step`` writes the new
-K/V into those tensors in place and returns the same tensors with ``pos``
+shape (L, B, S, Hkv, hd) and ``pos`` (B,); for the SSM family the float32
+WKV states ``wkv`` (L, B, H, K, K) and the two token-shift carries
+``shift1``, ``shift2`` (L, B, 1, D). ``decode_step`` writes the new entries
+into those tensors in place and returns the same tensors with ``pos``
 advanced (the reference returns new arrays); do not reuse a cache after
 passing it on.
 """
@@ -37,22 +41,23 @@ from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_leaves, tree_map
 from .runtime import Runtime
+from .rwkv6 import _token_shift, rwkv6_apply, rwkv6_decode_apply, rwkv6_specs
 
 __all__ = ["build_param_specs", "chunked_ce", "forward", "decode_step", "init_cache", "loss_fn"]
 
 _DENSE = ("dense", "vlm")
 _TODO = {
-    "ssm": "10(c) (the SSM family: RWKV6)",
     "hybrid": "10(c) (the hybrid family: Mamba2 with shared attention)",
     "encdec": "10(c) (the enc-dec family)",
 }
 _MLA = "10(c) (MLA and deepseek-v3)"
-_MOE_TRAINING = "10(c) (training the MoE family, with K9's backward)"
+# families that serve but do not train yet: what their training needs
+_UNTRAINED = {"moe": ("MoE", "K9"), "ssm": ("SSM", "K12")}
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     """Raise unless the inference path of ``cfg``'s family is ported."""
-    if cfg.family in _DENSE or (cfg.family == "moe" and cfg.mla is None):
+    if cfg.family in _DENSE or cfg.family == "ssm" or (cfg.family == "moe" and cfg.mla is None):
         return
     item = _MLA if cfg.family == "moe" else _TODO.get(cfg.family)
     if item is None:
@@ -117,6 +122,19 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
     if cfg.family in _DENSE:
         specs["blocks"] = _dense_blocks(cfg, L, dt)
         return specs
+    if cfg.family == "ssm":
+        specs["blocks"] = {
+            "tmix": rwkv6_specs(cfg, stacked=L, dtype=dt),
+            "cmix": {
+                "w_k": ParamSpec((L, d, cfg.d_ff), ("layers", "embed", "mlp"), dt, "scaled"),
+                "w_v": ParamSpec((L, cfg.d_ff, d), ("layers", "mlp", "embed"), dt, "scaled"),
+                "w_r": ParamSpec((L, d, d), ("layers", "embed", "heads"), dt, "scaled"),
+                "mix": ParamSpec((L, 2, d), ("layers", None, "embed"), dt, "zeros"),
+            },
+            "ln1": _ln(L, d, dt),
+            "ln2": _ln(L, d, dt),
+        }
+        return specs
     nd = cfg.moe.first_dense_layers
     if nd:
         specs["dense_blocks"] = _dense_blocks(cfg, nd, dt)
@@ -130,6 +148,18 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
 
 
 # =============================================================== forward
+
+
+def _rwkv_cmix(p, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RWKV's channel mix: a squared-ReLU FFN on a token-shifted input,
+    gated by a sigmoid receptance."""
+    shifted = _token_shift(x, prev)
+    lam_k = torch.sigmoid(p["mix"][0]).to(x.dtype)
+    lam_r = torch.sigmoid(p["mix"][1]).to(x.dtype)
+    xk = x + (shifted - x) * lam_k
+    xr = x + (shifted - x) * lam_r
+    k = torch.relu(xk @ p["w_k"])
+    return torch.sigmoid(xr @ p["w_r"]) * ((k * k) @ p["w_v"])
 
 
 def _head(params, cfg: ArchConfig) -> torch.Tensor:
@@ -168,6 +198,10 @@ def forward(
     for blocks, _ in _stacks(params):
         for i in range(_depth(blocks)):
             p = _layer(blocks, i)
+            if cfg.family == "ssm":
+                x = x + rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt)
+                x = x + _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+                continue
             x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
                                     positions, causal)
             x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
@@ -249,10 +283,11 @@ def chunked_ce(x: torch.Tensor, out_w: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token CE of the ``dense`` and ``vlm`` families."""
     _require_ported(cfg)
-    if cfg.family == "moe":
+    if cfg.family in _UNTRAINED:
+        name, kernel = _UNTRAINED[cfg.family]
         raise NotImplementedError(
-            f"{cfg.name}: training the MoE family is not ported yet (ROADMAP.md item "
-            f"{_MOE_TRAINING})")
+            f"{cfg.name}: training the {name} family is not ported yet (ROADMAP.md item "
+            f"10(c) (training the {name} family, with {kernel}'s backward))")
     if rt.remat != "none":
         raise NotImplementedError(
             f"Runtime.remat={rt.remat!r} is not ported yet (ROADMAP.md item 11, with the "
@@ -280,12 +315,22 @@ def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: 
     """Stacked-over-layers cache dict. ``pos`` counts tokens generated."""
     _require_ported(cfg)
     dev = resolve_device(device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        H, K, L = cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.n_layers
+        shift = (L, batch, 1, cfg.d_model)
+        return {
+            "wkv": torch.zeros((L, batch, H, K, K), dtype=torch.float32, device=dev),
+            "shift1": torch.zeros(shift, dtype=rt.cdtype, device=dev),
+            "shift2": torch.zeros(shift, dtype=rt.cdtype, device=dev),
+            "pos": pos,
+        }
     S = _cache_len(cfg, max_len)
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=rt.cdtype, device=dev),
         "v": torch.zeros(shape, dtype=rt.cdtype, device=dev),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "pos": pos,
     }
 
 
@@ -295,6 +340,8 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Ten
     _require_ported(cfg)
     x = params["embed"][tokens.long()].to(rt.cdtype)
     pos = cache["pos"]
+    if cfg.family == "ssm":
+        return _ssm_decode_step(params, cfg, rt, cache, x)
     for blocks, first in _stacks(params):
         for i in range(_depth(blocks)):
             p = _layer(blocks, i)
@@ -304,3 +351,19 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Ten
             x = x + a
             x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
     return _logits(params, cfg, x), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def _ssm_decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],
+                     x: torch.Tensor):
+    blocks = params["blocks"]
+    for i in range(_depth(blocks)):
+        p = _layer(blocks, i)
+        state = {"wkv": cache["wkv"][i], "shift": cache["shift1"][i]}
+        a, st = rwkv6_decode_apply(p["tmix"], rmsnorm(x, p["ln1"], cfg.norm_eps), state, cfg, rt)
+        x = x + a
+        inner = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + _rwkv_cmix(p["cmix"], inner, prev=cache["shift2"][i])
+        cache["wkv"][i].copy_(st["wkv"])
+        cache["shift1"][i].copy_(st["shift"])
+        cache["shift2"][i].copy_(inner)
+    return _logits(params, cfg, x), dict(cache, pos=cache["pos"] + 1)

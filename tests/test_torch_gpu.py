@@ -17,7 +17,16 @@ the same on the CPU. K9 (the grouped expert matmul) is held to its plain
 version within one bf16 step of the largest magnitude in bfloat16 and
 2e-5 in float32, at small and ragged shapes, at mixtral-8x22b's decode and
 prefill shapes and with group sizes; the reduced mixtral on the card is
-held to the CPU.
+held to the CPU. K10 and K11 (RMSNorm) are held to their plain versions
+within one bf16 step of the largest magnitude in bfloat16 and 1e-6/1e-5 in
+float32, over ragged shapes and mixed gain types, through autograd on the
+card against the CPU, and in a reduced dense training step whose every
+gradient leaf must match the CPU's. K12 (the WKV scan) is held to its
+plain version in both its functions: the state within 2e-5 of its largest
+magnitude, y within one bf16 step (2e-5 in float32), and, with the
+model's bf16 intra-chunk operands, where ulp-level differences flip a
+rounding, 95 % of y within that and all within one more step; the reduced
+rwkv6 on the card is held to the CPU.
 """
 from __future__ import annotations
 
@@ -492,3 +501,249 @@ def test_reduced_mixtral_on_the_card_matches_the_cpu(cuda, dtype):
                              torch.from_numpy(tokens[:, :1]))
     err = (torch.softmax(lg.float().cpu(), -1) - torch.softmax(host_lg.float(), -1)).abs().max()
     assert float(err) < (1e-5 if dtype == "float32" else 5e-2), float(err)
+
+
+# ---------------------------------------------------------------- K10, K11
+
+def _bf16_or_f32_close(got, want, f32_tol):
+    """bfloat16: within one bf16 step (2**-7) of the largest magnitude (both
+    compute in float32 from the same inputs, then round); float32: within
+    ``f32_tol`` of it (the summation order differs)."""
+    scale = float(want.float().abs().max())
+    tol = 2.0 ** -7 if want.dtype == torch.bfloat16 else f32_tol
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=0)
+
+
+# (N, D): one row; ragged N and a D that is not a multiple of 8 (the scalar
+# path); rwkv6-7b's and llama3-8b's width at the prefill; mixtral's width
+RMS_SHAPES = [(1, 64), (37, 50), (200, 96), (8192, 4096), (130, 6144)]
+
+
+@pytest.mark.parametrize("N,D", RMS_SHAPES)
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32)])
+def test_rmsnorm_fwd_and_bwd_match_plain(cuda, N, D, dtype, wdtype):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rmsnorm import ops
+
+    g = torch.Generator(device="cpu").manual_seed(N + D)
+    x = (torch.randn((N, D), generator=g) * 3).to(cuda, dtype)
+    w = torch.randn((D,), generator=g).to(cuda, wdtype)
+    do = torch.randn((N, D), generator=g).to(cuda, dtype)
+    before = dict(counts.LAUNCHES)
+    out, rstd = ops.rmsnorm_fwd(x, w, 1e-5)
+    dx, parts = ops.rmsnorm_bwd(x, w, rstd, do)
+    assert counts.LAUNCHES["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 1
+    assert counts.LAUNCHES["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1
+    pout, prstd = ops.rmsnorm_fwd_plain(x, w, 1e-5)
+    pdx, pparts = ops.rmsnorm_bwd_plain(x, w, rstd, do)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and dx.dtype == dtype and parts.shape == pparts.shape
+    torch.testing.assert_close(rstd, prstd, atol=0, rtol=2e-6)
+    _bf16_or_f32_close(out, pout, 1e-6)
+    _bf16_or_f32_close(dx, pdx, 1e-5)
+    torch.testing.assert_close(parts, pparts, atol=1e-5 * float(pparts.abs().max()), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_autograd_on_the_card_matches_the_cpu(cuda, dtype):
+    from repro_torch.kernels import counts
+    from repro_torch.models.blocks import rmsnorm
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    host = [torch.randn(s, generator=g).to(dtype) for s in ((2, 300, 256), (256,), (2, 300, 256))]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        x, w = (t.to(dev).requires_grad_(True) for t in host[:2])
+        counts.reset()
+        out = rmsnorm(x, w, 1e-5)
+        out.backward(host[2].to(dev))
+        on_card = dev.type == "cuda"
+        for name in ("rmsnorm_fwd", "rmsnorm_bwd"):
+            assert counts.LAUNCHES[name] == int(on_card)
+            assert counts.PLAIN_CALLS[name] == int(not on_card)
+        grads[dev.type] = [out.detach().cpu(), x.grad.cpu(), w.grad.cpu()]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _bf16_or_f32_close(got, want, 1e-5)
+
+
+def test_rmsnorm_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.rmsnorm import ops
+
+    x, w = torch.ones((4, 8), device=cuda), torch.ones(8, device=cuda)
+    with pytest.raises(TypeError, match="not supported"):
+        ops.rmsnorm_fwd_cuda(x.half(), w)
+    with pytest.raises(ValueError, match="shape"):
+        ops.rmsnorm_fwd_cuda(x, torch.ones(9, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm_fwd_cuda(torch.ones((8, 4), device=cuda).t(), w)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.rmsnorm_bwd_cuda(x, w, torch.ones(4, device=cuda), x.to(torch.bfloat16))
+
+
+def test_dense_training_step_differentiates_through_k11(cuda):
+    """Every gradient leaf of a reduced llama3-8b step exists with K10 and
+    K11 on the path, and matches the CPU's."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, init_params, loss_fn
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    cfg = reduced(get_arch("llama3-8b"))
+    rt = Runtime(param_dtype="float32", compute_dtype="float32", attn_impl="flash",
+                 q_block=32, kv_block=32)
+    host = init_params(build_param_specs(cfg, rt), torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab, (2, 65)))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True), host)
+        batch = {"tokens": tokens[:, :-1].to(dev), "labels": tokens[:, 1:].to(dev)}
+        counts.reset()
+        loss = loss_fn(params, cfg, rt, batch)
+        leaves = tree_leaves(params)
+        grads[dev.type] = [gr.cpu() for gr in torch.autograd.grad(loss, leaves)]
+        if dev.type == "cuda":
+            assert counts.LAUNCHES["rmsnorm_fwd"] == counts.LAUNCHES["rmsnorm_bwd"] \
+                == 2 * cfg.n_layers + 1
+            assert counts.PLAIN_CALLS["rmsnorm_fwd"] == counts.PLAIN_CALLS["rmsnorm_bwd"] == 0
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert bool(want.abs().max() > 0)
+        err = float((got - want).norm() / want.norm())
+        assert err < 1e-4, err
+
+
+# --------------------------------------------------------------------- K12
+
+def _wkv_inputs(B, S, H, K, dtype, wdtype, device, seed=0):
+    """r, k, v at scale 0.5, the model's floored log decay, u at scale 0.3."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r, k, v = ((torch.randn((B, S, H, K), generator=g) * 0.5).to(device, dtype)
+               for _ in range(3))
+    w = (-torch.nn.functional.softplus(torch.randn((B, S, H, K), generator=g)) - 0.1)
+    w = w.clamp_min(-2.0).to(device, wdtype)
+    u = (torch.randn((H, K), generator=g) * 0.3).to(device)
+    return r, k, v, w, u
+
+
+def _wkv_close(y, py, st, pst, bf16_intra):
+    """The state within 2e-5 of its largest magnitude. y in float32 products:
+    within one bf16 step of its largest magnitude in bfloat16, 2e-5 in
+    float32. With bf16 intra-chunk operands the function jumps by one bf16
+    step where the kernel's and the plain version's float32 intermediates
+    (sequential vs scanned cumsum, expf vs torch's exp) straddle a rounding
+    boundary: there at least 95 % of y within that bound and all within one
+    bf16 step (float32 y) or two (bfloat16 y)."""
+    sscale = float(pst.abs().max())
+    torch.testing.assert_close(st, pst, atol=2e-5 * sscale, rtol=2e-5)
+    scale = float(py.float().abs().max())
+    tol = 2.0 ** -7 if py.dtype == torch.bfloat16 else 2e-5
+    err = (y.float() - py.float()).abs() / scale
+    if not bf16_intra:
+        assert float(err.max()) <= tol, float(err.max())
+        return
+    assert float((err <= tol).float().mean()) >= 0.95
+    assert float(err.max()) <= (2 if py.dtype == torch.bfloat16 else 1) * 2.0 ** -7
+
+
+# (B, S, H, K, chunk): the rwkv6-7b layout at full head width with a few
+# chunks; the reduced model's; S not a multiple of the chunk (48 -> 16,
+# 33 -> 1); K below 64 and not a power of two
+WKV_SHAPES = [(2, 256, 4, 64, 64), (2, 64, 4, 32, 32), (1, 48, 3, 32, 32), (2, 33, 2, 16, 16),
+              (1, 96, 5, 24, 64)]
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", WKV_SHAPES)
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("bf16_intra", [False, True])
+def test_wkv_matches_plain(cuda, B, S, H, K, chunk, dtype, wdtype, bf16_intra):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r, k, v, w, u = _wkv_inputs(B, S, H, K, dtype, wdtype, cuda, seed=S + K)
+    c = ops.cut_chunk(chunk, S)
+    before = counts.LAUNCHES["rwkv6_wkv"]
+    with torch.no_grad():
+        y, st = ops._wkv(r, k, v, w, u[None], chunk, bf16_intra)
+        py, pst = ops.wkv_plain(r, k, v, w, u[None], c, bf16_intra)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["rwkv6_wkv"] == before + 1
+    assert y.dtype == dtype and st.shape == (B, H, K, K)
+    _wkv_close(y, py, st, pst, bf16_intra)
+
+
+def test_wkv_pallas_layout_on_the_card(cuda):
+    """``wkv_fwd`` ((BH, S, K), a bonus row per (b, h)) against its plain
+    version in float32, and the model layout against the same rows."""
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r, k, v, w, _ = _wkv_inputs(1, 128, 6, 32, torch.float32, torch.float32, cuda, seed=9)
+    rows = [t[0].permute(1, 0, 2).contiguous() for t in (r, k, v, w)]   # (6, 128, 32)
+    u = torch.randn((6, 32), generator=torch.Generator().manual_seed(1)).to(cuda) * 0.3
+    y, st = ops.wkv_fwd(*rows, u, chunk=32)
+    py, pst = ops.wkv_plain(*(t[:, :, None] for t in rows), u[:, None], 32, False)
+    torch.cuda.synchronize()
+    _wkv_close(y, py[:, :, 0], st, pst[:, 0], False)
+
+
+def test_wkv_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r, k, v, w, u = _wkv_inputs(1, 8, 2, 16, torch.float32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="K = 65 > 64"):
+        big = [torch.zeros((1, 8, 1, 65), device=cuda) for _ in range(4)]
+        ops.wkv_heads(*big, torch.zeros((1, 65), device=cuda), chunk=8)
+    with pytest.raises(ValueError, match="chunk 128 > 64"):
+        long = [torch.zeros((1, 128, 2, 16), device=cuda) for _ in range(4)]
+        ops.wkv_heads(*long, u, chunk=128)
+    with pytest.raises(TypeError, match="not supported"):
+        ops.wkv_cuda(r.half(), k.half(), v.half(), w, u[None], 8, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u[None], 8, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_rwkv6_on_the_card_matches_the_cpu(cuda, dtype):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, decode_step, forward
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.params import tree_map
+
+    cfg = reduced(get_arch("rwkv6-7b"))
+    rt = Runtime(param_dtype=dtype, compute_dtype=dtype)
+    host = init_params(build_param_specs(cfg, rt), torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)   # the bonus and the mixes, zero by the init rules
+    for blk in ("tmix", "cmix"):
+        host["blocks"][blk]["mix"] = (torch.randn(host["blocks"][blk]["mix"].shape, generator=g)
+                                      * 0.5).to(host["blocks"][blk]["mix"].dtype)
+    host["blocks"]["tmix"]["u_bonus"] = torch.randn(host["blocks"]["tmix"]["u_bonus"].shape,
+                                                    generator=g) * 0.5
+    card = tree_map(lambda t: t.to(cuda), host)
+    tokens = np.random.default_rng(0).integers(2, cfg.vocab, (2, 64))
+    counts.reset()
+    with torch.no_grad():
+        got = forward(card, cfg, rt, tokens=torch.from_numpy(tokens).to(cuda))
+        assert counts.LAUNCHES["rwkv6_wkv"] == cfg.n_layers
+        assert counts.LAUNCHES["rmsnorm_fwd"] == 3 * cfg.n_layers + 1
+        cache = init_cache(cfg, rt, 2, 8, device=cuda)
+        lg, cache = decode_step(card, cfg, rt, cache, torch.from_numpy(tokens[:, :1]).to(cuda))
+        lg, cache = decode_step(card, cfg, rt, cache, torch.from_numpy(tokens[:, 1:2]).to(cuda))
+        assert counts.LAUNCHES["rmsnorm_fwd"] == 3 * (3 * cfg.n_layers + 1)
+        assert counts.LAUNCHES["rwkv6_wkv"] == cfg.n_layers
+        assert counts.PLAIN_CALLS["rwkv6_wkv"] == counts.PLAIN_CALLS["rmsnorm_fwd"] == 0
+        want = forward(host, cfg, rt, tokens=torch.from_numpy(tokens))
+        hc = init_cache(cfg, rt, 2, 8, device="cpu")
+        hl, hc = decode_step(host, cfg, rt, hc, torch.from_numpy(tokens[:, :1]))
+        hl, hc = decode_step(host, cfg, rt, hc, torch.from_numpy(tokens[:, 1:2]))
+    # the forward carries bf16 rounding flips through four layers of state
+    # (tests/test_torch_ssm.py); decode has none
+    fwd_tol, dec_tol = (5e-3, 1e-5) if dtype == "float32" else (5e-2, 5e-2)
+    for a, b, tol in ((got, want, fwd_tol), (lg, hl, dec_tol)):
+        err = (torch.softmax(a.float().cpu(), -1) - torch.softmax(b.float(), -1)).abs().max()
+        assert float(err) < tol, float(err)
+    torch.testing.assert_close(cache["wkv"].cpu(), hc["wkv"],
+                               atol=(1e-5 if dtype == "float32" else 5e-2)
+                               * float(hc["wkv"].abs().max()), rtol=0)

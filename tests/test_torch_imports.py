@@ -38,7 +38,10 @@ def test_scan_covers_the_package():
             "src/repro_torch/train/checkpoint.py", "src/repro_torch/train/trainer.py",
             "src/repro_torch/launch/train.py", "src/repro_torch/convert.py",
             "src/repro_torch/models/moe.py", "src/repro_torch/kernels/moe_gmm/ops.py",
-            "src/repro_torch/kernels/moe_gmm/ref.py"} <= rel
+            "src/repro_torch/kernels/moe_gmm/ref.py", "src/repro_torch/models/rwkv6.py",
+            "src/repro_torch/kernels/rmsnorm/ops.py", "src/repro_torch/kernels/rmsnorm/ref.py",
+            "src/repro_torch/kernels/rwkv6_wkv/ops.py",
+            "src/repro_torch/kernels/rwkv6_wkv/ref.py"} <= rel
     assert len(FILES) > 50
 
 
