@@ -27,7 +27,8 @@ Phases, in order:
    just after (32 launches, no plain call), held against the plain blocked
    route (logits within 5e-2 of their largest magnitude, softmax within
    5e-2); ``ServingEngine`` answering 4 greedy requests of 64 prompt tokens
-   with 32 new tokens each; a 64-token prompt teacher-forced through
+   with 32 new tokens each; one decode step of the engine's batch, which
+   must launch K7 32 times; a 64-token prompt teacher-forced through
    ``decode_step`` against ``forward`` (the same bounds, which must sit 4x
    under what another first context token does to the logits); a
    ``torch.profiler`` breakdown of one prefill and one decode step (kernel
@@ -68,8 +69,8 @@ Phases, in order:
    of their largest magnitude at the sampled positions that both routes
    route alike (the same kept experts at every layer; at least 90 % of the
    positions must); ``ServingEngine`` answering 4 greedy requests of 64
-   prompt tokens with 32 new tokens each, and 24 K9 launches in one decode
-   step; a 64-token prompt teacher-forced through ``decode_step`` against
+   prompt tokens with 32 new tokens each, and 24 K9 and 8 K7 launches in
+   one decode step; a 64-token prompt teacher-forced through ``decode_step`` against
    ``forward`` at a capacity that drops nothing (the same bounds, 4x under
    what another first context token does); a profiled prefill and decode
    step; K9 on the first layer's w_gate and w_down inputs against its plain
@@ -102,10 +103,35 @@ Phases, in order:
    their plain versions, timed beside ``torch.nn.functional.rms_norm`` and
    its autograd backward; then all three at small and ragged shapes. The
    ``serve``, ``train`` and ``moe`` phases count K10 too, and ``train`` K11
-   (the backward of every norm);
-9. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
-   observation streams and trajectories must be identical;
-10. the seconds of each phase, one JSON line with the kernels' numbers, the
+   (the backward of every norm); a decode step here launches no K7 (no
+   attention);
+9. ``hybrid``: the hybrid serving path at zamba2-2.7b's full width and depth
+   (54 Mamba2 layers, d_model 2560, 80 SSD heads of P = N = 64, conv 4,
+   chunk 128; one shared attention + FFN block after every 6 layers, 32
+   heads of 80, d_ff 10240; vocab 32000; bf16 weights drawn on the card from
+   seed 0, 7.64 GB; D and dt_bias, zero by the init rules, drawn from seed
+   1). A 2 x 4096-token prefill through ``forward`` with ``attn_impl=
+   "flash"``, counts reset just before it and read just after (54 K8, 9 K4
+   at head dim 80 and 127 K10 launches, no plain call); the plain route (K8's
+   and K10's plain versions, ``attn_impl="xla"``) beside it, each Mamba2
+   block and each shared block's attention and FFN held against the plain
+   route on the same input within two bf16 steps of their largest
+   magnitude; ``ServingEngine`` answering 4 greedy requests of 64 prompt
+   tokens with 32 new tokens each (9 K7 and 127 K10 launches a step, no K8);
+   in float32 activations the two routes' logits on a 1 x 2048 prefill, and
+   a 64-token prompt teacher-forced through ``decode_step`` (the float32
+   recurrence, K7) against ``forward`` (K8), each within 5e-2 of their
+   largest magnitude, 4x under what another first token does to the later
+   positions; a profiled prefill and decode step; K8 on the first layer's
+   inputs against its plain version in the model's function and the Pallas
+   kernel's, timed beside it and its bound (float32 operations at the
+   float32 rate, the bf16-operand intra-chunk products at the bf16 rate); K7
+   at the engine's decode step and at caches of 4 x 4096 keys of zamba2 and
+   llama3-8b against its plain version, timed beside it, SDPA and its bound
+   (the bytes of the cache);
+10. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+    observation streams and trajectories must be identical;
+11. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -681,6 +707,10 @@ def device_profile(fn, label: str, reps: int, tag: str = "serve") -> None:
 
 def kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel, by its name."""
+    if "decode_partial" in name or "decode_combine" in name:
+        return "decode attention K7"
+    if "ssd_kernel" in name:
+        return "SSD scan K8"
     if "flash_" in name:
         return "attention K4-K6"
     if "gmm_" in name:
@@ -701,7 +731,7 @@ def kernel_class(name: str) -> str:
 
 def run_serve(device) -> tuple:
     """The ``serve`` phase; returns (K4's row, K4's and K10's launches in the
-    prefill)."""
+    prefill, K7's in one decode step)."""
     import dataclasses
 
     import numpy as np
@@ -818,8 +848,16 @@ def run_serve(device) -> tuple:
         step_toks = torch.full((SERVE_REQS, 1), 7, device=device)
         for _ in range(SERVE_PROMPT):
             _, cache = decode_step(params, cfg, rt, cache, step_toks)
+        counts.reset()
+        decode_step(params, cfg, rt, cache, step_toks)
+        torch.cuda.synchronize()
+        k7, k7_plain = counts.LAUNCHES["flash_decode"], counts.PLAIN_CALLS["flash_decode"]
+        print(f"[serve] one decode step of {SERVE_REQS} slots: K7 launches={k7} (want "
+              f"{cfg.n_layers}) plain_calls={k7_plain}", flush=True)
+        if k7 != cfg.n_layers or k7_plain:
+            fail(f"a decode step launched K7 {k7} times (want {cfg.n_layers})")
         device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
-                       f"decode step at position {SERVE_PROMPT}", 10)
+                       f"decode step at position {SERVE_PROMPT + 1}", 10)
 
     row = hold_flash(*kept[0], launches)
     bad = check_flash_small()
@@ -827,7 +865,7 @@ def run_serve(device) -> tuple:
         fail(f"K4 disagrees with its plain version: prefill match={row['match']} small={bad}")
     del params, engine, cache, kept
     torch.cuda.empty_cache()
-    return row, launches, k10
+    return row, launches, k10, k7
 
 
 # ---------------------------------------------------------------------------
@@ -1339,7 +1377,8 @@ def check_gmm_small() -> list:
 
 def run_moe(device) -> tuple:
     """The ``moe`` phase; returns (K9's row, with its launches per decode
-    step, K9's, K4's and K10's launches in the prefill)."""
+    step, K9's, K4's and K10's launches in the prefill, K7's in one decode
+    step)."""
     import dataclasses
     import gc
 
@@ -1475,11 +1514,13 @@ def run_moe(device) -> tuple:
             counts.reset()
             decode_step(params, cfg, rt, cache, step_toks)
             torch.cuda.synchronize()
-            dec_k9 = counts.LAUNCHES["moe_gmm"]
+            dec_k9, dec_k7 = counts.LAUNCHES["moe_gmm"], counts.LAUNCHES["flash_decode"]
+        dec_plain = sum(counts.PLAIN_CALLS.values())
         print(f"[moe] one decode step of {SERVE_REQS} slots: K9 launches={dec_k9} (want {3 * L}) "
-              f"plain_calls={counts.PLAIN_CALLS['moe_gmm']}", flush=True)
-        if dec_k9 != 3 * L or counts.PLAIN_CALLS["moe_gmm"]:
-            fail(f"a decode step launched K9 {dec_k9} times (want {3 * L})")
+              f"K7 launches={dec_k7} (want {L}) plain_calls={dec_plain}", flush=True)
+        if dec_k9 != 3 * L or dec_k7 != L or dec_plain:
+            fail(f"a decode step launched K9 {dec_k9} times (want {3 * L}) and K7 {dec_k7} times "
+                 f"(want {L}), plain versions {dec_plain} times")
         decode_x = kept_dec[0][0][0]
 
         # decode against forward on a 64-token prompt, each decode step
@@ -1533,7 +1574,7 @@ def run_moe(device) -> tuple:
     bad = check_gmm_small()
     if not row["match"] or bad:
         fail(f"K9 disagrees with its plain version: first layer match={row['match']} small={bad}")
-    return row, k9, k4, k10
+    return row, k9, k4, k10, dec_k7
 
 # ---------------------------------------------------------------------------
 # SSM serving path (rwkv6-7b at full width and depth)
@@ -1545,12 +1586,13 @@ K10_SOURCE = ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kern
 K11_SOURCE = ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:69")
 K12_SOURCE = ("src/repro_torch/csrc/rwkv6_wkv.cu", "src/repro/kernels/rwkv6_wkv/kernel.py:59")
 BF16_STEP = 2.0 ** -7
-# K12 with the model's bf16 intra-chunk operands jumps by one bf16 step where
-# the kernel's and the plain version's float32 intermediates (a sequential
-# cumsum and expf against torch's scan and exp) straddle a rounding boundary:
-# there this share of y must sit within the plain bound, and all of it
-# within one more bf16 step
-WKV_FLIP_SHARE = 0.95
+# K12 with the model's bf16 intra-chunk operands, and K8 in the model's
+# function on bf16 activations, jump by one bf16 step where the kernel's and
+# the plain version's float32 intermediates (a sequential cumsum and expf
+# against torch's scan and exp) straddle a rounding boundary: there this
+# share of y must sit within the plain bound, and all of it within one more
+# bf16 step
+FLIP_SHARE = 0.95
 # Each of the 32 layers' time-mix and channel-mix outputs, the plain route
 # against the kernel route on the same input: within two bf16 steps of the
 # output's largest magnitude (each route rounds its output, and the inputs
@@ -1567,29 +1609,40 @@ SUBBLOCK_TOL, SUBBLOCK_L2 = 2.0 ** -6, 2.0 ** -8
 SSM_F32_TOKENS = 2048
 
 
-@contextlib.contextmanager
-def plain_ssm_route():
-    """While active, K12's and K10's CUDA wrappers are replaced by their
-    plain versions (for the comparison route; never the counted run)."""
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+# the CUDA wrappers each phase's comparison route swaps for their plain
+# versions, as (package under repro_torch.kernels, wrapper stem)
+SSM_PLAIN = (("rmsnorm", "rmsnorm_fwd"), ("rwkv6_wkv", "wkv"))
+HYB_PLAIN = (("rmsnorm", "rmsnorm_fwd"), ("mamba2_ssd", "ssd"))
 
-    saved = rms_ops.rmsnorm_fwd_cuda, wkv_ops.wkv_cuda
-    rms_ops.rmsnorm_fwd_cuda, wkv_ops.wkv_cuda = rms_ops.rmsnorm_fwd_plain, wkv_ops.wkv_plain
+
+@contextlib.contextmanager
+def plain_route(*kernels):
+    """While active, the CUDA wrapper ``<stem>_cuda`` of each (package, stem)
+    in ``kernels`` is replaced by its plain version ``<stem>_plain`` in
+    ``repro_torch.kernels.<package>.ops`` (for the comparison route; never
+    the counted run)."""
+    import importlib
+
+    mods = [(importlib.import_module(f"repro_torch.kernels.{pkg}.ops"), stem)
+            for pkg, stem in kernels]
+    saved = [getattr(m, f"{stem}_cuda") for m, stem in mods]
+    for m, stem in mods:
+        setattr(m, f"{stem}_cuda", getattr(m, f"{stem}_plain"))
     try:
         yield
     finally:
-        rms_ops.rmsnorm_fwd_cuda, wkv_ops.wkv_cuda = saved
+        for (m, stem), fn in zip(mods, saved):
+            setattr(m, f"{stem}_cuda", fn)
 
 
-def wkv_errs(y, st, py, pst, bf16_intra: bool) -> tuple:
+def scan_errs(y, st, py, pst, flips: bool) -> tuple:
     """(within bounds, max abs y error, share of y within the plain bound,
-    state error over the state's largest magnitude) of K12's outputs against
-    its plain version's. The state within 2e-5 of its largest magnitude; y
-    within one bf16 step (bfloat16 y) or 2e-5 (float32 y) of its largest
-    magnitude, everywhere with float32 products, and with bf16 intra-chunk
-    operands at WKV_FLIP_SHARE of the elements and one bf16 step more at
-    all."""
+    state error over the state's largest magnitude) of a chunked scan's (K12's
+    or K8's) outputs against its plain version's. The state within 2e-5 of
+    its largest magnitude; y within one bf16 step (bfloat16 y) or 2e-5
+    (float32 y) of its largest magnitude, everywhere, or, where ``flips``
+    (a function that rounds to bf16 inside), at FLIP_SHARE of the elements
+    and one bf16 step more at all."""
     import torch
 
     s_err = float((st - pst).abs().max() / pst.abs().max())
@@ -1598,10 +1651,16 @@ def wkv_errs(y, st, py, pst, bf16_intra: bool) -> tuple:
     tol = BF16_STEP if py.dtype == torch.bfloat16 else 2e-5
     share = float((diff <= tol * scale).float().mean())
     top = float(diff.max()) / scale
-    ok_y = top <= tol + BF16_STEP if bf16_intra else top <= tol
-    if bf16_intra:
-        ok_y = ok_y and share >= WKV_FLIP_SHARE
+    ok_y = top <= (tol + BF16_STEP if flips else tol) and (share >= FLIP_SHARE or not flips)
     return ok_y and s_err <= 2e-5, float(diff.max()), share, s_err
+
+
+def scan_ops(n: int, f32: int, intra: int, bf16_intra: bool) -> tuple:
+    """(float32 operations, bf16-operand operations) of ``n`` (b, h, chunk)
+    steps of a chunked scan, each of ``f32`` float32 operations and ``intra``
+    intra-chunk ones, on bf16 operands with float32 sums where
+    ``bf16_intra``."""
+    return float(n * (f32 + (0 if bf16_intra else intra))), float(n * intra if bf16_intra else 0)
 
 
 @contextlib.contextmanager
@@ -1639,11 +1698,11 @@ def check_layers(params, cfg, rt, tokens, kernel_rows, rows) -> list:
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         t_k = rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], eps), cfg, rt)
-        with plain_ssm_route():
+        with plain_route(*SSM_PLAIN):
             t_p = rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], eps), cfg, rt)
         x = x + t_k
         c_k = _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], eps))
-        with plain_ssm_route():
+        with plain_route(*SSM_PLAIN):
             c_p = _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], eps))
         x = x + c_k
         e = errs(t_k, t_p) + errs(c_k, c_p)
@@ -1724,10 +1783,8 @@ def wkv_op_counts(B: int, S: int, H: int, K: int, c: int, bf16_intra: bool) -> t
     model's function), about 16 operations an element for the cumsum, the
     four factors with their exps and the bonus, and the state's decay
     (2 K^2)."""
-    n = B * H * (S // c)
     intra = 4 * (c * (c - 1) // 2) * K
-    f32 = 4 * c * K * K + 16 * c * K + 2 * K * K + (0 if bf16_intra else intra)
-    return float(n * f32), float(n * intra if bf16_intra else 0)
+    return scan_ops(B * H * (S // c), 4 * c * K * K + 16 * c * K + 2 * K * K, intra, bf16_intra)
 
 
 def hold_wkv(args, launches: int) -> dict:
@@ -1746,7 +1803,7 @@ def hold_wkv(args, launches: int) -> dict:
         y, st = ops.wkv_cuda(*a)
         py, pst = ops.wkv_plain(*a)
         torch.cuda.synchronize()
-        checks[bf16_intra] = wkv_errs(y, st, py, pst, bf16_intra)
+        checks[bf16_intra] = scan_errs(y, st, py, pst, bf16_intra)
         ok, err, share, s_err = checks[bf16_intra]
         print(f"[ssm] K12 vs plain at the first layer's inputs, "
               f"{'bf16' if bf16_intra else 'float32'} intra-chunk products: max|y| "
@@ -1865,7 +1922,7 @@ def check_ssm_small() -> list:
             u = (torch.randn((1, H, K), generator=g) * 0.3).to("cuda")
             for bf16_intra in (True, False):
                 a = (r, k, v, w, u, c, bf16_intra)
-                ok = wkv_errs(*wkv.wkv_cuda(*a), *wkv.wkv_plain(*a), bf16_intra)[0]
+                ok = scan_errs(*wkv.wkv_cuda(*a), *wkv.wkv_plain(*a), bf16_intra)[0]
                 if not ok:
                     bad.append(f"K12 {(B, S, H, K, c)} {dt} w {wdt} bf16_intra={bf16_intra}")
     for N, D in [(1, 64), (37, 50), (300, 96)]:
@@ -1962,7 +2019,7 @@ def run_ssm(device, train_k11: int) -> tuple:
         # the plain route: K12's and K10's plain versions; in bf16 activations
         # rounding compounds through 32 layers, so this is held layer by layer
         # and end to end in float32 activations below
-        with plain_ssm_route():
+        with plain_route(*SSM_PLAIN):
             t0 = time.perf_counter()
             plain_logits = forward(params, cfg, rt, tokens=tokens)
             torch.cuda.synchronize()
@@ -2022,7 +2079,7 @@ def run_ssm(device, train_k11: int) -> tuple:
         toks32 = tokens[:1, :SSM_F32_TOKENS]
         rows32 = list(range(0, SSM_F32_TOKENS, 512)) + [SSM_F32_TOKENS - 1]
         k32 = forward(p32, cfg, rt32, tokens=toks32)[:, rows32].float()
-        with plain_ssm_route():
+        with plain_route(*SSM_PLAIN):
             pl32 = forward(p32, cfg, rt32, tokens=toks32)[:, rows32].float()
         rel, err, pmax = logit_errs(k32, pl32)
         print(f"[ssm] float32 activations, 1x{SSM_F32_TOKENS} prefill: kernel route vs plain "
@@ -2071,10 +2128,12 @@ def run_ssm(device, train_k11: int) -> tuple:
         decode_step(params, cfg, rt, cache, step_toks)
         torch.cuda.synchronize()
         d10, d12 = counts.LAUNCHES["rmsnorm_fwd"], counts.LAUNCHES["rwkv6_wkv"]
+        d7 = counts.LAUNCHES["flash_decode"]
         print(f"[ssm] one decode step of {SERVE_REQS} slots: K10 launches={d10} (want "
-              f"{3 * L + 1}) K12 launches={d12} (want 0)", flush=True)
-        if d10 != 3 * L + 1 or d12:
-            fail(f"a decode step launched K10 {d10} times and K12 {d12} times")
+              f"{3 * L + 1}) K12 launches={d12} (want 0) K7 launches={d7} (want 0: no attention)",
+              flush=True)
+        if d10 != 3 * L + 1 or d12 or d7:
+            fail(f"a decode step launched K10 {d10} times, K12 {d12} times and K7 {d7} times")
         device_profile(lambda: forward(params, cfg, rt, tokens=tokens), f"prefill {B}x{S}", 2,
                        tag="ssm")
         device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
@@ -2095,6 +2154,437 @@ def run_ssm(device, train_k11: int) -> tuple:
              f"{[(r['name'], r['match']) for r in rows]} small={bad}")
     torch.cuda.empty_cache()
     return rows, k12, k10
+
+
+# ---------------------------------------------------------------------------
+# hybrid serving path (zamba2-2.7b at full width and depth)
+# ---------------------------------------------------------------------------
+
+HYB_ARCH = "zamba2-2.7b"
+HYB_PREFILL = (2, 4096)
+HYB_F32_TOKENS = 2048         # the float32 prefill is one sequence of this many tokens
+DECODE_CACHE = 4096           # K7 is also held at a cache of 4 rows of this many keys
+K7_SOURCE = ("src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode/kernel.py:60")
+K8_SOURCE = ("src/repro_torch/csrc/mamba2_ssd.cu", "src/repro/kernels/mamba2_ssd/kernel.py:60")
+
+
+def check_hybrid_layers(params, cfg, rt, tokens, kernel_rows, rows) -> list:
+    """The prefill layer by layer through the kernel route, each Mamba2
+    block, and each shared block's attention and FFN, recomputed through the
+    plain route (K8's and K10's plain versions, ``attn_impl="xla"``) on the
+    same input; returns the sub-blocks whose outputs disagree (SUBBLOCK_TOL,
+    SUBBLOCK_L2). The loop is the hybrid branch of ``models.forward``: its
+    logits must equal ``kernel_rows`` (the counted forward's, at ``rows``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.attention import attention_apply
+    from repro_torch.models.blocks import ffn_apply, rmsnorm
+    from repro_torch.models.mamba2 import mamba2_apply
+    from repro_torch.models.model import _groups, _layer, _logits
+
+    def errs(a, b):
+        return logit_errs(a, b)[0], rel_l2(a, b)
+
+    eps = cfg.norm_eps
+    plain_rt = dataclasses.replace(rt, attn_impl="xla")
+    x = params["embed"][tokens.long()].to(rt.cdtype)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    sa = params["shared_attn"]
+    groups, every = _groups(cfg)
+    bad, worst = [], {"mamba": [0.0, 0.0], "attn": [0.0, 0.0], "ffn": [0.0, 0.0]}
+
+    def hold(name, where, got, want):
+        e = errs(got, want)
+        worst[name] = [max(w, v) for w, v in zip(worst[name], e)]
+        if not (e[0] <= SUBBLOCK_TOL and e[1] <= SUBBLOCK_L2):
+            bad.append(f"{where} {name}: {e}")
+
+    for g in range(groups):
+        for i in range(g * every, (g + 1) * every):
+            p = _layer(params["blocks"], i)
+            m_k = mamba2_apply(p["mamba"], rmsnorm(x, p["ln"], eps), cfg, rt)
+            with plain_route(*HYB_PLAIN):
+                m_p = mamba2_apply(p["mamba"], rmsnorm(x, p["ln"], eps), cfg, rt)
+            hold("mamba", f"layer {i}", m_k, m_p)
+            x = x + m_k
+        a_k = attention_apply(sa["attn"], rmsnorm(x, sa["ln1"], eps), cfg, rt, pos, True)
+        with plain_route(*HYB_PLAIN):
+            a_p = attention_apply(sa["attn"], rmsnorm(x, sa["ln1"], eps), cfg, plain_rt, pos, True)
+        hold("attn", f"group {g}", a_k, a_p)
+        x = x + a_k
+        f_k = ffn_apply(sa["ffn"], rmsnorm(x, sa["ln2"], eps), cfg.act)
+        with plain_route(*HYB_PLAIN):
+            f_p = ffn_apply(sa["ffn"], rmsnorm(x, sa["ln2"], eps), cfg.act)
+        hold("ffn", f"group {g}", f_k, f_p)
+        x = x + f_k
+    same = logit_errs(_logits(params, cfg, x)[:, rows].float(), kernel_rows)[0]
+    print(f"[hybrid] layer by layer, plain route on the kernel route's inputs: worst "
+          f"max|diff|/max and L2 by sub-block {worst} (bounds {SUBBLOCK_TOL}, {SUBBLOCK_L2}); "
+          f"disagree={bad}; the loop's logits vs the counted forward's: {same}", flush=True)
+    if same != 0.0:
+        bad.append(f"the layer loop's logits differ from forward's by {same}")
+    return bad
+
+
+def ssd_op_counts(B: int, S: int, H: int, P: int, N: int, c: int, bf16_intra: bool) -> tuple:
+    """(float32 operations, bf16-operand operations) of one SSD scan: per
+    (b, h) and chunk, with tri = c(c+1)/2 the lower triangle, the scores and
+    the intra-chunk product (2 tri N and 2 tri P; bf16 operands with float32
+    sums in the model's function on bf16 activations), the mask (3 tri: a
+    difference, an exp, a product), the state's part and the state update
+    (2 c N P each) and the decay factors (2 c N + 2 P N)."""
+    tri = c * (c + 1) // 2
+    return scan_ops(B * H * (S // c), 4 * c * N * P + 3 * tri + 2 * c * N + 2 * P * N,
+                    2 * tri * (N + P), bf16_intra)
+
+
+def hold_ssd(args, launches: int) -> dict:
+    """K8 on the first layer's inputs from the prefill against its plain
+    version, in the model's function and the Pallas kernel's (float32
+    products), then timed beside it and against its bound."""
+    import torch
+
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    x, Bm, Cm, a, chunk, _ = args
+    checks = {}
+    for model in (True, False):
+        y, st = ops.ssd_cuda(x, Bm, Cm, a, chunk, model)
+        py, pst = ops.ssd_plain(x, Bm, Cm, a, chunk, model)
+        torch.cuda.synchronize()
+        checks[model] = scan_errs(y, st, py, pst, model and x.dtype == torch.bfloat16)
+        ok, err, share, s_err = checks[model]
+        print(f"[hybrid] K8 vs plain at the first layer's inputs, "
+              f"{'model' if model else 'Pallas (float32 products)'} function: max|y| "
+              f"{float(py.float().abs().max())} max err {err}, {share} of y within one bf16 step "
+              f"of the largest; state err / max|state| {s_err} match={ok}", flush=True)
+        del y, st, py, pst
+    Bt, S, H, P = x.shape
+    N = Bm.shape[-1]
+    n_bytes = nbytes(x, Bm, Cm, a, x) + Bt * H * P * N * 4
+    f32_ops, bf16_ops = ssd_op_counts(Bt, S, H, P, N, chunk, x.dtype == torch.bfloat16)
+    b_ms, b_by = bound(n_bytes, f32_ops, bf16_ops=bf16_ops)
+    f32_b_ms, f32_b_by = bound(n_bytes, sum(ssd_op_counts(Bt, S, H, P, N, chunk, False)))
+    row = dict(name="mamba2_ssd", source=K8_SOURCE[0], replaces=K8_SOURCE[1],
+               shape=f"x={tuple(x.shape)} B/C={tuple(Bm.shape)} {str(x.dtype)[6:]} a "
+                     f"{str(a.dtype)[6:]} chunk={chunk} model function",
+               match=all(c[0] for c in checks.values()), max_abs_err=checks[True][1],
+               ms=cuda_time_ms(lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, True), 10),
+               plain_ms=cuda_time_ms(lambda: ops.ssd_plain(x, Bm, Cm, a, chunk, True), 3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               library="none: no PyTorch call computes the chunked SSD scan",
+               float32_products_ms=cuda_time_ms(lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, False),
+                                                10),
+               float32_products_bound_ms=f32_b_ms, float32_products_bound_by=f32_b_by)
+    print(f"[hybrid] K8 at the first layer's inputs: {row['shape']} match={row['match']} "
+          f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+          f"bound_ms={b_ms:.6f} ({b_by}: {n_bytes} bytes, {f32_ops:.6g} float32 and "
+          f"{bf16_ops:.6g} bf16-operand operations); float32 products ms="
+          f"{row['float32_products_ms']:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); "
+          f"launches={launches}", flush=True)
+    return row
+
+
+def decode_sdpa(q, k, v, lengths):
+    """One ``scaled_dot_product_attention`` call on K7's inputs (q as one
+    query row per head, the cache moved to (B, H, S, D) beforehand, keys past
+    each row's length masked), timed beside K7 and never used."""
+    import torch
+    import torch.nn.functional as F
+
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    qs = q.reshape(B, Hkv * G, 1, D).contiguous()
+    ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None].long())[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+
+def decode_need(q, k, lengths) -> tuple:
+    """(bytes, operations) that decode attention needs on these inputs: q,
+    the lengths and o once, each row's first min(len, S) keys of K and of V,
+    and for a row of length 0, whose output is the mean of V over every key,
+    all S keys of V; 2 flop a needed K or V element for each query row."""
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    lens = lengths.tolist()
+    k_keys = sum(min(n, S) for n in lens)
+    v_keys = sum(min(n, S) if n > 0 else S for n in lens)
+    n_bytes = nbytes(q, lengths) + q.numel() * q.element_size()
+    n_bytes += (k_keys + v_keys) * Hkv * D * k.element_size()
+    return n_bytes, 2.0 * (k_keys + v_keys) * Hkv * G * D
+
+
+def hold_decode_one(q, k, v, lengths, splits: int, block: int, label: str) -> dict:
+    """K7 against its plain version on one set of inputs (o within one bf16
+    step of its largest magnitude in bfloat16, 2e-5 in float32), then timed
+    beside it and SDPA; the bound is what ``decode_need`` counts, the bytes at
+    the memory rate and the flop at the float32 rate."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import ops
+
+    o = ops.decode_cuda(q, k, v, lengths, splits)
+    po = ops.decode_plain(q, k, v, lengths, splits, block)
+    torch.cuda.synchronize()
+    scale = float(po.float().abs().max())
+    err = float((o.float() - po.float()).abs().max())
+    tol = BF16_STEP if q.dtype == torch.bfloat16 else 2e-5
+    match = err <= tol * scale
+    need_bytes, need_ops = decode_need(q, k, lengths)
+    b_ms, b_by = bound(need_bytes, need_ops)
+    r = dict(shape=f"q={tuple(q.shape)} cache={tuple(k.shape)} {str(q.dtype)[6:]} "
+                   f"lengths={lengths.tolist()} splits={splits}",
+             match=match, max_abs_err=err,
+             ms=cuda_time_ms(lambda: ops.decode_cuda(q, k, v, lengths, splits), 50),
+             plain_ms=cuda_time_ms(lambda: ops.decode_plain(q, k, v, lengths, splits, block), 5),
+             bound_ms=b_ms, bound_by=b_by,
+             library_ms=cuda_time_ms(decode_sdpa(q, k, v, lengths), 50))
+    print(f"[hybrid] K7 {label}: {r['shape']} match={match} max_abs_err={err} (max|o| {scale}) "
+          f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} sdpa_ms={r['library_ms']:.6f} "
+          f"bound_ms={b_ms:.6f} ({b_by}: {need_bytes} bytes, {need_ops:.6g} flop)", flush=True)
+    return r
+
+
+def hold_decode(args, launches: int, per_step: dict) -> dict:
+    """K7 at the engine's decode shape (the inputs of one decode step's first
+    launch), then at a cache of 4 rows of DECODE_CACHE keys for zamba2-2.7b
+    (32 KV heads of 80, G = 1) and llama3-8b (8 of 128, G = 4), all rows full,
+    from seed 5."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import ops
+
+    q, k, v, lengths, splits = args
+    row = dict(name="flash_decode", source=K7_SOURCE[0], replaces=K7_SOURCE[1],
+               library="torch.nn.functional.scaled_dot_product_attention (enable_gqa, a length "
+                       "mask)", launches_per_step_by_phase=per_step)
+    row.update(hold_decode_one(q, k, v, lengths, splits,
+                               ops.split_plan(k.shape[1], 4, 128)[1], "at the engine's step"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, Hkv, G, D in (("zamba2", 32, 1, 80), ("llama3", 8, 4, 128)):
+        B, S = 4, DECODE_CACHE
+        qq = torch.randn((B, Hkv, G, D), generator=g, device="cuda").to(torch.bfloat16)
+        kk, vv = (torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        sp, blk = ops.split_plan(S, 4, 128)
+        r = hold_decode_one(qq, kk, vv, lens, sp, blk, f"at a {name} cache of {B} x {S}")
+        row[f"cache_{DECODE_CACHE}_{name}"] = r
+        row["match"] = row["match"] and r["match"]
+        del qq, kk, vv
+    print(f"[hybrid] K7 launches: {launches} in the engine run; per decode step by phase "
+          f"{per_step}", flush=True)
+    return row
+
+
+def run_hybrid(device, per_step: dict) -> tuple:
+    """The ``hybrid`` phase; ``per_step`` holds K7's launches in one decode
+    step of the earlier phases. Returns (K8's and K7's rows, K8's launches in
+    the prefill, K7's in the engine run, K4's and K10's in the prefill)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params, param_bytes)
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(HYB_ARCH)
+    rt = Runtime(attn_impl="flash")
+    L = cfg.n_layers
+    groups = L // cfg.attn_every
+    specs = build_param_specs(cfg, rt)
+    n_bytes, block_bytes = param_bytes(specs), param_bytes(specs["blocks"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(specs, torch.Generator(device=device).manual_seed(0), device)
+    # the init rules set D and dt_bias to zero; draw them so that the skip
+    # term and the step bias take part
+    g = torch.Generator(device=device).manual_seed(1)
+    mamba = params["blocks"]["mamba"]
+    for leaf in (mamba["D"], mamba["dt_bias"]):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=device) * 0.5)
+    torch.cuda.synchronize()
+    di = cfg.ssm.expand * cfg.d_model
+    print(f"[hybrid] {cfg.name} at full width and depth: {L} Mamba2 layers, d_model "
+          f"{cfg.d_model}, d_inner {di}, {di // cfg.ssm.head_dim} SSD heads of P = "
+          f"{cfg.ssm.head_dim}, N = {cfg.ssm.d_state}, conv {cfg.ssm.conv_dim}, chunk "
+          f"{cfg.ssm.chunk}; a shared attention + FFN block after every {cfg.attn_every} layers "
+          f"({groups} calls of one set of weights: {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}), vocab {cfg.vocab}, {rt.param_dtype}: {n_bytes} "
+          f"weight bytes ({block_bytes / L:.0f} a Mamba2 layer, {param_bytes(specs['shared_attn'])} "
+          f"for the shared block) drawn on {device} from seed 0 in "
+          f"{time.perf_counter() - t0:.1f}s; D and dt_bias, which the init rules set to zero, "
+          f"drawn N(0, 0.5^2) from seed 1", flush=True)
+
+    rng = np.random.default_rng(0)
+    B, S = HYB_PREFILL
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (B, S))).to(device)
+    with torch.no_grad():
+        forward(params, cfg, rt, tokens=tokens[:, :512])   # warm-up: cuBLAS, K4, K8, K10 load
+        torch.cuda.synchronize()
+        with keep_calls(ssd_ops, "ssd_cuda", (0,)) as kept_ssd:
+            counts.reset()
+            t0 = time.perf_counter()
+            logits = forward(params, cfg, rt, tokens=tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k8, k4 = counts.LAUNCHES["mamba2_ssd"], counts.LAUNCHES["flash_attn_fwd"]
+            k10 = counts.LAUNCHES["rmsnorm_fwd"]
+            plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+        want_k10 = 2 * L + 2 * groups + 1
+        print(f"[hybrid] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} tokens_per_s="
+              f"{B * S / wall:.1f} max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"K8 launches={k8} K4 launches={k4} K10 launches={k10} plain_calls={plain}",
+              flush=True)
+        if k8 != L or k4 != groups or k10 != want_k10 or plain:
+            fail(f"prefill launched K8 {k8} times (want {L}), K4 {k4} times (want {groups}) and "
+                 f"K10 {k10} times (want {want_k10}), plain calls {plain} (want none)")
+        if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
+        sample = list(range(0, S, 512)) + [S - 1]
+        kernel_rows = logits[:, sample].float()
+        del logits
+
+        # the plain route: K8's and K10's plain versions and attn_impl="xla";
+        # rounding compounds through 54 layers in bf16, so this is held layer
+        # by layer and end to end in float32 activations below
+        plain_rt = dataclasses.replace(rt, attn_impl="xla")
+        with plain_route(*HYB_PLAIN):
+            t0 = time.perf_counter()
+            plain_logits = forward(params, cfg, plain_rt, tokens=tokens)
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t0
+        rel16 = logit_errs(kernel_rows, plain_logits[:, sample])[0]
+        del plain_logits
+        print(f"[hybrid] prefill through the plain route (plain K8 and K10, attn_impl=xla): "
+              f"wall_s={plain_wall:.6f}; kernel route vs plain route in bf16 at positions "
+              f"{sample}: max|logit diff|/max|logit| {rel16} (held per layer and in float32 "
+              f"below)", flush=True)
+        bad_layers = check_hybrid_layers(params, cfg, rt, tokens, kernel_rows, sample)
+        if bad_layers:
+            fail(f"the kernel and plain routes disagree layer by layer: {bad_layers}")
+
+        # serving: greedy requests through the engine, its launches per step
+        engine = ServingEngine(params, cfg, rt, batch_size=SERVE_REQS, max_len=SERVE_MAX_LEN)
+        reqs = [Request(prompt=rng.integers(2, cfg.vocab, SERVE_PROMPT).astype(np.int32),
+                        max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQS)]
+        torch.cuda.synchronize()
+        counts.reset()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        steps = SERVE_PROMPT + SERVE_NEW - 1
+        n_new = sum(len(r.generated) for r in reqs)
+        e7, e8 = counts.LAUNCHES["flash_decode"], counts.LAUNCHES["mamba2_ssd"]
+        e10, e_plain = counts.LAUNCHES["rmsnorm_fwd"], sum(counts.PLAIN_CALLS.values())
+        print(f"[hybrid] ServingEngine batch {SERVE_REQS} max_len {SERVE_MAX_LEN}: {SERVE_REQS} "
+              f"greedy requests x {SERVE_PROMPT} prompt tokens, {n_new} new tokens in wall_s="
+              f"{swall:.6f} ({steps} decode steps of {SERVE_REQS} slots: step_ms="
+              f"{swall / steps * 1e3:.3f}, new tokens_per_s={n_new / swall:.1f}); K7 launches "
+              f"{e7} ({e7 / steps:.1f} a step), K10 launches {e10} ({e10 / steps:.1f} a step), "
+              f"K8 launches {e8}, plain calls {e_plain}; first request: "
+              f"{reqs[0].generated[:8]}...", flush=True)
+        if any(len(r.generated) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+            fail(f"not every request got {SERVE_NEW} tokens in range")
+        if e7 != steps * groups or e10 != steps * want_k10 or e8 or e_plain:
+            fail(f"the engine launched K7 {e7} times (want {steps * groups}), K10 {e10} times "
+                 f"(want {steps * want_k10}), K8 {e8} times (want 0), plain versions {e_plain} "
+                 f"times (want 0)")
+
+        # end to end in float32 activations (the bf16 weights upcast): the
+        # two routes on one sequence of HYB_F32_TOKENS, and decode (the float32
+        # recurrence, K7) teacher-forced against forward (K8), each within
+        # LOGIT_TOL, 4x under what another first token does to the later
+        # positions
+        rt32 = Runtime(param_dtype="float32", compute_dtype="float32", attn_impl="flash")
+        p32 = tree_map(lambda t: t.float(), params)
+        toks32 = tokens[:1, :HYB_F32_TOKENS]
+        rows32 = list(range(0, HYB_F32_TOKENS, 512)) + [HYB_F32_TOKENS - 1]
+        k32 = forward(p32, cfg, rt32, tokens=toks32)[:, rows32].float()
+        with plain_route(*HYB_PLAIN):
+            pl32 = forward(p32, cfg, dataclasses.replace(rt32, attn_impl="xla"),
+                           tokens=toks32)[:, rows32].float()
+        rel, err, pmax = logit_errs(k32, pl32)
+        print(f"[hybrid] float32 activations, 1x{HYB_F32_TOKENS} prefill: kernel route vs plain "
+              f"route at positions {rows32}: max|logit diff|/max|logit| {rel} (bound "
+              f"{LOGIT_TOL}), softmax max diff {err} beside a largest probability of {pmax}",
+              flush=True)
+        if not rel <= LOGIT_TOL:
+            fail(f"the kernel route and the plain route disagree: logit diff {rel}")
+        prompt = torch.from_numpy(reqs[0].prompt[None].astype(np.int64)).to(device)
+        par = forward(p32, cfg, rt32, tokens=prompt)[0].float()
+        tf_cache = init_cache(cfg, rt32, 1, SERVE_PROMPT, device=device)
+        dec = []
+        for t in range(SERVE_PROMPT):
+            lg, tf_cache = decode_step(p32, cfg, rt32, tf_cache, prompt[:, t:t + 1])
+            dec.append(lg[0, 0].float())
+        rel_d, derr, pmax = logit_errs(torch.stack(dec), par)
+        moved = prompt.clone()
+        moved[0, 0] = 1
+        mv = forward(p32, cfg, rt32, tokens=moved)[0].float()
+        sens = logit_errs(mv[1:], par[1:])[0]
+        sens_last = logit_errs(mv[-1], par[-1])[0]
+        print(f"[hybrid] float32 activations, decode_step teacher-forced over {SERVE_PROMPT} "
+              f"tokens vs forward: max|logit diff|/max|logit| {rel_d} (bound {LOGIT_TOL}), softmax "
+              f"max diff {derr} beside a largest probability of {pmax}; another first token "
+              f"moves the logits of positions 1-{SERVE_PROMPT - 1} by {sens} and of the last by "
+              f"{sens_last}", flush=True)
+        if not rel_d <= LOGIT_TOL:
+            fail(f"decode and forward disagree: logit diff {rel_d}")
+        if not sens > 4 * LOGIT_TOL:
+            fail(f"the logit bound {LOGIT_TOL} is not 4x under the move {sens} that another "
+                 f"first token makes")
+        del p32, k32, pl32, par, dec, mv, tf_cache
+        torch.cuda.empty_cache()
+
+        # one decode step of the engine's batch: its launches, then profiles
+        cache = init_cache(cfg, rt, SERVE_REQS, SERVE_MAX_LEN, device=device)
+        step_toks = torch.full((SERVE_REQS, 1), 7, device=device)
+        for _ in range(SERVE_PROMPT):
+            _, cache = decode_step(params, cfg, rt, cache, step_toks)
+        with keep_calls(decode_ops, "decode_cuda", (0,)) as kept_dec:
+            counts.reset()
+            decode_step(params, cfg, rt, cache, step_toks)
+            torch.cuda.synchronize()
+            d7, d8 = counts.LAUNCHES["flash_decode"], counts.LAUNCHES["mamba2_ssd"]
+            d10 = counts.LAUNCHES["rmsnorm_fwd"]
+        print(f"[hybrid] one decode step of {SERVE_REQS} slots: K7 launches={d7} (want {groups}) "
+              f"K10 launches={d10} (want {want_k10}) K8 launches={d8} (want 0)", flush=True)
+        if d7 != groups or d10 != want_k10 or d8:
+            fail(f"a decode step launched K7 {d7} times, K10 {d10} times and K8 {d8} times")
+        device_profile(lambda: forward(params, cfg, rt, tokens=tokens), f"prefill {B}x{S}", 2,
+                       tag="hybrid")
+        device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
+                       f"decode step of {SERVE_REQS} slots at position {SERVE_PROMPT + 1}", 10,
+                       tag="hybrid")
+
+    del params, engine, cache, mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = (hold_ssd(kept_ssd[0][0], k8), hold_decode(kept_dec[0][0], e7, dict(per_step,
+                                                                              hybrid=d7)))
+    del kept_ssd, kept_dec
+    torch.cuda.empty_cache()
+    if not all(r["match"] for r in rows):
+        fail(f"K7 and K8 disagree with their plain versions: "
+             f"{[(r['name'], r['match']) for r in rows]}")
+    return rows, k8, e7, k4, k10
 
 
 def main() -> int:
@@ -2137,7 +2627,7 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
     phase_s["tuner"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    k4_row, k4_launches, serve_k10 = run_serve(device)
+    k4_row, k4_launches, serve_k10, serve_k7 = run_serve(device)
     phase_s["serve"] = time.perf_counter() - t0
     launches["flash_attn_fwd"] = k4_launches
     main_rows.append(k4_row)
@@ -2148,7 +2638,7 @@ def main() -> int:
         launches[name] = train_launches[name]
     main_rows.extend(bwd_rows)
     t0 = time.perf_counter()
-    k9_row, launches["moe_gmm"], moe_k4, moe_k10 = run_moe(device)
+    k9_row, launches["moe_gmm"], moe_k4, moe_k10, moe_k7 = run_moe(device)
     phase_s["moe"] = time.perf_counter() - t0
     main_rows.append(k9_row)
     t0 = time.perf_counter()
@@ -2157,6 +2647,12 @@ def main() -> int:
     phase_s["ssm"] = time.perf_counter() - t0
     print(f"[ssm] phase seconds {phase_s['ssm']:.1f}", flush=True)
     main_rows.extend(ssm_rows)
+    t0 = time.perf_counter()
+    hyb_rows, launches["mamba2_ssd"], launches["flash_decode"], hyb_k4, hyb_k10 = run_hybrid(
+        device, {"serve": serve_k7, "moe": moe_k7})
+    phase_s["hybrid"] = time.perf_counter() - t0
+    print(f"[hybrid] phase seconds {phase_s['hybrid']:.1f}", flush=True)
+    main_rows.extend(hyb_rows)
     t0 = time.perf_counter()
     run_agreement()
     phase_s["agree"] = time.perf_counter() - t0
@@ -2170,14 +2666,16 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         out.update({k: v for k, v in r.items()
-                    if k.startswith(("library", "decode_", "float32_")) and k not in out})
+                    if k.startswith(("library", "decode_", "float32_", "cache_", "launches_"))
+                    and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
             out["moe_launches"] = moe_k4
+            out["hybrid_launches"] = hyb_k4
         if r["name"] == "rmsnorm_fwd":
             out["launches_by_phase"] = {"serve": serve_k10, "moe": moe_k10,
                                         "train": train_launches["rmsnorm_fwd"],
-                                        "ssm": n_launches}
+                                        "ssm": n_launches, "hybrid": hyb_k10}
         return out
 
     # "kernels": K1-K3 at the largest call of the tuner run, with the run's
@@ -2191,6 +2689,10 @@ def main() -> int:
     # and K11 at the ssm prefill's first ln1 input, K10 with its launches in
     # that prefill (and in each phase's counted run beside them), K11 with
     # its launches in the train phase's Trainer.run, the path that runs it;
+    # K8 at the hybrid phase's first layer with its launches in that
+    # prefill; K7 at the hybrid engine's decode step (and at caches of 4 x
+    # 4096 keys) with its launches in the hybrid engine run (and per decode
+    # step in each phase beside them);
     # "at_scale": K1 and K2 at 131072 candidates, which the tuner run does
     # not reach (no launch count)
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],

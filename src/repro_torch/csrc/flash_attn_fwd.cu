@@ -259,6 +259,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)
+    FLASH_CASE(80)
     FLASH_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;

@@ -15,7 +15,8 @@ __all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "reset", "snapshot"]
 
 KERNELS = (
     "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_dq",
-    "flash_attn_dkv", "moe_gmm", "rmsnorm_fwd", "rmsnorm_bwd", "rwkv6_wkv",
+    "flash_attn_dkv", "moe_gmm", "rmsnorm_fwd", "rmsnorm_bwd", "rwkv6_wkv", "mamba2_ssd",
+    "flash_decode",
 )
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

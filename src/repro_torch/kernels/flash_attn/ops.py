@@ -32,24 +32,25 @@ from ..launch import check, launch
 from .ref import check_blocks, flash_dkv_plain, flash_dq_plain, flash_fwd_plain
 
 __all__ = [
-    "HEAD_DIMS", "flash_attention", "flash_dkv", "flash_dkv_cuda", "flash_dkv_plain", "flash_dq",
+    "FWD_HEAD_DIMS", "HEAD_DIMS", "flash_attention", "flash_dkv", "flash_dkv_cuda", "flash_dkv_plain", "flash_dq",
     "flash_dq_cuda", "flash_dq_plain", "flash_fwd", "flash_fwd_cuda", "flash_fwd_plain",
 ]
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the backward kernels K5, K6 are built for
+FWD_HEAD_DIMS = (16, 32, 64, 80, 128)  # K4's: 80 is zamba2-2.7b's shared attention
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_BH = 65535  # gridDim.y
 
 
-def _check_qkv(name: str, q, k, v) -> Tuple[int, int, int, int, int]:
+def _check_qkv(name: str, q, k, v, head_dims=HEAD_DIMS) -> Tuple[int, int, int, int, int]:
     """Raise unless q (BH, Sq, G, D) and k, v (BH, Sk, D) are what the
-    kernels take; returns (BH, Sq, Sk, G, D)."""
+    kernels take, D in ``head_dims``; returns (BH, Sq, Sk, G, D)."""
     BH, Sq, G, D = q.shape
     Sk = k.shape[1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (bfloat16, float32)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{name}: head dim {D} not in {head_dims}")
     if BH > _MAX_BH:
         raise ValueError(f"{name}: {BH} batch x kv-head rows > {_MAX_BH}")
     if Sk <= 0 or Sq * G >= 2**31:
@@ -69,7 +70,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None
                    q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on the card: q (BH, Sq, G, D), k/v (BH, Sk, D), one dtype
     (bfloat16 or float32), contiguous, on one CUDA device."""
-    BH, Sq, Sk, G, D = _check_qkv("flash_attn_fwd", q, k, v)
+    BH, Sq, Sk, G, D = _check_qkv("flash_attn_fwd", q, k, v, FWD_HEAD_DIMS)
     o = torch.empty((BH, Sq, G, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, Sq, G), dtype=torch.float32, device=q.device)
     launch("flash_attn_fwd", f"flash_attn_fwd_{_DTYPES[q.dtype]}", q.device, (q, k, v, o, lse),

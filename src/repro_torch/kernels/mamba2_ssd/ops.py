@@ -1,0 +1,154 @@
+"""Dispatch for the Mamba2 SSD chunk scan (kernel K8).
+
+Two entry points, one kernel:
+
+- ``ssd_scan(x, B, C, a, *, chunk)`` keeps the reference's
+  ``mamba2_ssd/ops.py`` signature: x (BH, S, P), B and C (BH, S, N), a
+  (BH, S) -> y (BH, S, P) in x's dtype; ``ssd_fwd`` returns (y, final state
+  (BH, P, N) float32) as ``ssd_fwd_pallas`` does. Every product is float32.
+- ``ssd_heads(x, B, C, a, *, chunk)`` takes the model's layout, x (Bt, S,
+  H, P), B and C (Bt, S, H, N), a (Bt, S, H), and computes the reference
+  model's ``_ssd_chunked`` with its roundings to x's dtype (``ref.py``); it
+  returns (y (Bt, S, H, P), final state (Bt, H, P, N)). B and C may be
+  views into a wider row (the model splits them from one projection): the
+  kernel reads every tensor through its row stride, so nothing is copied or
+  transposed (x, B and C are 84 MB each at the zamba2-2.7b prefill).
+
+The chunk is cut as the reference cuts it, ``min(chunk, S)`` halved until
+it divides S, before either route runs. The kernel takes P, N <= 64 and
+chunks <= 128 (every configuration in the repo); larger ones are refused
+on both routes. Tensors on the card launch ``csrc/mamba2_ssd.cu``; tensors
+on the CPU take ``ref.ssd_plain``. There is no other route: a CUDA tensor
+never reaches the plain version, and a build or launch failure raises. K8
+has no backward yet (it comes with training of the hybrid family, ROADMAP.md
+item 10(c)), so inputs that need a gradient are refused rather than given
+none.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..counts import PLAIN_CALLS
+from ..launch import check, launch
+from .ref import ssd_plain
+
+__all__ = ["MAX_CHUNK", "MAX_PN", "cut_chunk", "ssd_cuda", "ssd_fwd", "ssd_heads", "ssd_plain",
+           "ssd_scan"]
+
+MAX_PN = 64      # head width P and state width N the kernel holds
+MAX_CHUNK = 128  # chunk rows the kernel holds in shared memory
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def cut_chunk(chunk: int, S: int) -> int:
+    """The reference's chunk: ``min(chunk, S)``, halved until it divides S."""
+    if chunk <= 0:
+        raise ValueError(f"mamba2_ssd: chunk {chunk} must be positive")
+    chunk = min(chunk, S)
+    while chunk > 1 and S % chunk:
+        chunk //= 2
+    return max(chunk, 1)
+
+
+def _row_stride(name: str, t: torch.Tensor, shape: Tuple[int, ...], dtype: torch.dtype,
+                device: torch.device) -> int:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` (Bt, S, H, W) on
+    ``device`` whose (H, W) rows are contiguous and whose batches are S rows
+    apart; returns the row stride in elements."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    Bt, S, H, W = shape
+    st = t.stride()
+    rows_ok = (W == 1 or st[3] == 1) and (H == 1 or st[2] == W)
+    if not rows_ok or st[1] < H * W or (Bt > 1 and st[0] != S * st[1]):
+        raise ValueError(f"{name} must have contiguous (H, W) rows, S rows a batch apart "
+                         f"(strides {st})")
+    return st[1]
+
+
+def _check(x, Bm, Cm, a, chunk: int) -> Tuple[int, int, int, int, int, Tuple[int, int, int]]:
+    """Raise unless x (Bt, S, H, P) and B, C (Bt, S, H, N) share a dtype
+    (bfloat16 or float32), a (Bt, S, H) is contiguous float32, all on one
+    device, P, N <= 64 and ``chunk`` <= 128; returns (Bt, S, H,
+    P, N, row strides of x, B, C). Both routes take the same."""
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError(f"mamba2_ssd: x must be (Bt, S, H, P) and B (Bt, S, H, N), got "
+                         f"{tuple(x.shape)} and {tuple(Bm.shape)}")
+    Bt, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"mamba2_ssd: dtype {x.dtype} not supported (bfloat16, float32)")
+    if P > MAX_PN or N > MAX_PN:
+        raise ValueError(f"mamba2_ssd: P = {P}, N = {N}; the kernel's limit is {MAX_PN}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"mamba2_ssd: chunk {chunk} > {MAX_CHUNK}, the kernel's limit")
+    dev = x.device
+    strides = (_row_stride("x", x, (Bt, S, H, P), x.dtype, dev),
+               _row_stride("B", Bm, (Bt, S, H, N), x.dtype, dev),
+               _row_stride("C", Cm, (Bt, S, H, N), x.dtype, dev))
+    check("a", a, torch.float32, (Bt, S, H), dev)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, a)):
+        raise NotImplementedError(
+            "mamba2_ssd: K8 has no backward yet (ROADMAP.md item 10(c), training the hybrid "
+            "family); call it under torch.no_grad()")
+    return Bt, S, H, P, N, strides
+
+
+def ssd_cuda(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K8 on the card; the arguments of ``ref.ssd_plain``, with
+    ``chunk`` already cut to divide S and ``a`` float32."""
+    Bt, S, H, P, N, (ldx, ldb, ldc) = _check(x, Bm, Cm, a, chunk)
+    y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    symbol = f"mamba2_ssd_{_DTYPES[x.dtype]}_{'model' if model else 'f32'}"
+    launch("mamba2_ssd", symbol, x.device, (x, Bm, Cm, a, y, state),
+           (Bt, S, H, P, N, chunk, ldx, ldb, ldc))
+    return y, state
+
+
+def _ssd(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout; the chunk is cut, and a bfloat16 ``a`` cast to float32
+    as ``ssd_fwd_pallas`` casts it, here for both routes."""
+    chunk = cut_chunk(chunk, x.shape[1])
+    if a.dtype == torch.bfloat16:
+        a = a.float()
+    if x.device.type == "cuda":
+        return ssd_cuda(x, Bm, Cm, a, chunk, model)
+    if x.device.type != "cpu":
+        raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
+    _check(x, Bm, Cm, a, chunk)
+    PLAIN_CALLS["mamba2_ssd"] += 1
+    return ssd_plain(x, Bm, Cm, a, chunk, model)
+
+
+def ssd_fwd(x, Bm, Cm, a, *, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (BH, S, P), B/C (BH, S, N), a (BH, S) -> (y (BH, S, P) in x's
+    dtype, final state (BH, P, N) float32), every product in float32: the
+    function of ``ssd_fwd_pallas``."""
+    if x.dim() != 3 or a.dim() != 2:
+        raise ValueError(f"mamba2_ssd: x must be (BH, S, P) and a (BH, S), got "
+                         f"{tuple(x.shape)} and {tuple(a.shape)}")
+    y, state = _ssd(x[:, :, None], Bm[:, :, None], Cm[:, :, None], a[:, :, None], chunk, False)
+    return y[:, :, 0], state[:, 0]
+
+
+def ssd_scan(x, Bm, Cm, a, *, chunk: int = 64) -> torch.Tensor:
+    """x (BH, S, P), B/C (BH, S, N), a (BH, S) -> y (BH, S, P): the
+    reference's ``ssd_scan`` (forward only)."""
+    return ssd_fwd(x, Bm, Cm, a, chunk=chunk)[0]
+
+
+def ssd_heads(x, Bm, Cm, a, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (Bt, S, H, P), B/C (Bt, S, H, N), a (Bt, S, H) -> (y (Bt, S, H, P)
+    in x's dtype, final state (Bt, H, P, N) float32): the reference model's
+    ``_ssd_chunked``, with its roundings to x's dtype."""
+    return _ssd(x, Bm, Cm, a, chunk, True)

@@ -1,13 +1,14 @@
 """Serving launcher: batched generation with random weights from a seed.
 
     python -m repro_torch.launch.serve --arch llama3-8b [--full] [--device cpu]
+    python -m repro_torch.launch.serve --arch zamba2-2.7b [--full] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given. The model is
 ``reduced(get_arch(arch))``, as in the reference's launcher, unless
 ``--full`` asks for the architecture at its published width (llama3-8b:
-16 GB of bf16 weights, drawn on the card; rwkv6-7b: 16.1 GB; mixtral-8x22b's
-281 GB do not fit one card). Prints each request's tokens, then the serving
-time on the host clock.
+16 GB of bf16 weights, drawn on the card; rwkv6-7b: 16.1 GB; zamba2-2.7b:
+7.64 GB; mixtral-8x22b's 281 GB do not fit one card). Prints each request's
+tokens, then the serving time on the host clock.
 """
 
 from __future__ import annotations

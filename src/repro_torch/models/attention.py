@@ -19,7 +19,12 @@ back per block to q's, k's and v's dtypes.
 GQA is computed in grouped layout (B, S, Hkv, G, D) so repeated KV heads
 are never materialised. ``attention_decode_apply`` writes the new K/V into
 the cache tensors it is given, in place (the reference returns new arrays);
-the caller passes the returned cache on and does not reuse the old one.
+the caller passes the returned cache on and does not reuse the old one. Its
+attend step has the same two routes: ``"flash"`` runs kernel K7 through
+``kernels/flash_decode/ops.decode_attention`` over the written prefix of
+the cache, where the reference's model computes the same function in jnp;
+any other value runs the reference's inline code, which rounds the
+probabilities to V's dtype before the P.V product.
 MLA (``mla_*``) comes with the MoE family and cross-attention (the
 reference's ``kv_x``) with the enc-dec family.
 """
@@ -32,6 +37,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attn import ops as flash_ops
+from ..kernels.flash_decode import ops as decode_ops
 from ..kernels.flash_attn.ref import positional_mask
 from .blocks import apply_rope
 from .params import ParamSpec
@@ -270,6 +276,12 @@ def attention_decode_apply(
     vc[bidx, slot.long()] = v[:, 0]
     # attend: q (B,hkv,g,hd) over the cache (B,S,hkv,hd)
     qg = q.reshape(B, hkv, g, hd)
+    if rt.attn_impl == "flash":
+        # the written slots: a prefix of min(pos + 1, S) keys in the linear
+        # cache and in the ring alike
+        lengths = torch.clamp(pos + 1, max=S).to(torch.int32)
+        o = decode_ops.decode_attention(qg, kc, vc, lengths).reshape(B, 1, hq, hd)
+        return torch.einsum("bshe,hed->bsd", o, p["wo"]), {"k": kc, "v": vc, "pos": pos + 1}
     s = torch.einsum("bhgd,bkhd->bhgk", qg, kc)
     s = s.float() / (hd ** 0.5)
     kpos = torch.arange(S, device=x.device)[None, :]                 # (1, S)

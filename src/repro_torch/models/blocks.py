@@ -20,8 +20,15 @@ from ..kernels.rmsnorm.ops import rmsnorm
 from .params import ParamSpec
 
 __all__ = [
-    "rmsnorm", "ffn_specs", "ffn_apply", "rope_freqs", "apply_rope", "mrope_positions",
+    "rmsnorm", "silu", "ffn_specs", "ffn_apply", "rope_freqs", "apply_rope", "mrope_positions",
 ]
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * (1 / (1 + exp(-x))), each step rounded in x's
+    dtype, as XLA computes it (``torch.sigmoid`` rounds once). The RWKV6 and
+    Mamba2 blocks use it; ``ffn_apply`` keeps ``F.silu``."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # ---------------------------------------------------------------------- FFN

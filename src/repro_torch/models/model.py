@@ -1,16 +1,19 @@
 """Model assembly: param specs, forward, cache and decode for the dense
 family (``dense``, and the ``vlm`` backbone, which shares its code path),
 the MoE family without MLA (mixtral-8x22b: leading dense blocks, if any,
-then blocks whose FFN is ``moe_apply``) and the SSM family (rwkv6-7b: a
+then blocks whose FFN is ``moe_apply``), the SSM family (rwkv6-7b: a
 time-mix block, ``rwkv6_apply``, and a channel-mix block, ``_rwkv_cmix``,
-each behind an RMSNorm).
+each behind an RMSNorm) and the hybrid family (zamba2-2.7b: groups of
+``attn_every`` Mamba2 blocks, ``mamba2_apply`` behind an RMSNorm, each
+group followed by one shared attention + FFN block whose parameters every
+group reuses).
 
 Layer stacks are *stacked* (leading "layers" axis) as in the reference,
 which scans over them; the port runs a Python loop over layer slices, and
 autograd sums each slice's gradient into the stacked leaf. What is not
 ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: MLA
-(deepseek-v3), the hybrid and enc-dec families, and training of the MoE
-and SSM families.
+(deepseek-v3), the enc-dec family, and training of the MoE, SSM and hybrid
+families.
 
 The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
 over the hidden states that ``forward(..., return_hidden=True)`` returns.
@@ -21,7 +24,10 @@ MLA.
 The decode path operates on a cache dict stacked over layers: K and V of
 shape (L, B, S, Hkv, hd) and ``pos`` (B,); for the SSM family the float32
 WKV states ``wkv`` (L, B, H, K, K) and the two token-shift carries
-``shift1``, ``shift2`` (L, B, 1, D). ``decode_step`` writes the new entries
+``shift1``, ``shift2`` (L, B, 1, D); for the hybrid family the float32
+SSM states ``ssm`` (L, B, H, P, N), the conv carries ``conv`` (L, B, K - 1,
+d_inner + 2HN) and the shared block's K and V, ``attn_k``, ``attn_v`` (one
+per group, (G, B, S, Hkv, hd)). ``decode_step`` writes the new entries
 into those tensors in place and returns the same tensors with ``pos``
 advanced (the reference returns new arrays); do not reuse a cache after
 passing it on.
@@ -38,6 +44,7 @@ from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import attention_apply, attention_decode_apply, attention_specs
 from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm
+from .mamba2 import mamba2_apply, mamba2_decode_apply, mamba2_specs
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_leaves, tree_map
 from .runtime import Runtime
@@ -47,17 +54,17 @@ __all__ = ["build_param_specs", "chunked_ce", "forward", "decode_step", "init_ca
 
 _DENSE = ("dense", "vlm")
 _TODO = {
-    "hybrid": "10(c) (the hybrid family: Mamba2 with shared attention)",
     "encdec": "10(c) (the enc-dec family)",
 }
 _MLA = "10(c) (MLA and deepseek-v3)"
 # families that serve but do not train yet: what their training needs
-_UNTRAINED = {"moe": ("MoE", "K9"), "ssm": ("SSM", "K12")}
+_UNTRAINED = {"moe": ("MoE", "K9"), "ssm": ("SSM", "K12"), "hybrid": ("hybrid", "K8")}
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     """Raise unless the inference path of ``cfg``'s family is ported."""
-    if cfg.family in _DENSE or cfg.family == "ssm" or (cfg.family == "moe" and cfg.mla is None):
+    if cfg.family in _DENSE or cfg.family in ("ssm", "hybrid") or (
+            cfg.family == "moe" and cfg.mla is None):
         return
     item = _MLA if cfg.family == "moe" else _TODO.get(cfg.family)
     if item is None:
@@ -135,6 +142,18 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
             "ln2": _ln(L, d, dt),
         }
         return specs
+    if cfg.family == "hybrid":
+        specs["blocks"] = {
+            "mamba": mamba2_specs(cfg, stacked=L, dtype=dt),
+            "ln": _ln(L, d, dt),
+        }
+        specs["shared_attn"] = {
+            "attn": attention_specs(cfg, stacked=None, dtype=dt),
+            "ffn": ffn_specs(d, cfg.d_ff, cfg.act, stacked=None, dtype=dt),
+            "ln1": _ln(None, d, dt),
+            "ln2": _ln(None, d, dt),
+        }
+        return specs
     nd = cfg.moe.first_dense_layers
     if nd:
         specs["dense_blocks"] = _dense_blocks(cfg, nd, dt)
@@ -160,6 +179,49 @@ def _rwkv_cmix(p, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch
     xr = x + (shifted - x) * lam_r
     k = torch.relu(xk @ p["w_k"])
     return torch.sigmoid(xr @ p["w_r"]) * ((k * k) @ p["w_v"])
+
+
+def _groups(cfg: ArchConfig) -> tuple:
+    """(groups, layers a group) of the hybrid family: a shared attention +
+    FFN block after every ``attn_every`` Mamba2 layers."""
+    every = cfg.attn_every or cfg.n_layers
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not groups of {every}")
+    return cfg.n_layers // every, every
+
+
+def _shared_block(sa, x: torch.Tensor, cfg: ArchConfig, attend) -> torch.Tensor:
+    """The hybrid family's shared attention + FFN block; ``attend`` maps the
+    normed input to the attention's output."""
+    x = x + attend(sa["attn"], rmsnorm(x, sa["ln1"], cfg.norm_eps))
+    return x + ffn_apply(sa["ffn"], rmsnorm(x, sa["ln2"], cfg.norm_eps), cfg.act)
+
+
+def _stacked_forward(params, cfg: ArchConfig, rt: Runtime, x: torch.Tensor,
+                     positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    for blocks, _ in _stacks(params):
+        for i in range(_depth(blocks)):
+            p = _layer(blocks, i)
+            if cfg.family == "ssm":
+                x = x + rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt)
+                x = x + _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+                continue
+            x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
+                                    positions, causal)
+            x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
+    return x
+
+
+def _hybrid_forward(params, cfg: ArchConfig, rt: Runtime, x: torch.Tensor,
+                    positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    groups, every = _groups(cfg)
+    for g in range(groups):
+        for i in range(g * every, (g + 1) * every):
+            p = _layer(params["blocks"], i)
+            x = x + mamba2_apply(p["mamba"], rmsnorm(x, p["ln"], cfg.norm_eps), cfg, rt)
+        x = _shared_block(params["shared_attn"], x, cfg, lambda pa, h: attention_apply(
+            pa, h, cfg, rt, positions, causal))
+    return x
 
 
 def _head(params, cfg: ArchConfig) -> torch.Tensor:
@@ -195,16 +257,10 @@ def forward(
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
-    for blocks, _ in _stacks(params):
-        for i in range(_depth(blocks)):
-            p = _layer(blocks, i)
-            if cfg.family == "ssm":
-                x = x + rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt)
-                x = x + _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-                continue
-            x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
-                                    positions, causal)
-            x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, cfg, rt, x, positions, causal)
+    else:
+        x = _stacked_forward(params, cfg, rt, x, positions, causal)
     if return_hidden:
         return rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return _logits(params, cfg, x)
@@ -326,6 +382,20 @@ def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: 
             "pos": pos,
         }
     S = _cache_len(cfg, max_len)
+    if cfg.family == "hybrid":
+        di, P, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.head_dim, cfg.ssm.d_state
+        H = di // P
+        kv = (_groups(cfg)[0], batch, S, cfg.n_kv_heads, cfg.head_dim)
+        c = {
+            "ssm": torch.zeros((cfg.n_layers, batch, H, P, N), dtype=torch.float32, device=dev),
+            "attn_k": torch.zeros(kv, dtype=rt.cdtype, device=dev),
+            "attn_v": torch.zeros(kv, dtype=rt.cdtype, device=dev),
+            "pos": pos,
+        }
+        if cfg.ssm.conv_dim:
+            c["conv"] = torch.zeros((cfg.n_layers, batch, cfg.ssm.conv_dim - 1, di + 2 * H * N),
+                                    dtype=rt.cdtype, device=dev)
+        return c
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=rt.cdtype, device=dev),
@@ -342,6 +412,8 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Ten
     pos = cache["pos"]
     if cfg.family == "ssm":
         return _ssm_decode_step(params, cfg, rt, cache, x)
+    if cfg.family == "hybrid":
+        return _hybrid_decode_step(params, cfg, rt, cache, x)
     for blocks, first in _stacks(params):
         for i in range(_depth(blocks)):
             p = _layer(blocks, i)
@@ -367,3 +439,24 @@ def _ssm_decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torc
         cache["shift1"][i].copy_(st["shift"])
         cache["shift2"][i].copy_(inner)
     return _logits(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
+
+
+def _hybrid_decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],
+                        x: torch.Tensor):
+    groups, every = _groups(cfg)
+    pos = cache["pos"]
+    for g in range(groups):
+        for i in range(g * every, (g + 1) * every):
+            p = _layer(params["blocks"], i)
+            state = {"ssm": cache["ssm"][i]}
+            if "conv" in cache:
+                state["conv"] = cache["conv"][i]
+            a, st = mamba2_decode_apply(p["mamba"], rmsnorm(x, p["ln"], cfg.norm_eps), state,
+                                        cfg, rt)
+            x = x + a
+            for key in state:
+                cache[key][i].copy_(st[key])
+        sub = {"k": cache["attn_k"][g], "v": cache["attn_v"][g], "pos": pos}
+        x = _shared_block(params["shared_attn"], x, cfg, lambda pa, h: attention_decode_apply(
+            pa, h, sub, cfg, rt)[0])
+    return _logits(params, cfg, x), dict(cache, pos=pos + 1)

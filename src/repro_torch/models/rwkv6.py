@@ -20,7 +20,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv_heads
-from .blocks import rmsnorm
+from .blocks import rmsnorm, silu
 from .params import ParamSpec
 from .runtime import Runtime
 
@@ -59,11 +59,6 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.
     return prev
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: x * sigmoid(x), each rounded in x's dtype."""
-    return x * torch.sigmoid(x)
-
-
 def _wkv_chunked(r, k, v, w, u, chunk: int) -> torch.Tensor:
     """r, k, v (B, S, H, K); w (B, S, H, K) float32 log decay (<= 0); u
     (H, K) float32 -> y (B, S, H, K) in r's dtype, through K12."""
@@ -82,7 +77,7 @@ def _time_mix(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, shifted: torch.T
     r = (lerp(0) @ p["w_r"]).reshape(B, S, H, K)
     kk = (lerp(1) @ p["w_k"]).reshape(B, S, H, K)
     v = (lerp(2) @ p["w_v"]).reshape(B, S, H, K)
-    g = _silu(lerp(3) @ p["w_g"])
+    g = silu(lerp(3) @ p["w_g"])
     # w_t = -softplus(decay(x)) - 0.1 in log space, floored at -2.0 a step so
     # the separable intra-chunk factors stay in float32 range at chunk <= 64
     z = (lerp(4) @ p["w_decay"]).float()

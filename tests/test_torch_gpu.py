@@ -747,3 +747,251 @@ def test_reduced_rwkv6_on_the_card_matches_the_cpu(cuda, dtype):
     torch.testing.assert_close(cache["wkv"].cpu(), hc["wkv"],
                                atol=(1e-5 if dtype == "float32" else 5e-2)
                                * float(hc["wkv"].abs().max()), rtol=0)
+
+
+# ---------------------------------------------------------------- K4 at 80
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,offset", FLASH_MASKS)
+def test_flash_fwd_at_head_dim_80_matches_plain(cuda, dtype, causal, window, offset):
+    """zamba2-2.7b's shared attention has head dim 80; the backward kernels
+    still refuse it."""
+    from repro_torch.kernels.flash_attn import ops
+
+    q, k, v = _flash_inputs(3, 128, 128, 1, 80, dtype, cuda, seed=8)
+    q_offset = 0
+    if offset:
+        q = q[:, 64:].contiguous()
+        q_offset = 64
+    kw = dict(causal=causal, window=window, q_offset=q_offset, q_block=16, kv_block=32)
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = ops.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(o, o_ref, FLASH_TOL[dtype])
+    _close(lse, lse_ref, FLASH_TOL[dtype])
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_dq(q, k, v, q, lse, lse, **kw)
+
+
+# --------------------------------------------------------------------- K7
+
+def _decode_inputs(B, S, Hkv, G, D, dtype, device, seed=0):
+    """q, the cache at scale 1 and lengths 0, S // 3, S and S - 5 cycled over
+    the rows."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, Hkv, G, D), generator=g).to(device, dtype)
+    k, v = (torch.randn((B, S, Hkv, D), generator=g).to(device, dtype) for _ in range(2))
+    lens = torch.tensor([(0, S // 3, S, S - 5)[i % 4] for i in range(B)], dtype=torch.int32,
+                        device=device)
+    return q, k, v, lens
+
+
+def _decode_close(got, want):
+    """float32: 2e-5 of o's largest magnitude; bfloat16: one bf16 step of it
+    (both compute in float32 from the same inputs, then round o once)."""
+    scale = float(want.float().abs().max())
+    tol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("S,kv_splits", [(96, 3), (128, 1), (256, 4), (4096, 4), (100, 2)])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 80), (8, 128), (1, 80), (4, 128), (9, 128),
+                                 (16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_matches_plain(cuda, S, kv_splits, G, D, dtype):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_decode import ops, ref
+
+    q, k, v, lens = _decode_inputs(4, S, 2, G, D, dtype, cuda, seed=S + G + D)
+    splits, block = ops.split_plan(S, kv_splits, 32)
+    before = counts.LAUNCHES["flash_decode"]
+    o = ops.decode_attention(q, k, v, lens, kv_splits=kv_splits, kv_block=32)
+    assert counts.LAUNCHES["flash_decode"] == before + 1
+    want = ops.decode_plain(q, k, v, lens, splits, block)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    _decode_close(o, want)
+    _decode_close(o, ref.decode_ref(q, k, v, lens))
+
+
+def test_flash_decode_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_decode import ops
+
+    with pytest.raises(ValueError, match="D = 192"):
+        ops.decode_attention(*_decode_inputs(2, 64, 1, 1, 192, torch.float32, cuda))
+    with pytest.raises(TypeError, match="not supported"):
+        ops.decode_attention(*_decode_inputs(2, 64, 1, 1, 64, torch.float16, cuda))
+    q, k, v, lens = _decode_inputs(3, 128, 2, 4, 64, torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_cuda(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lens, 1)
+
+
+def test_model_decode_flash_route_matches_plain_route(cuda):
+    """A reduced llama3-8b decode step on the card: K7 (``flash``) against
+    the reference's inline softmax (``xla``), in float32."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, decode_step, init_cache
+    from repro_torch.models import init_params
+
+    cfg = reduced(get_arch("llama3-8b"))
+    rt = Runtime(param_dtype="float32", compute_dtype="float32")
+    params = init_params(build_param_specs(cfg, rt), torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(2, cfg.vocab, (3, 12))).to(cuda)
+    out = {}
+    for impl in ("xla", "flash"):
+        r = dataclasses.replace(rt, attn_impl=impl)
+        cache = init_cache(cfg, r, 3, 16, device=cuda)
+        counts.reset()
+        for t in range(tokens.shape[1]):
+            lg, cache = decode_step(params, cfg, r, cache, tokens[:, t:t + 1])
+        out[impl] = lg
+        assert counts.LAUNCHES["flash_decode"] == (12 * cfg.n_layers if impl == "flash" else 0)
+    _decode_close(out["flash"], out["xla"])
+
+
+# --------------------------------------------------------------------- K8
+
+def _ssd_inputs(B, S, H, P, N, dtype, adtype, device, seed=0):
+    """x, B, C at scale 0.5, the log decay -softplus(normal) with a spread of
+    rates, as the reference's sweep draws them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x, Bm, Cm = ((torch.randn(s, generator=g) * 0.5).to(device, dtype)
+                 for s in ((B, S, H, P), (B, S, H, N), (B, S, H, N)))
+    a = -torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    return x, Bm, Cm, a.to(device, adtype)
+
+
+def _ssd_close(y, py, st, pst, model):
+    """The state within 2e-5 of its largest magnitude. y with float32
+    products: within one bf16 step of its largest magnitude in bfloat16,
+    2e-5 in float32. The model's function in bfloat16 rounds the scores and
+    both parts of y, so ulp-level differences between the kernel's and the
+    plain version's float32 cumsum and exp flip single roundings: at least
+    95 % of y within one bf16 step and all within two."""
+    sscale = float(pst.abs().max())
+    torch.testing.assert_close(st, pst, atol=2e-5 * sscale, rtol=2e-5)
+    scale = float(py.float().abs().max())
+    bf16 = py.dtype == torch.bfloat16
+    tol = 2.0 ** -7 if bf16 else 2e-5
+    err = (y.float() - py.float()).abs() / scale
+    if not (model and bf16):
+        assert float(err.max()) <= tol, float(err.max())
+        return
+    assert float((err <= tol).float().mean()) >= 0.95
+    assert float(err.max()) <= 2 * tol, float(err.max())
+
+
+# (B, S, H, P, N, chunk): zamba2-2.7b's P = N = 64 at chunk 128 and 64; the
+# reduced model's; chunks of 32; S that halves the chunk (96 -> 32, 200 ->
+# 8); P and N below 64 and not powers of two
+SSD_SHAPES = [(2, 512, 3, 64, 64, 128), (1, 256, 4, 64, 64, 64), (2, 64, 8, 32, 16, 32),
+              (1, 96, 2, 32, 16, 64), (2, 200, 2, 24, 40, 128), (1, 33, 3, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype,adtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("model", [False, True])
+def test_ssd_matches_plain(cuda, B, S, H, P, N, chunk, dtype, adtype, model):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, dtype, adtype, cuda, seed=S + P + N)
+    c = ops.cut_chunk(chunk, S)
+    before = counts.LAUNCHES["mamba2_ssd"]
+    y, st = ops._ssd(x, Bm, Cm, a, chunk, model)
+    py, pst = ops.ssd_plain(x, Bm, Cm, a, c, model)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["mamba2_ssd"] == before + 1
+    assert y.dtype == dtype and st.shape == (B, H, P, N)
+    assert bool(torch.isfinite(y.float()).all())
+    _ssd_close(y, py, st, pst, model)
+
+
+def test_ssd_strided_views_and_pallas_layout_on_the_card(cuda):
+    """B and C as views of one wider row, as the model splits them; and
+    ``ssd_fwd`` in the Pallas layout against the sequential oracle."""
+    from repro_torch.kernels.mamba2_ssd import ops, ref
+
+    B, S, H, P, N = 2, 256, 4, 64, 64
+    x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, torch.bfloat16, torch.float32, cuda, seed=3)
+    wide = torch.cat([x.reshape(B, S, H * P), Bm.reshape(B, S, H * N), Cm.reshape(B, S, H * N)],
+                     -1)
+    Bv = wide[..., H * P:H * (P + N)].reshape(B, S, H, N)
+    Cv = wide[..., H * (P + N):].reshape(B, S, H, N)
+    got = ops.ssd_heads(x, Bv, Cv, a, chunk=128)
+    want = ops.ssd_heads(x, Bm, Cm, a, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rows = [t[:, :, 0].contiguous().float() for t in (x, Bm, Cm)]
+    y, st = ops.ssd_fwd(*rows, a[:, :, 0].contiguous(), chunk=64)
+    yo, so = ref.ssd_ref(*(t[:, :, None] for t in rows), a[:, :, :1].contiguous())
+    torch.cuda.synchronize()
+    _ssd_close(y, yo[:, :, 0], st, so[:, 0], False)
+
+
+def test_ssd_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    x, Bm, Cm, a = _ssd_inputs(1, 64, 2, 32, 16, torch.float32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="chunk 256 > 128"):
+        ops.ssd_heads(*_ssd_inputs(1, 256, 1, 8, 8, torch.float32, torch.float32, cuda),
+                      chunk=256)
+    with pytest.raises(ValueError, match="P = 96"):
+        ops.ssd_heads(*_ssd_inputs(1, 8, 1, 96, 8, torch.float32, torch.float32, cuda), chunk=8)
+    with pytest.raises(TypeError, match="not supported"):
+        ops.ssd_cuda(x.half(), Bm.half(), Cm.half(), a, 32, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_cuda(x, Bm.transpose(2, 3).contiguous().transpose(2, 3), Cm, a, 32, True)
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_heads(x, Bm, Cm, a, chunk=32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_zamba2_on_the_card_matches_the_cpu(cuda, dtype):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs, decode_step, forward
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.params import tree_map
+
+    cfg = reduced(get_arch("zamba2-2.7b"))
+    rt = Runtime(param_dtype=dtype, compute_dtype=dtype, attn_impl="flash", q_block=32,
+                 kv_block=32)
+    host = init_params(build_param_specs(cfg, rt), torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)   # the rates, skip and step bias, zero by the init rules
+    for name in ("A_log", "D", "dt_bias"):
+        leaf = host["blocks"]["mamba"][name]
+        host["blocks"]["mamba"][name] = torch.randn(leaf.shape, generator=g) * 0.5
+    card = tree_map(lambda t: t.to(cuda), host)
+    tokens = np.random.default_rng(0).integers(2, cfg.vocab, (2, 64))
+    L, groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    counts.reset()
+    with torch.no_grad():
+        got = forward(card, cfg, rt, tokens=torch.from_numpy(tokens).to(cuda))
+        assert counts.LAUNCHES["mamba2_ssd"] == L
+        assert counts.LAUNCHES["flash_attn_fwd"] == groups
+        assert counts.LAUNCHES["rmsnorm_fwd"] == 2 * L + 2 * groups + 1
+        cache = init_cache(cfg, rt, 2, 8, device=cuda)
+        for t in range(2):
+            lg, cache = decode_step(card, cfg, rt, cache, torch.from_numpy(tokens[:, t:t + 1])
+                                    .to(cuda))
+        assert counts.LAUNCHES["flash_decode"] == 2 * groups
+        assert counts.LAUNCHES["mamba2_ssd"] == L
+        assert sum(counts.PLAIN_CALLS.values()) == 0
+        want = forward(host, cfg, rt, tokens=torch.from_numpy(tokens))
+        hc = init_cache(cfg, rt, 2, 8, device="cpu")
+        for t in range(2):
+            hl, hc = decode_step(host, cfg, rt, hc, torch.from_numpy(tokens[:, t:t + 1]))
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for a, b in ((got, want), (lg, hl)):
+        err = (torch.softmax(a.float().cpu(), -1) - torch.softmax(b.float(), -1)).abs().max()
+        assert float(err) < tol, float(err)
+    for key in ("ssm", "conv", "attn_k"):
+        torch.testing.assert_close(cache[key].cpu().float(), hc[key].float(),
+                                   atol=tol * float(hc[key].float().abs().max()), rtol=0)

@@ -41,7 +41,11 @@ def test_scan_covers_the_package():
             "src/repro_torch/kernels/moe_gmm/ref.py", "src/repro_torch/models/rwkv6.py",
             "src/repro_torch/kernels/rmsnorm/ops.py", "src/repro_torch/kernels/rmsnorm/ref.py",
             "src/repro_torch/kernels/rwkv6_wkv/ops.py",
-            "src/repro_torch/kernels/rwkv6_wkv/ref.py"} <= rel
+            "src/repro_torch/kernels/rwkv6_wkv/ref.py", "src/repro_torch/models/mamba2.py",
+            "src/repro_torch/kernels/mamba2_ssd/ops.py",
+            "src/repro_torch/kernels/mamba2_ssd/ref.py",
+            "src/repro_torch/kernels/flash_decode/ops.py",
+            "src/repro_torch/kernels/flash_decode/ref.py"} <= rel
     assert len(FILES) > 50
 
 

@@ -154,15 +154,17 @@ def test_init_params_rules():
                                          "seamless-m4t-medium"])
 def test_other_families_are_refused_with_their_roadmap_item(family_arch):
     cfg = PC.reduced(PC.get_arch(family_arch))
-    if cfg.family == "ssm":
-        # the SSM family serves; its training is what stays closed
+    serving = {"ssm": "SSM", "hybrid": "hybrid"}
+    if cfg.family in serving:
+        # the SSM and hybrid families serve; their training is what stays closed
         from repro_torch.models import loss_fn as p_loss_fn
 
         params = p_init_params(p_specs(cfg, PRuntime()), torch.Generator().manual_seed(0), CPU)
         batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
                  "labels": torch.zeros((1, 8), dtype=torch.int32)}
         with pytest.raises(NotImplementedError,
-                           match=r"training the SSM family.*ROADMAP.md item 10\(c\)"):
+                           match=rf"training the {serving[cfg.family]} family.*"
+                                 r"ROADMAP.md item 10\(c\)"):
             p_loss_fn(params, cfg, PRuntime(), batch)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
