@@ -8,7 +8,8 @@ Phases, in order:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
-   spill lines;
+   spill lines; K4's wgmma route must build at every head dim with no
+   spill and no serialized wgmma;
 3. ``tuner``: ``repro_torch.core.MFTune`` on TPC-H 100 GB, hardware A, for
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
@@ -35,10 +36,12 @@ Phases, in order:
    count, device busy share of the unprofiled wall, the costliest
    kernels); then K4 on the prefill's own inputs against its plain version,
    in bf16 (o within one bf16 step plus 1e-3) and upcast to float32 (o
-   within 2e-5; lse within 1e-3 in both), timed beside it and beside
-   ``scaled_dot_product_attention`` with KV expanded to all heads (timed
-   only), and K4 at small shapes in both dtypes for every mask variant,
-   rows that see no key included;
+   within 2e-5; lse within 1e-3 in both), timed beside it, beside the
+   earlier CUDA-core design of its bf16 route in turns (that, this, this,
+   that)
+   and beside ``scaled_dot_product_attention`` with KV expanded to all
+   heads (timed only), its float32 route timed too, and K4 at small shapes
+   in both dtypes for every mask variant, rows that see no key included;
 6. ``train``: the dense training path at llama3-8b's full width with its
    depth cut from 32 to 8 layers (the cut, with its reason, is printed): bf16
    weights drawn on the card from seed 0, float32 AdamW moments, a batch of
@@ -55,7 +58,10 @@ Phases, in order:
    bf16 step plus 1e-3 of the largest magnitude, float32 within 2e-5),
    timed beside them, beside the backward of
    ``scaled_dot_product_attention`` (timed only) and against their bounds,
-   and at small shapes in both dtypes for every mask variant;
+   and at small shapes in both dtypes for every mask variant; K4 at its
+   first call in ``Trainer.run`` as in every path below: against its
+   plain version, then timed in turns with the CUDA-core design, beside SDPA
+   and its bound;
 7. ``moe``: the MoE serving path at mixtral-8x22b's full width with its
    depth cut from 56 to 8 layers (the cut, with its reason, is printed):
    d_model 6144, 48/8 heads of 128, 8 experts top-2 of width 16384, vocab
@@ -77,6 +83,8 @@ Phases, in order:
    version in bf16 (one bf16 step of the largest magnitude) and upcast to
    float32 (2e-5), timed beside it, ``torch.bmm`` and its bound, and at a
    decode step's shape; then at small and ragged shapes with group sizes;
+   K4 at its first call (window 4096 at 8192 tokens, SDPA with a boolean
+   mask);
 8. ``ssm``: the SSM serving path at rwkv6-7b's full width and depth (32
    layers, d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab 65536, chunk
    64, bf16 weights drawn on the card from seed 0, 16.1 GB; ``u_bonus`` and
@@ -128,7 +136,7 @@ Phases, in order:
    float32 rate, the bf16-operand intra-chunk products at the bf16 rate); K7
    at the engine's decode step and at caches of 4 x 4096 keys of zamba2 and
    llama3-8b against its plain version, timed beside it, SDPA and its bound
-   (the bytes of the cache);
+   (the bytes of the cache); K4 at its first call (head dim 80);
 10. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
 11. the seconds of each phase, one JSON line with the kernels' numbers, the
@@ -168,6 +176,30 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def k4_ptxas(log: str) -> list:
+    """(head dim, registers, stack frame, spill store and spill load bytes) of
+    each instantiation of K4's wgmma kernel, from ``-Xptxas -v`` output."""
+    import re
+
+    out, d = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_fwd_hopperILi(\d+)E", line)
+        if m:
+            d, frame, st, ld = int(m.group(1)), None, None, None
+            continue
+        if d is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame, st, ld = (int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and frame is not None:
+            out.append((d, int(m.group(1)), frame, st, ld))
+            d = None
+    return out
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -503,8 +535,13 @@ SOFTMAX_BOUND = 5e-2          # the bound of tests/test_decode_consistency.py
 # logits by 1.3
 LOGIT_TOL = 5e-2
 # K4 against its plain version, (atol, rtol) on o: float32 at the tolerance
-# of tests/test_kernels.py; bfloat16 within one bf16 rounding step (2**-7
-# relative, both compute in float32 from the same inputs) plus 1e-3; lse
+# of tests/test_kernels.py (the float32 route computes in float32 on the
+# CUDA cores, as the plain version does); bfloat16 within one bf16 rounding
+# step (2**-7 relative) of o plus 1e-3: the bf16 route takes both products
+# on the tensor cores from the bf16 inputs with float32 sums, and P enters
+# P . V as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), which keep
+# about 16 bits of p; one bf16 P (2**-9 relative) puts rows whose output
+# cancels to near 0 outside the 1e-3 (tests/test_torch_flash_split.py); lse
 # (float32 in both dtypes) within 1e-3 absolute
 K4_O_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
 K4_LSE_ATOL = 1e-3
@@ -571,24 +608,75 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def sdpa_yardstick(q, k, v):
+def sdpa_yardstick(q, k, v, causal: bool = True, window=None):
     """One ``scaled_dot_product_attention`` call on K4's inputs with KV
-    expanded to every query head (timed beside K4, never used)."""
+    expanded to every query head, a boolean mask for a window (timed beside
+    K4, never used)."""
+    import torch
     import torch.nn.functional as F
 
-    BHkv, S, G, D = q.shape
-    B = PREFILL[0]
-    Hkv = BHkv // B
-    qs = q.reshape(B, Hkv, S, G, D).permute(0, 1, 3, 2, 4).reshape(B, Hkv * G, S, D).contiguous()
-    ks = k.reshape(B, Hkv, 1, S, D).expand(B, Hkv, G, S, D).reshape(B, Hkv * G, S, D).contiguous()
-    vs = v.reshape(B, Hkv, 1, S, D).expand(B, Hkv, G, S, D).reshape(B, Hkv * G, S, D).contiguous()
-    return lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    BH, S, G, D = q.shape
+    Sk = k.shape[1]
+    qs = q.permute(0, 2, 1, 3).contiguous()
+    ks, vs = (t[:, None].expand(BH, G, Sk, D).contiguous() for t in (k, v))
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
 
 
-def hold_flash(args, kwargs, launches: int) -> dict:
-    """K4 on the prefill's own inputs against its plain version, in their
-    dtype (bf16) and upcast to float32, then timed beside it, beside SDPA,
-    and against its bound."""
+def k4_bound(q, k, v, kwargs, ops_per_s: float = BF16_OPS_PER_S) -> tuple:
+    """(bound_ms, bound_by, flops) of K4 on these inputs: two products over
+    the visible (query, key) pairs, q, k and v read once, o (q's dtype) and
+    lse (float32) written once."""
+    BH, Sq, G, D = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], kwargs["causal"], kwargs["window"], kwargs["q_offset"])
+    flops = 4.0 * BH * G * D * pairs   # two products, a multiply and an add each
+    out_bytes = nbytes(q) + BH * Sq * G * 4
+    b_ms, b_by = bound(nbytes(q, k, v) + out_bytes, flops, ops_per_s)
+    return b_ms, b_by, flops
+
+
+def k4_simt(q, k, v, causal: bool, window, q_offset: int):
+    """K4 in bf16 through the earlier CUDA-core design, exported as
+    ``flash_attn_fwd_bf16_simt`` for this comparison only (the port's
+    wrappers never reach it; no launch is counted)."""
+    import torch
+
+    from repro_torch.kernels.launch import _fn
+
+    BH, Sq, G, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, Sq, G), dtype=torch.float32, device=q.device)
+    rc = _fn("flash_attn_fwd", "flash_attn_fwd_bf16_simt", 5, 9, 0)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, Sq,
+        k.shape[1], G, D, int(causal), int(window is not None), window or 0, q_offset,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"K4's CUDA-core design failed to launch: CUDA error {rc}")
+    return o, lse
+
+
+def time_k4_designs(q, k, v, kwargs, reps: int = 10) -> tuple:
+    """(ms of the wgmma route, ms of the CUDA-core design, SDPA ms, the four
+    turns) on these bf16 inputs, the two designs timed in turns: CUDA
+    cores, wgmma, wgmma, CUDA cores, each the mean of ``reps`` calls; the
+    means of each pair."""
+    from repro_torch.kernels.flash_attn import ops
+
+    new = lambda: ops.flash_fwd_cuda(q, k, v, **kwargs)           # noqa: E731
+    old = lambda: k4_simt(q, k, v, **kwargs)                       # noqa: E731
+    o1, n1, n2, o2 = (cuda_time_ms(f, reps) for f in (old, new, new, old))
+    sdpa = cuda_time_ms(sdpa_yardstick(q, k, v, kwargs["causal"], kwargs["window"]), reps)
+    return (n1 + n2) / 2, (o1 + o2) / 2, sdpa, (o1, n1, n2, o2)
+
+
+def hold_k4_path(tag: str, args, kwargs, launches: int) -> dict:
+    """K4 on the inputs of a path's first K4 call: against its plain version
+    (the bf16 gate), then both designs timed in turns beside SDPA and the
+    bound; returns the path's entry of K4's ``by_path``."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops
@@ -598,7 +686,39 @@ def hold_flash(args, kwargs, launches: int) -> dict:
     po, plse = ops.flash_fwd_plain(q, k, v, q_block=512, kv_block=1024, **kwargs)
     torch.cuda.synchronize()
     match, o_err, lse_err = k4_errs(o, lse, po, plse)
-    err = max(o_err, lse_err)
+    del o, lse, po, plse
+    ms, simt_ms, sdpa_ms, turns = time_k4_designs(q, k, v, kwargs)
+    b_ms, b_by, flops = k4_bound(q, k, v, kwargs)
+    row = dict(path=tag, shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} {str(q.dtype)[6:]} "
+                               f"causal={kwargs['causal']} window={kwargs['window']}",
+               match=match, o_err=o_err, lse_err=lse_err, ms=ms, simt_ms=simt_ms,
+               sdpa_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by, launches=launches)
+    print(f"[{tag}] K4 at the first K4 call's inputs: {row['shape']} match={match} o err {o_err} "
+          f"lse err {lse_err}; ms={ms:.6f} CUDA-core design ms={simt_ms:.6f} (turns CUDA cores, "
+          f"wgmma, wgmma, CUDA cores: {', '.join(f'{t:.6f}' for t in turns)}) "
+          f"sdpa_ms={sdpa_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) flops={flops:.4g} "
+          f"launches={launches}", flush=True)
+    if not match:
+        fail(f"K4 disagrees with its plain version at the {tag} path's inputs: o err {o_err}, "
+             f"lse err {lse_err}")
+    return row
+
+
+def hold_flash(args, kwargs, launches: int) -> dict:
+    """K4 on the prefill's own inputs against its plain version, in their
+    dtype (bf16) and upcast to float32 (the float32 route, timed too), then
+    both bf16 designs timed beside each other, beside SDPA, and against
+    the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops
+
+    q, k, v = args
+    o, lse = ops.flash_fwd_cuda(q, k, v, **kwargs)
+    po, plse = ops.flash_fwd_plain(q, k, v, q_block=512, kv_block=1024, **kwargs)
+    torch.cuda.synchronize()
+    match, o_err, lse_err = k4_errs(o, lse, po, plse)
+    err, bf16_errs = max(o_err, lse_err), dict(o_err=o_err, lse_err=lse_err)
     print(f"[serve] K4 vs plain at the prefill's inputs, bf16: max|o|={float(po.abs().max())} "
           f"o err {o_err} lse err {lse_err} match={match}", flush=True)
     del o, lse, po, plse
@@ -610,24 +730,29 @@ def hold_flash(args, kwargs, launches: int) -> dict:
     print(f"[serve] K4 vs plain at the prefill's inputs upcast to float32: max|o|="
           f"{float(po.abs().max())} o err {o_err} lse err {lse_err} match={match32}", flush=True)
     match = match and match32
-    del q32, k32, v32, o, lse, po, plse
-    BH, Sq, G, D = q.shape
-    pairs = visible_pairs(Sq, k.shape[1], kwargs["causal"], kwargs["window"], kwargs["q_offset"])
-    flops = 4.0 * BH * G * D * pairs   # two products, a multiply and an add each
-    out_bytes = nbytes(q) + BH * Sq * G * 4   # o in q's dtype, lse in float32
-    b_ms, b_by = bound(nbytes(q, k, v) + out_bytes, flops, BF16_OPS_PER_S)
+    del o, lse, po, plse
+    f32_ms = cuda_time_ms(lambda: ops.flash_fwd_cuda(q32, k32, v32, **kwargs), 5)
+    f32_b_ms, f32_b_by, _ = k4_bound(q32, k32, v32, kwargs, FP32_OPS_PER_S)
+    del q32, k32, v32
+    ms, simt_ms, sdpa_ms, turns = time_k4_designs(q, k, v, kwargs)
+    b_ms, b_by, flops = k4_bound(q, k, v, kwargs)
     row = dict(name="flash_attn_fwd", source=K4_SOURCE[0], replaces=K4_SOURCE[1],
                shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} {str(q.dtype)[6:]} "
                      f"causal={kwargs['causal']}",
-               match=match, max_abs_err=err,
-               ms=cuda_time_ms(lambda: ops.flash_fwd_cuda(q, k, v, **kwargs), 10),
+               match=match, max_abs_err=err, ms=ms,
                plain_ms=cuda_time_ms(lambda: ops.flash_fwd_plain(
                    q, k, v, q_block=512, kv_block=1024, **kwargs), 3),
-               bound_ms=b_ms, bound_by=b_by,
-               library_ms=cuda_time_ms(sdpa_yardstick(q, k, v), 10))
+               bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms,
+               float32_ms=f32_ms, float32_bound_ms=f32_b_ms, float32_bound_by=f32_b_by)
     print(f"[serve] K4 at the prefill's inputs: {row['shape']} match={match} max_abs_err={err} "
-          f"ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} sdpa_ms={row['library_ms']:.6f} "
-          f"bound_ms={b_ms:.6f} ({b_by}) flops={flops:.4g} launches={launches}", flush=True)
+          f"ms={ms:.6f} CUDA-core design ms={simt_ms:.6f} (turns CUDA cores, wgmma, wgmma, "
+          f"CUDA cores: {', '.join(f'{t:.6f}' for t in turns)}) plain_ms={row['plain_ms']:.6f} "
+          f"sdpa_ms={sdpa_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) flops={flops:.4g} "
+          f"launches={launches}; float32 route ms={f32_ms:.6f} against its bound "
+          f"{f32_b_ms:.6f} ({f32_b_by}, float32 at {FP32_OPS_PER_S:.3g} op/s)", flush=True)
+    row["by_path"] = [dict(path="serve", shape=row["shape"], match=match, **bf16_errs, ms=ms,
+                           simt_ms=simt_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by,
+                           launches=launches)]
     return row
 
 
@@ -1058,7 +1183,7 @@ def rel_l2(a, b) -> float:
 
 def run_train(device) -> tuple:
     """The ``train`` phase; returns (K5's and K6's rows, launches by kernel in
-    ``Trainer.run``)."""
+    ``Trainer.run``, K4's entry at its first call)."""
     import dataclasses
     import math
 
@@ -1098,7 +1223,8 @@ def run_train(device) -> tuple:
     step_s: list = []
     # K5's inputs at layer 0 of the first step (the backward runs the layers
     # in reverse)
-    with keep_calls(flash_ops, "flash_dq_cuda", (cfg.n_layers - 1,)) as kept:
+    with keep_calls(flash_ops, "flash_dq_cuda", (cfg.n_layers - 1,)) as kept, \
+            keep_calls(flash_ops, "flash_fwd_cuda", (0,)) as kept_fwd:
         counts.reset()
         t0 = time.perf_counter()
         losses = trainer.run(TRAIN_STEPS, log_every=1,
@@ -1171,12 +1297,14 @@ def run_train(device) -> tuple:
     torch.cuda.empty_cache()
     rows = hold_bwd(kept[cfg.n_layers - 1], launches)
     del kept
+    k4_row = hold_k4_path("train", *kept_fwd[0], launches["flash_attn_fwd"])
+    del kept_fwd
     bad = check_bwd_small()
     if not all(r["match"] for r in rows) or bad:
         fail(f"K5/K6 disagree with their plain versions: "
              f"{[(r['name'], r['match']) for r in rows]} small={bad}")
     torch.cuda.empty_cache()
-    return rows, launches
+    return rows, launches, k4_row
 
 
 def _leaf_paths(tree, prefix=()):
@@ -1378,7 +1506,7 @@ def check_gmm_small() -> list:
 def run_moe(device) -> tuple:
     """The ``moe`` phase; returns (K9's row, with its launches per decode
     step, K9's, K4's and K10's launches in the prefill, K7's in one decode
-    step)."""
+    step, K4's entry at its first call)."""
     import dataclasses
     import gc
 
@@ -1387,6 +1515,7 @@ def run_moe(device) -> tuple:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
                                     init_cache, init_params, param_bytes)
@@ -1424,7 +1553,8 @@ def run_moe(device) -> tuple:
         forward(params, cfg, rt, tokens=tokens[:, :512])   # warm-up: cuBLAS, K4, K9 load
         torch.cuda.synchronize()
         with record_routing() as (routes, first), \
-                keep_calls(gmm_ops, "gmm_cuda", (0, 2)) as kept:
+                keep_calls(gmm_ops, "gmm_cuda", (0, 2)) as kept, \
+                keep_calls(flash_ops, "flash_fwd_cuda", (0,)) as kept_k4:
             counts.reset()
             t0 = time.perf_counter()
             logits = forward(params, cfg, rt, tokens=tokens)
@@ -1574,7 +1704,10 @@ def run_moe(device) -> tuple:
     bad = check_gmm_small()
     if not row["match"] or bad:
         fail(f"K9 disagrees with its plain version: first layer match={row['match']} small={bad}")
-    return row, k9, k4, k10, dec_k7
+    k4_row = hold_k4_path("moe", *kept_k4[0], k4)
+    del kept_k4
+    torch.cuda.empty_cache()
+    return row, k9, k4, k10, dec_k7, k4_row
 
 # ---------------------------------------------------------------------------
 # SSM serving path (rwkv6-7b at full width and depth)
@@ -2384,7 +2517,8 @@ def hold_decode(args, launches: int, per_step: dict) -> dict:
 def run_hybrid(device, per_step: dict) -> tuple:
     """The ``hybrid`` phase; ``per_step`` holds K7's launches in one decode
     step of the earlier phases. Returns (K8's and K7's rows, K8's launches in
-    the prefill, K7's in the engine run, K4's and K10's in the prefill)."""
+    the prefill, K7's in the engine run, K4's and K10's in the prefill, K4's
+    entry at its first call)."""
     import dataclasses
     import gc
 
@@ -2393,6 +2527,7 @@ def run_hybrid(device, per_step: dict) -> tuple:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.flash_decode import ops as decode_ops
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
@@ -2436,7 +2571,8 @@ def run_hybrid(device, per_step: dict) -> tuple:
     with torch.no_grad():
         forward(params, cfg, rt, tokens=tokens[:, :512])   # warm-up: cuBLAS, K4, K8, K10 load
         torch.cuda.synchronize()
-        with keep_calls(ssd_ops, "ssd_cuda", (0,)) as kept_ssd:
+        with keep_calls(ssd_ops, "ssd_cuda", (0,)) as kept_ssd, \
+                keep_calls(flash_ops, "flash_fwd_cuda", (0,)) as kept_k4:
             counts.reset()
             t0 = time.perf_counter()
             logits = forward(params, cfg, rt, tokens=tokens)
@@ -2584,7 +2720,10 @@ def run_hybrid(device, per_step: dict) -> tuple:
     if not all(r["match"] for r in rows):
         fail(f"K7 and K8 disagree with their plain versions: "
              f"{[(r['name'], r['match']) for r in rows]}")
-    return rows, k8, e7, k4, k10
+    k4_row = hold_k4_path("hybrid", *kept_k4[0], k4)
+    del kept_k4
+    torch.cuda.empty_cache()
+    return rows, k8, e7, k4, k10, k4_row
 
 
 def main() -> int:
@@ -2613,6 +2752,15 @@ def main() -> int:
         for line in text.splitlines():
             if "ptxas" in line or "error" in line.lower():
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    if logs.get("flash_attn_fwd", "(cached)") != "(cached)":
+        hop = k4_ptxas(logs["flash_attn_fwd"])
+        for d, regs, frame, st, ld in hop:
+            print(f"[build] K4 wgmma route, head dim {d}: {regs} registers, {frame} bytes stack "
+                  f"frame, {st} bytes spill stores, {ld} bytes spill loads", flush=True)
+        serialized = "serialized" in logs["flash_attn_fwd"]
+        if sorted(h[0] for h in hop) != [16, 32, 64, 80, 128] or serialized or any(
+                h[3] or h[4] for h in hop):
+            fail(f"K4's wgmma route does not build clean: {hop}, wgmma serialized={serialized}")
 
     phase_s = {}
     t0 = time.perf_counter()
@@ -2632,13 +2780,13 @@ def main() -> int:
     launches["flash_attn_fwd"] = k4_launches
     main_rows.append(k4_row)
     t0 = time.perf_counter()
-    bwd_rows, train_launches = run_train(device)
+    bwd_rows, train_launches, train_k4 = run_train(device)
     phase_s["train"] = time.perf_counter() - t0
     for name in ("flash_attn_dq", "flash_attn_dkv", "rmsnorm_bwd"):
         launches[name] = train_launches[name]
     main_rows.extend(bwd_rows)
     t0 = time.perf_counter()
-    k9_row, launches["moe_gmm"], moe_k4, moe_k10, moe_k7 = run_moe(device)
+    k9_row, launches["moe_gmm"], moe_k4, moe_k10, moe_k7, moe_k4_row = run_moe(device)
     phase_s["moe"] = time.perf_counter() - t0
     main_rows.append(k9_row)
     t0 = time.perf_counter()
@@ -2648,8 +2796,9 @@ def main() -> int:
     print(f"[ssm] phase seconds {phase_s['ssm']:.1f}", flush=True)
     main_rows.extend(ssm_rows)
     t0 = time.perf_counter()
-    hyb_rows, launches["mamba2_ssd"], launches["flash_decode"], hyb_k4, hyb_k10 = run_hybrid(
-        device, {"serve": serve_k7, "moe": moe_k7})
+    (hyb_rows, launches["mamba2_ssd"], launches["flash_decode"], hyb_k4, hyb_k10,
+     hyb_k4_row) = run_hybrid(device, {"serve": serve_k7, "moe": moe_k7})
+    k4_row["by_path"] += [train_k4, moe_k4_row, hyb_k4_row]
     phase_s["hybrid"] = time.perf_counter() - t0
     print(f"[hybrid] phase seconds {phase_s['hybrid']:.1f}", flush=True)
     main_rows.extend(hyb_rows)
@@ -2666,7 +2815,8 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         out.update({k: v for k, v in r.items()
-                    if k.startswith(("library", "decode_", "float32_", "cache_", "launches_"))
+                    if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
+                                     "by_path"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
@@ -2681,7 +2831,9 @@ def main() -> int:
     # "kernels": K1-K3 at the largest call of the tuner run, with the run's
     # launch counts; K4 at the serve phase's prefill with its launch count
     # there (and its counts in the train phase's Trainer.run and the moe
-    # phase's prefill beside it); K5 and K6 at the train phase's first layer
+    # phase's prefill beside it; its float32 route at the same inputs; in
+    # "by_path", each path's first K4 call with the CUDA-core design timed in
+    # turns beside it); K5 and K6 at the train phase's first layer
     # with their counts in Trainer.run; K9 at the moe phase's
     # first layer with its launches in that prefill (its launches per
     # decode step and its times at a decode step's shape beside them); K12

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use, into
 ``_build/`` beside this package (listed in ``.gitignore``); a library is
-named by the hash of its source and flags, so an edited source rebuilds.
+named by the hash of its source, the ``csrc/*.cuh`` headers the source
+includes and the flags, so an edited source or header rebuilds.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 ``--fmad=false`` keeps every multiply and add a separate IEEE operation,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -58,8 +60,14 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(source_path(name).read_bytes())
+    text = source_path(name).read_bytes()
+    h = hashlib.sha256(text)
+    for header in sorted(set(_INCLUDE.findall(text))):
+        h.update(header + b"\0" + (_CSRC / header.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -17,8 +17,10 @@ a build or launch failure raises.
 ``q_block`` and ``kv_block`` are the reference's block sizes. Both packages
 take ``min(block, S)`` and refuse blocks that do not divide the sequence
 lengths, so the same calls succeed and fail in both. The CUDA kernels tile
-by 64 rows and 64 keys whatever the blocks say: the blocks change only the
-order of float32 sums.
+as their hardware wants whatever the blocks say (the blocks change only the
+order of float32 sums): K4 in bfloat16 by 128 rows and 128 keys on the
+tensor cores (``wgmma``, TMA), K4 in float32 and K5/K6 by 64 rows and 64
+keys on the CUDA cores.
 """
 
 from __future__ import annotations

@@ -9,7 +9,9 @@ the kernels' layout (BH, S, G, D):
   ``_fwd_kernel`` (q upcast and scaled by 1/sqrt(D), online softmax in
   float32 over KV blocks of ``kv_block`` keys, masked score -1e30),
   returning o in q's dtype and lse in float32. Query rows are independent,
-  so it runs every q block at once.
+  so it runs every q block at once. With ``p_parts`` it states the P . V
+  arithmetic of K4's bf16 route instead: p enters the product as
+  ``bf16_parts`` (one bf16 value, or hi + lo halves) with float32 sums.
 - ``flash_dq_plain`` (K5) and ``flash_dkv_plain`` (K6): the backward
   recurrences of ``_dq_kernel`` (a sum over KV blocks) and ``_dkv_kernel``
   (a sum over q blocks). Each recomputes s = (q * scale) . k^T in float32,
@@ -22,13 +24,13 @@ the kernels' layout (BH, S, G, D):
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 __all__ = [
-    "NEG_INF", "attention_ref", "check_blocks", "flash_dkv_plain", "flash_dq_plain",
-    "flash_fwd_plain", "positional_mask",
+    "NEG_INF", "attention_ref", "bf16_parts", "check_blocks", "flash_dkv_plain",
+    "flash_dq_plain", "flash_fwd_plain", "positional_mask",
 ]
 
 NEG_INF = -1e30
@@ -70,10 +72,23 @@ def attention_ref(q, k, v, causal: bool = True, window: Optional[int] = None,
     return torch.einsum("bqhgk,bkhd->bqhgd", p, v.float()).to(q.dtype)
 
 
+def bf16_parts(p: torch.Tensor, parts: int) -> List[torch.Tensor]:
+    """float32 ``p`` as ``parts`` bf16-valued float32 tensors whose sum
+    approximates it: one part is bf16(p), 2**-9 relative; two are hi =
+    bf16(p) and lo = bf16(p - hi) (p - hi is exact in float32), about 16
+    bits of p, the A operands of K4's two P . V products."""
+    if parts not in (1, 2):
+        raise ValueError(f"bf16_parts: parts must be 1 or 2, got {parts}")
+    hi = p.to(torch.bfloat16).float()
+    return [hi] if parts == 1 else [hi, (p - hi).to(torch.bfloat16).float()]
+
+
 def flash_fwd_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, q_block: int = 128, kv_block: int = 128
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (BH, Sq, G, D), k/v (BH, Sk, D*) -> (o (BH, Sq, G, Dv), lse (BH, Sq, G))."""
+                    q_offset: int = 0, q_block: int = 128, kv_block: int = 128,
+                    p_parts: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (BH, Sq, G, D), k/v (BH, Sk, D*) -> (o (BH, Sq, G, Dv), lse (BH, Sq, G)).
+    ``p_parts`` (1 or 2) feeds P . V ``bf16_parts(p, p_parts)``; by default
+    p stays float32, the reference's product."""
     BH, Sq, G, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
     _, kv_block = check_blocks(Sq, Sk, q_block, kv_block)
@@ -94,7 +109,11 @@ def flash_fwd_plain(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqgk,bkd->bqgd", p, vb)
+        parts = [p] if p_parts is None else bf16_parts(p, p_parts)
+        pv = torch.einsum("bqgk,bkd->bqgd", parts[0], vb)
+        for part in parts[1:]:
+            pv = pv + torch.einsum("bqgk,bkd->bqgd", part, vb)
+        acc = acc * corr[..., None] + pv
         m = m_new
     o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     lse = m + torch.log(torch.clamp(l, min=1e-30))

@@ -8,7 +8,11 @@ Small shapes and the tuner's real shapes; every comparison of K1-K3 is
 exact. K4 (flash-attention forward) is held to the float32 and bfloat16
 tolerances of the reference's ``tests/test_kernels.py`` (2e-5, 2e-2), at
 small shapes with every mask variant and at the llama3-8b prefill's shape;
-the model's flash route is held to its plain blocked route on the card.
+its bfloat16 route (wgmma and TMA, 128-row and 128-key tiles) is also held
+to the smoke's K4 gate (o within 1e-3 + 8e-3 relative, lse within 1e-3) at
+every head dim over ragged rows and keys, split query groups, windows with
+offsets and rows that see no key; the model's flash route is held to its
+plain blocked route on the card.
 K5 and K6 (the backward) are held to the same tolerances over the same
 grid, relative to the largest magnitude of each gradient where that
 exceeds 1 (a gradient sums over up to Sk keys or Sq * G rows); the flash
@@ -216,6 +220,49 @@ def test_flash_fwd_at_llama3_prefill_shape(cuda, dtype):
     torch.cuda.synchronize()
     _close(o, o_ref, FLASH_TOL[dtype])
     _close(lse, lse_ref, FLASH_TOL[dtype])
+
+
+# the bf16 route's gate, that of chip_smoke.py's K4_O_TOL and K4_LSE_ATOL:
+# P enters P . V as two bf16 halves, so o keeps about 16 bits of p
+K4_BF16_O_TOL = (1e-3, 8e-3)
+K4_LSE_ATOL = 1e-3
+# (BH, Sq, Sk, G, causal, window, q_offset, input scale): 128-row q tiles
+# that end inside the rows (Sq * G = 150, 240, 64, 192, 256, 600) and split
+# a position's group (G = 3, 6); keys that end inside a 128-key tile, and
+# fewer keys than one tile; windows with offsets; rows past the keys' end
+# that see no key (the fifth case, from position 127 on); inputs x 3,
+# where more rows cancel to near 0
+K4_TILING_CASES = [
+    (2, 50, 200, 3, True, None, 150, 3.0),
+    (3, 40, 40, 6, True, None, 0, 1.0),
+    (2, 64, 300, 1, False, None, 0, 1.0),
+    (2, 96, 384, 2, True, 128, 288, 1.0),
+    (2, 128, 64, 2, False, 32, 96, 1.0),
+    (1, 100, 260, 6, True, 64, 160, 1.0),
+]
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("case", K4_TILING_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_fwd_bf16_tiling_meets_the_smoke_gate(cuda, D, case):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops
+
+    BH, Sq, Sk, G, causal, window, q_offset, scale = case
+    q, k, v = (t * scale for t in _flash_inputs(BH, Sq, Sk, G, D, torch.float32, "cpu", seed=D))
+    q, k, v = (t.to(device=cuda, dtype=torch.bfloat16) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, q_block=Sq, kv_block=Sk)
+    before = counts.LAUNCHES["flash_attn_fwd"]
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    assert counts.LAUNCHES["flash_attn_fwd"] == before + 1
+    o_ref, lse_ref = ops.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and bool(torch.isfinite(o.float()).all())
+    atol, rtol = K4_BF16_O_TOL
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    assert float((lse - lse_ref).abs().max()) <= K4_LSE_ATOL
+    if window is not None and q_offset + Sq > Sk + window:
+        assert bool((lse_ref == -1e30).any())   # the case has rows that see no key
 
 
 def test_flash_fwd_refuses_what_it_does_not_take(cuda):
