@@ -8,8 +8,8 @@ Phases, in order:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
-   spill lines; K4's wgmma route must build at every head dim with no
-   spill and no serialized wgmma;
+   spill lines; the wgmma routes of K4, K5 and K6 must build at every head
+   dim with no spill and no serialized wgmma;
 3. ``tuner``: ``repro_torch.core.MFTune`` on TPC-H 100 GB, hardware A, for
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
@@ -56,9 +56,12 @@ Phases, in order:
    it); a ``torch.profiler`` breakdown of one step; then K5 and K6 on the
    first layer's own inputs against their plain versions (bf16 within one
    bf16 step plus 1e-3 of the largest magnitude, float32 within 2e-5),
-   timed beside them, beside the backward of
-   ``scaled_dot_product_attention`` (timed only) and against their bounds,
-   and at small shapes in both dtypes for every mask variant; K4 at its
+   timed beside them, each bf16 route in turns with its CUDA-core design
+   (that, this, this, that), beside the backward of
+   ``scaled_dot_product_attention`` (timed only), their bounds and their
+   own floors (p and ds as hi + lo halves: four products for K5, six for
+   K6), their float32 routes timed too, and at small shapes (head dim 80
+   among them) in both dtypes for every mask variant; K4 at its
    first call in ``Trainer.run`` as in every path below: against its
    plain version, then timed in turns with the CUDA-core design, beside SDPA
    and its bound;
@@ -178,16 +181,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k4_ptxas(log: str) -> list:
-    """(head dim, registers, stack frame, spill store and spill load bytes) of
-    each instantiation of K4's wgmma kernel, from ``-Xptxas -v`` output."""
+HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_hopper",),
+                  "flash_attn_bwd": ("flash_dq_hopper", "flash_dkv_hopper")}
+HOPPER_DIMS = [16, 32, 64, 80, 128]
+
+
+def hopper_ptxas(log: str) -> list:
+    """(kernel, head dim, registers, stack frame, spill store and spill load
+    bytes) of each instantiation of a wgmma kernel (K4's, K5's, K6's), from
+    ``-Xptxas -v`` output."""
     import re
 
     out, d = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*flash_fwd_hopperILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|dq|dkv)_hopper)ILi(\d+)E", line)
         if m:
-            d, frame, st, ld = int(m.group(1)), None, None, None
+            name, d, frame, st, ld = m.group(1), int(m.group(2)), None, None, None
             continue
         if d is None:
             continue
@@ -197,9 +206,28 @@ def k4_ptxas(log: str) -> list:
             frame, st, ld = (int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and frame is not None:
-            out.append((d, int(m.group(1)), frame, st, ld))
+            out.append((name, d, int(m.group(1)), frame, st, ld))
             d = None
     return out
+
+
+def check_hopper_build(logs: dict) -> None:
+    """Print the registers and spills of every wgmma instantiation and fail
+    unless each kernel built at every head dim with no spill and no
+    serialized wgmma."""
+    for source, kernels in HOPPER_KERNELS.items():
+        if logs.get(source, "(cached)") == "(cached)":
+            continue
+        hop = hopper_ptxas(logs[source])
+        for name, d, regs, frame, st, ld in hop:
+            print(f"[build] {name}, head dim {d}: {regs} registers, {frame} bytes stack frame, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads", flush=True)
+        serialized = "serialized" in logs[source]
+        dims = {k: sorted(h[1] for h in hop if h[0] == k) for k in kernels}
+        if any(v != HOPPER_DIMS for v in dims.values()) or serialized or any(
+                h[4] or h[5] for h in hop):
+            fail(f"{source}'s wgmma route does not build clean: {hop}, wgmma "
+                 f"serialized={serialized}")
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -1064,11 +1092,34 @@ def sdpa_bwd_yardstick(q, k, v, do, batch: int):
     return lambda: torch.autograd.grad(o, (qs, ks, vs), dos, retain_graph=True)
 
 
+def bwd_simt(name: str, q, k, v, do, lse, delta, causal: bool, window, q_offset: int):
+    """K5 (``name`` "flash_attn_dq") or K6 in bf16 through the CUDA-core
+    design, exported as ``flash_attn_dq_bf16_simt`` and
+    ``flash_attn_dkv_bf16_simt`` for this comparison only (the port's
+    wrappers never reach it; no launch is counted)."""
+    import torch
+
+    from repro_torch.kernels.launch import _fn
+
+    BH, Sq, G, D = q.shape
+    outs = (torch.empty_like(q),) if name == "flash_attn_dq" else (torch.empty_like(k),
+                                                                   torch.empty_like(v))
+    rc = _fn("flash_attn_bwd", f"{name}_bf16_simt", 6 + len(outs), 9, 0)(
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)), BH, Sq, k.shape[1], G, D,
+        int(causal), int(window is not None), window or 0, q_offset,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"{name}'s CUDA-core design failed to launch: CUDA error {rc}")
+    return outs
+
+
 def hold_bwd(call, launches: dict) -> list:
     """K5 and K6 on the first layer's inputs from the training step (``call``,
     the (args, kwargs) of K5's launch there) against their plain versions,
-    in bf16 and upcast to float32, then timed beside them, beside SDPA's
-    backward, and against their bounds."""
+    in bf16 and upcast to float32 (the float32 route, timed too), then each
+    timed in turns with its CUDA-core design (that, this, this, that),
+    beside SDPA's backward, the bound and the kernel's own floor (its
+    tensor-core products with p and ds as hi + lo halves)."""
     import torch
 
     from repro_torch.kernels.flash_attn import ops
@@ -1089,31 +1140,47 @@ def hold_bwd(call, launches: dict) -> list:
         print(f"[train] K5/K6 vs plain at the first layer's inputs, {label}: dq max|plain| {s5} "
               f"err {e5} match={ok5}; dk/dv max|plain| {s6} err {e6} match={ok6}", flush=True)
         del dq, pdq, dk, dv, pdk, pdv
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    f32_ms = {"flash_attn_dq": cuda_time_ms(
+        lambda: ops.flash_dq_cuda(q32, k32, v32, do32, lse, delta, **kw), 3),
+              "flash_attn_dkv": cuda_time_ms(
+        lambda: ops.flash_dkv_cuda(q32, k32, v32, do32, lse, delta, **kw), 3)}
+    del q32, k32, v32, do32
     BH, Sq, G, D = q.shape
     pairs = visible_pairs(Sq, k.shape[1], kw["causal"], kw["window"], kw["q_offset"])
     in_bytes = nbytes(q, k, v, do, lse, delta)
     library_ms = cuda_time_ms(sdpa_bwd_yardstick(q, k, v, do, TRAIN_BATCH[0]), 10)
     shape = f"q={tuple(q.shape)} kv={tuple(k.shape)} {str(q.dtype)[6:]} causal={kw['causal']}"
-    for name, source, n_products, out_bytes, fn, plain, ck in (
-            ("flash_attn_dq", K5_SOURCE, 3, nbytes(q),
+    # (name, source, the function's products, the kernel's products with
+    # p and ds split, output bytes, the wrapper, its plain version, checks)
+    for name, source, n_products, n_kernel, out_bytes, fn, plain, ck in (
+            ("flash_attn_dq", K5_SOURCE, 3, 4, nbytes(q),
              lambda: ops.flash_dq_cuda(q, k, v, do, lse, delta, **kw),
              lambda: ops.flash_dq_plain(q, k, v, do, lse, delta, **plain_kw), 0),
-            ("flash_attn_dkv", K6_SOURCE, 4, nbytes(k, v),
+            ("flash_attn_dkv", K6_SOURCE, 4, 6, nbytes(k, v),
              lambda: ops.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
              lambda: ops.flash_dkv_plain(q, k, v, do, lse, delta, **plain_kw), 1)):
         flops = 2.0 * n_products * BH * G * D * pairs   # a multiply and an add per term
         b_ms, b_by = bound(in_bytes + out_bytes, flops, BF16_OPS_PER_S)
+        floor_ms = bound(in_bytes + out_bytes, flops * n_kernel / n_products, BF16_OPS_PER_S)[0]
+        old = lambda _n=name: bwd_simt(_n, q, k, v, do, lse, delta, **kw)   # noqa: E731
+        o1, n1, n2, o2 = (cuda_time_ms(f, 5) for f in (old, fn, fn, old))
         match = all(checks[lb][ck][0] for lb in checks)
         row = dict(name=name, source=source[0], replaces=source[1], shape=shape, match=match,
                    max_abs_err=max(checks[lb][ck][1] for lb in checks),
-                   ms=cuda_time_ms(fn, 10), plain_ms=cuda_time_ms(plain, 3), bound_ms=b_ms,
+                   ms=(n1 + n2) / 2, plain_ms=cuda_time_ms(plain, 3), bound_ms=b_ms,
                    bound_by=b_by, library_ms=library_ms,
                    library="backward of scaled_dot_product_attention (delta, dq, dk and dv "
-                           "in one call, KV expanded to every head)")
+                           "in one call, KV expanded to every head)",
+                   simt_ms=(o1 + o2) / 2, simt_turns=[o1, n1, n2, o2], floor_ms=floor_ms,
+                   float32_ms=f32_ms[name])
         print(f"[train] {name} at the first layer's inputs: {shape} match={match} "
-              f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} plain_ms="
+              f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} CUDA-core design "
+              f"ms={row['simt_ms']:.6f} (turns CUDA cores, wgmma, wgmma, CUDA cores: "
+              f"{', '.join(f'{t:.6f}' for t in (o1, n1, n2, o2))}) plain_ms="
               f"{row['plain_ms']:.6f} sdpa_bwd_ms={library_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
-              f"flops={flops:.4g} launches={launches[name]}", flush=True)
+              f"floor_ms={floor_ms:.6f} ({n_kernel} products) flops={flops:.4g} "
+              f"launches={launches[name]}; float32 route ms={f32_ms[name]:.6f}", flush=True)
         rows.append(row)
     return rows
 
@@ -1130,7 +1197,7 @@ def check_bwd_small() -> list:
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
         for BH, Sq, Sk, G, D in [(2, 64, 64, 1, 16), (3, 48, 80, 3, 64), (1, 40, 72, 2, 32),
-                                 (2, 128, 256, 4, 128)]:
+                                 (2, 128, 256, 4, 128), (2, 96, 160, 1, 80)]:
             # (causal, window, q rows, q_offset): the last two put the rows
             # at the end of the keys and past them, where rows see no key
             for causal, window, sq, offset in [
@@ -2752,15 +2819,7 @@ def main() -> int:
         for line in text.splitlines():
             if "ptxas" in line or "error" in line.lower():
                 print(f"[build] {name}: {line.strip()}", flush=True)
-    if logs.get("flash_attn_fwd", "(cached)") != "(cached)":
-        hop = k4_ptxas(logs["flash_attn_fwd"])
-        for d, regs, frame, st, ld in hop:
-            print(f"[build] K4 wgmma route, head dim {d}: {regs} registers, {frame} bytes stack "
-                  f"frame, {st} bytes spill stores, {ld} bytes spill loads", flush=True)
-        serialized = "serialized" in logs["flash_attn_fwd"]
-        if sorted(h[0] for h in hop) != [16, 32, 64, 80, 128] or serialized or any(
-                h[3] or h[4] for h in hop):
-            fail(f"K4's wgmma route does not build clean: {hop}, wgmma serialized={serialized}")
+    check_hopper_build(logs)
 
     phase_s = {}
     t0 = time.perf_counter()
@@ -2816,7 +2875,7 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         out.update({k: v for k, v in r.items()
                     if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
-                                     "by_path"))
+                                     "by_path", "simt_", "floor_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]

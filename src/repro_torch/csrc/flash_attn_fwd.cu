@@ -395,15 +395,6 @@ __device__ __forceinline__ float softmax_row(float (&s)[64], float& m, float& l)
   return corr;
 }
 
-// bf16 hi and lo halves of two probabilities, packed as an A-operand register each
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_hopper(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -539,7 +530,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_hopper(
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        split_pair(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1], ph[j][r], pl[j][r]);
+        split_bf16_pair(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1], ph[j][r], pl[j][r]);
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       acc[4 * i] *= corrA;

@@ -19,6 +19,9 @@ the kernels' layout (BH, S, G, D):
   scale with dp = do . v^T; dq = sum ds . k, dv = sum p^T . do, dk = sum
   ds^T . q, each returned in q's, v's and k's dtype. A row that sees no
   key has lse = -1e30, so every key gets p = 1 there, as in the reference.
+  With ``ds_parts`` (both) and ``p_parts`` (K6) they state the second-stage
+  arithmetic of K5's and K6's bf16 routes instead: ds enters ds . k and
+  ds^T . q, and p enters p^T . do, as ``bf16_parts`` with float32 sums.
 """
 
 from __future__ import annotations
@@ -83,6 +86,16 @@ def bf16_parts(p: torch.Tensor, parts: int) -> List[torch.Tensor]:
     return [hi] if parts == 1 else [hi, (p - hi).to(torch.bfloat16).float()]
 
 
+def _parts_sum(eq: str, x: torch.Tensor, y: torch.Tensor, parts: Optional[int]) -> torch.Tensor:
+    """``einsum(eq, x, y)``, with x fed as ``bf16_parts(x, parts)`` (float32
+    sums of each part's product) when ``parts`` is given."""
+    xs = [x] if parts is None else bf16_parts(x, parts)
+    out = torch.einsum(eq, xs[0], y)
+    for part in xs[1:]:
+        out = out + torch.einsum(eq, part, y)
+    return out
+
+
 def flash_fwd_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, q_block: int = 128, kv_block: int = 128,
                     p_parts: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,11 +122,7 @@ def flash_fwd_plain(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        parts = [p] if p_parts is None else bf16_parts(p, p_parts)
-        pv = torch.einsum("bqgk,bkd->bqgd", parts[0], vb)
-        for part in parts[1:]:
-            pv = pv + torch.einsum("bqgk,bkd->bqgd", part, vb)
-        acc = acc * corr[..., None] + pv
+        acc = acc * corr[..., None] + _parts_sum("bqgk,bkd->bqgd", p, vb, p_parts)
         m = m_new
     o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
@@ -131,9 +140,11 @@ def _probs(qs, kb, lse, qpos, kpos, causal: bool, window: Optional[int]) -> torc
 
 def flash_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0, q_block: int = 128,
-                   kv_block: int = 128) -> torch.Tensor:
+                   kv_block: int = 128, ds_parts: Optional[int] = None) -> torch.Tensor:
     """q/do (BH, Sq, G, D), k/v (BH, Sk, D), lse/delta (BH, Sq, G) float32 ->
-    dq (BH, Sq, G, D) in q's dtype, summed over KV blocks of ``kv_block``."""
+    dq (BH, Sq, G, D) in q's dtype, summed over KV blocks of ``kv_block``.
+    ``ds_parts`` (1 or 2) feeds ds . k ``bf16_parts(ds, ds_parts)``; by
+    default ds stays float32, the reference's product."""
     BH, Sq, G, D = q.shape
     Sk = k.shape[1]
     _, kv_block = check_blocks(Sq, Sk, q_block, kv_block)
@@ -149,16 +160,19 @@ def flash_dq_plain(q, k, v, do, lse, delta, *, causal: bool = True,
         p = _probs(qs, kb, lse, qpos, kpos, causal, window)
         dp = torch.einsum("bqgd,bkd->bqgk", do32, vb)
         ds = p * (dp - delta[..., None]) * scale
-        dq = dq + torch.einsum("bqgk,bkd->bqgd", ds, kb)
+        dq = dq + _parts_sum("bqgk,bkd->bqgd", ds, kb, ds_parts)
     return dq.to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0, q_block: int = 128,
-                    kv_block: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+                    kv_block: int = 128, p_parts: Optional[int] = None,
+                    ds_parts: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same inputs as :func:`flash_dq_plain` -> (dk (BH, Sk, D) in k's
     dtype, dv (BH, Sk, Dv) in v's dtype), summed over q blocks of
-    ``q_block`` rows (all G query heads of each position)."""
+    ``q_block`` rows (all G query heads of each position). ``p_parts`` and
+    ``ds_parts`` (1 or 2) feed p^T . do and ds^T . q ``bf16_parts`` of p
+    and ds; by default both stay float32, the reference's products."""
     BH, Sq, G, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
     q_block, _ = check_blocks(Sq, Sk, q_block, kv_block)
@@ -172,8 +186,8 @@ def flash_dkv_plain(q, k, v, do, lse, delta, *, causal: bool = True,
         dob = do[:, q0:q0 + q_block].float()
         qpos = q_offset + q0 + torch.arange(q_block, device=q.device)
         p = _probs(qb * scale, k32, lse[:, q0:q0 + q_block], qpos, kpos, causal, window)
-        dv = dv + torch.einsum("bqgk,bqgd->bkd", p, dob)
+        dv = dv + _parts_sum("bqgk,bqgd->bkd", p, dob, p_parts)
         dp = torch.einsum("bqgd,bkd->bqgk", dob, v32)
         ds = p * (dp - delta[:, q0:q0 + q_block, :, None]) * scale
-        dk = dk + torch.einsum("bqgk,bqgd->bkd", ds, qb)
+        dk = dk + _parts_sum("bqgk,bqgd->bkd", ds, qb, ds_parts)
     return dk.to(k.dtype), dv.to(v.dtype)

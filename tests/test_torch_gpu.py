@@ -14,10 +14,16 @@ every head dim over ragged rows and keys, split query groups, windows with
 offsets and rows that see no key; the model's flash route is held to its
 plain blocked route on the card.
 K5 and K6 (the backward) are held to the same tolerances over the same
-grid, relative to the largest magnitude of each gradient where that
-exceeds 1 (a gradient sums over up to Sk keys or Sq * G rows); the flash
-autograd function and a reduced ``Trainer`` step on the card are held to
-the same on the CPU. K9 (the grouped expert matmul) is held to its plain
+grid, head dim 80 included, relative to the largest magnitude of each
+gradient where that exceeds 1 (a gradient sums over up to Sk keys or Sq * G
+rows); their bfloat16 route (wgmma and TMA, p and ds as hi + lo bf16
+halves) is also held to the smoke's K5/K6 gate (every output within 1e-3
+of its largest magnitude plus 8e-3 relative) at every head dim over K4's
+tiling cases, every mask on ragged rows and keys, rows that see no key, and
+at the llama3-8b training shape beside the CUDA-core design
+(``flash_attn_dq_bf16_simt``, ``flash_attn_dkv_bf16_simt``), which must
+meet the same gate; the flash autograd function and a reduced ``Trainer``
+step on the card are held to the same on the CPU. K9 (the grouped expert matmul) is held to its plain
 version within one bf16 step of the largest magnitude in bfloat16 and
 2e-5 in float32, at small and ragged shapes, at mixtral-8x22b's decode and
 prefill shapes and with group sizes; the reduced mixtral on the card is
@@ -339,7 +345,8 @@ def _check_bwd(q, k, v, kw):
 
 @pytest.mark.parametrize("BH,Sq,Sk,G,D", [(2, 64, 64, 1, 16), (4, 128, 128, 2, 32),
                                           (3, 48, 80, 3, 64), (2, 64, 192, 4, 128),
-                                          (1, 32, 96, 2, 64)])
+                                          (1, 32, 96, 2, 64), (2, 64, 96, 1, 80),
+                                          (3, 48, 160, 2, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window,offset", FLASH_MASKS)
 def test_flash_bwd_matches_plain(cuda, BH, Sq, Sk, G, D, dtype, causal, window, offset):
@@ -371,15 +378,117 @@ def test_flash_bwd_at_llama3_training_shape(cuda, dtype):
 def test_flash_bwd_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels.flash_attn import ops
 
-    q, k, v = _flash_inputs(1, 64, 64, 1, 48, torch.float32, cuda)
     lse = torch.zeros((1, 64, 1), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_dq(q, k, v, q, lse, lse)
+    for D in (48, 192):
+        q, k, v = _flash_inputs(1, 64, 64, 1, D, torch.float32, cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_dq(q, k, v, q, lse, lse)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_dkv(q, k, v, q, lse, lse)
     q, k, v = _flash_inputs(1, 64, 64, 1, 64, torch.float32, cuda)
     with pytest.raises(TypeError, match="dtype"):
         ops.flash_dkv(q, k, v, q, lse.double(), lse)
     with pytest.raises(ValueError, match="divide"):
         ops.flash_dq(q, k, v, q, lse, lse, kv_block=48)
+
+
+# K5's and K6's bf16 route (wgmma and TMA, p and ds as hi + lo bf16 halves)
+# against chip_smoke.py's BWD_TOL["bfloat16"]: every output within 1e-3 of
+# its largest magnitude plus 8e-3 relative
+BWD_BF16_TOL = (1e-3, 8e-3)
+
+
+def _smoke_gate(got, want):
+    atol, rtol = BWD_BF16_TOL
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol * scale, rtol=rtol)
+
+
+def _bwd_simt(q, k, v, do, lse, delta, causal, window, q_offset):
+    """(dq, dk, dv) of the CUDA-core design in bf16, exported as
+    ``flash_attn_dq_bf16_simt`` and ``flash_attn_dkv_bf16_simt`` for
+    comparisons only (the wrappers never reach it)."""
+    from repro_torch.kernels.launch import _fn
+
+    BH, Sq, G, D = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ints = (BH, Sq, k.shape[1], G, D, int(causal), int(window is not None), window or 0,
+            q_offset, torch.cuda.current_stream().cuda_stream)
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    assert _fn("flash_attn_bwd", "flash_attn_dq_bf16_simt", 7, 9, 0)(
+        *ptrs, dq.data_ptr(), *ints) == 0
+    assert _fn("flash_attn_bwd", "flash_attn_dkv_bf16_simt", 8, 9, 0)(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *ints) == 0
+    return dq, dk, dv
+
+
+def _check_bwd_bf16(q, k, v, kw, simt=False):
+    """K5 and K6 in bf16 (one launch each) against their plain versions
+    under the smoke's gate; with ``simt``, the CUDA-core design too."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops
+
+    do, lse, delta = _bwd_case(q, k, v, kw)
+    mask = {n: kw[n] for n in ("causal", "window", "q_offset")}
+    before = dict(counts.LAUNCHES)
+    got = (ops.flash_dq(q, k, v, do, lse, delta, **kw), *ops.flash_dkv(q, k, v, do, lse, delta, **kw))
+    assert counts.LAUNCHES["flash_attn_dq"] == before["flash_attn_dq"] + 1
+    assert counts.LAUNCHES["flash_attn_dkv"] == before["flash_attn_dkv"] + 1
+    want = (ops.flash_dq_plain(q, k, v, do, lse, delta, **kw),
+            *ops.flash_dkv_plain(q, k, v, do, lse, delta, **kw))
+    old = _bwd_simt(q, k, v, do, lse, delta, **mask) if simt else want
+    torch.cuda.synchronize()
+    for g, w, o in zip(got, want, old):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g.float()).all())
+        _smoke_gate(g, w)
+        _smoke_gate(o, w)
+    return lse
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("case", K4_TILING_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_bf16_tiling_meets_the_smoke_gate(cuda, D, case):
+    # K4's tiling cases: 128-row q tiles and 64-key tiles (K5), 128-key
+    # blocks and 64-row q tiles (K6) that end inside the rows and keys,
+    # split query groups, windows with offsets, rows that see no key
+    BH, Sq, Sk, G, causal, window, q_offset, scale = case
+    q, k, v = (t * scale for t in _flash_inputs(BH, Sq, Sk, G, D, torch.float32, "cpu", seed=D))
+    q, k, v = (t.to(device=cuda, dtype=torch.bfloat16) for t in (q, k, v))
+    lse = _check_bwd_bf16(q, k, v, dict(causal=causal, window=window, q_offset=q_offset,
+                                        q_block=Sq, kv_block=Sk))
+    if window is not None and q_offset + Sq > Sk + window:
+        assert bool((lse == -1e30).any())   # the case has rows that see no key
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("causal,window,offset", FLASH_MASKS)
+def test_flash_bwd_bf16_masks_meet_the_smoke_gate(cuda, D, causal, window, offset):
+    # ragged: 300 flattened rows (G = 3) and 300 keys fill no tile exactly
+    q, k, v = _flash_inputs(2, 100, 300, 3, D, torch.bfloat16, cuda, seed=9)
+    q_offset = 0
+    if offset:
+        q = q[:, 50:].contiguous()
+        q_offset = 250
+    _check_bwd_bf16(q, k, v, dict(causal=causal, window=window, q_offset=q_offset,
+                                  q_block=q.shape[1], kv_block=100))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_bf16_rows_with_no_visible_key_meet_the_smoke_gate(cuda, causal):
+    # positions 96..223 over 64 keys with a window of 32: the rows from
+    # position 127 on see no key and give every key p = 1
+    q, k, v = _flash_inputs(2, 128, 64, 2, 64, torch.bfloat16, cuda, seed=3)
+    lse = _check_bwd_bf16(q, k, v, dict(causal=causal, window=32, q_offset=96, q_block=8,
+                                        kv_block=16), simt=True)
+    assert bool((lse[:, 32:] == -1e30).all())
+
+
+def test_flash_bwd_bf16_at_llama3_training_shape_against_the_cuda_core_design(cuda):
+    # the llama3-8b training step of 2 x 4096 tokens: B*Hkv = 16, G = 4;
+    # the wgmma route and the CUDA-core design both meet the smoke's gate
+    q, k, v = _flash_inputs(16, 4096, 4096, 4, 128, torch.bfloat16, cuda, seed=4)
+    _check_bwd_bf16(q, k, v, dict(causal=True, window=None, q_offset=0, q_block=512,
+                                  kv_block=1024), simt=True)
 
 
 def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
@@ -802,7 +911,7 @@ def test_reduced_rwkv6_on_the_card_matches_the_cpu(cuda, dtype):
 @pytest.mark.parametrize("causal,window,offset", FLASH_MASKS)
 def test_flash_fwd_at_head_dim_80_matches_plain(cuda, dtype, causal, window, offset):
     """zamba2-2.7b's shared attention has head dim 80; the backward kernels
-    still refuse it."""
+    take it too."""
     from repro_torch.kernels.flash_attn import ops
 
     q, k, v = _flash_inputs(3, 128, 128, 1, 80, dtype, cuda, seed=8)
@@ -816,9 +925,7 @@ def test_flash_fwd_at_head_dim_80_matches_plain(cuda, dtype, causal, window, off
     torch.cuda.synchronize()
     _close(o, o_ref, FLASH_TOL[dtype])
     _close(lse, lse_ref, FLASH_TOL[dtype])
-    if dtype == torch.float32:
-        with pytest.raises(ValueError, match="head dim"):
-            ops.flash_dq(q, k, v, q, lse, lse, **kw)
+    _check_bwd(q, k, v, kw)
 
 
 # --------------------------------------------------------------------- K7
