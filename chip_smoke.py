@@ -8,8 +8,10 @@ Phases, in order:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
-   spill lines; the wgmma routes of K4, K5 and K6 must build at every head
-   dim with no spill and no serialized wgmma;
+   spill lines; the wgmma routes of K4, K5 and K6 (at every head dim) and
+   of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64),
+   and K11's cluster kernel (every dtype pair), must build with no spill
+   and no serialized wgmma;
 3. ``tuner``: ``repro_torch.core.MFTune`` on TPC-H 100 GB, hardware A, for
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
@@ -71,21 +73,26 @@ Phases, in order:
    32768, window 4096, bf16 weights drawn on the card from seed 0 (40.9
    GB). A 1 x 8192-token prefill through ``forward`` with
    ``attn_impl="flash"``, counts reset just before it and read just after
-   (24 K9 and 8 K4 launches, no plain call); layer 0's MoE rerun on that
+   (24 K9 launches, all on its wgmma route, and 8 K4 launches, no plain
+   call); layer 0's MoE rerun on that
    prefill's own input with K9's plain version (identical routing, output
    within 5e-2 of its largest magnitude); the prefill through the plain
    route (K9's plain version, ``attn_impl="xla"``), its logits within 5e-2
    of their largest magnitude at the sampled positions that both routes
    route alike (the same kept experts at every layer; at least 90 % of the
    positions must); ``ServingEngine`` answering 4 greedy requests of 64
-   prompt tokens with 32 new tokens each, and 24 K9 and 8 K7 launches in
-   one decode step; a 64-token prompt teacher-forced through ``decode_step`` against
-   ``forward`` at a capacity that drops nothing (the same bounds, 4x under
+   prompt tokens with 32 new tokens each, and 24 K9 launches (all on its
+   wgmma_decode route) and 8 K7 launches in one decode step; a 64-token
+   prompt teacher-forced through ``decode_step`` against ``forward`` at a
+   capacity that drops nothing (the same bounds, 4x under
    what another first context token does); a profiled prefill and decode
    step; K9 on the first layer's w_gate and w_down inputs against its plain
    version in bf16 (one bf16 step of the largest magnitude) and upcast to
-   float32 (2e-5), timed beside it, ``torch.bmm`` and its bound, and at a
-   decode step's shape; then at small and ragged shapes with group sizes;
+   float32 (2e-5), timed in turns with PR 14's mma.sync design (that, this,
+   this, that), beside its plain version, ``torch.bmm`` and its bound, and
+   the same at a decode step's w_gate and w_down shapes; then every route
+   at small, ragged and decode shapes with group sizes (0, a partial tile,
+   past C, NaN past each), the route taken asserted;
    K4 at its first call (window 4096 at 8192 tokens, SDPA with a boolean
    mask);
 8. ``ssm``: the SSM serving path at rwkv6-7b's full width and depth (32
@@ -112,7 +119,9 @@ Phases, in order:
    float32 rate, the bf16-operand intra-chunk products at the bf16 rate); K10
    and K11 on the prefill's first ln1 input (8192 x 4096 bf16) against
    their plain versions, timed beside ``torch.nn.functional.rms_norm`` and
-   its autograd backward; then all three at small and ragged shapes. The
+   its autograd backward, K11 in turns with PR 15's one-block-a-tile design
+   and with its partials' sum; then all three at small and ragged shapes
+   (K11 on both its layouts). The
    ``serve``, ``train`` and ``moe`` phases count K10 too, and ``train`` K11
    (the backward of every norm); a decode step here launches no K7 (no
    attention);
@@ -181,24 +190,58 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_hopper",),
-                  "flash_attn_bwd": ("flash_dq_hopper", "flash_dkv_hopper")}
-HOPPER_DIMS = [16, 32, 64, 80, 128]
+# The sm_90a kernels held to a clean build: per source, each kernel's
+# instantiations by template argument ("" for a kernel that is no template)
+HOPPER_KERNELS = {
+    "flash_attn_fwd": {"flash_fwd_hopper": ("16", "32", "64", "80", "128")},
+    "flash_attn_bwd": {"flash_dq_hopper": ("16", "32", "64", "80", "128"),
+                       "flash_dkv_hopper": ("16", "32", "64", "80", "128")},
+    "moe_gmm": {"gmm_prefill_hopper": ("",), "gmm_decode_hopper": ("16", "32", "64")},
+    "rmsnorm": {"rmsnorm_bwd_cluster": ("f,f", "f,bf16", "bf16,f", "bf16,bf16")},
+}
+
+
+def _template_args(mangled: str, name: str) -> str:
+    """The template arguments of ``name``'s instantiation in an Itanium-
+    mangled symbol, short: ``ILi16EE`` -> "16", float and bf16 types -> "f"
+    and "bf16" (a repeated type is mangled as a substitution, ``S<n>_``, and
+    read back as the previous argument); "" for a kernel that is no
+    template."""
+    import re
+
+    rest = mangled[mangled.index(name) + len(name):]
+    m = re.match(r"ILi(\d+)EE", rest)
+    if m:
+        return m.group(1)
+    if not rest.startswith("I"):
+        return ""
+    args, rest = [], rest[1:]
+    while rest and rest[0] != "E":
+        m = re.match(r"f|13__nv_bfloat16|S\d*_", rest)
+        if m is None:
+            break
+        tok = m.group(0)
+        args.append("f" if tok == "f" else "bf16" if "bfloat16" in tok else args[-1])
+        rest = rest[len(tok):]
+    return ",".join(args)
 
 
 def hopper_ptxas(log: str) -> list:
-    """(kernel, head dim, registers, stack frame, spill store and spill load
-    bytes) of each instantiation of a wgmma kernel (K4's, K5's, K6's), from
-    ``-Xptxas -v`` output."""
+    """(kernel, template arguments, registers, stack frame, spill store and
+    spill load bytes) of each instantiation of a kernel in
+    ``HOPPER_KERNELS``, from ``-Xptxas -v`` output."""
     import re
 
-    out, d = [], None
+    names = sorted({k for ks in HOPPER_KERNELS.values() for k in ks}, key=len, reverse=True)
+    out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(flash_(?:fwd|dq|dkv)_hopper)ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
         if m:
-            name, d, frame, st, ld = m.group(1), int(m.group(2)), None, None, None
+            name = next((k for k in names if re.search(rf"\d{k}(?:I|E)", m.group(1))), None)
+            if name is not None:
+                args, frame = _template_args(m.group(1), name), None
             continue
-        if d is None:
+        if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -206,27 +249,27 @@ def hopper_ptxas(log: str) -> list:
             frame, st, ld = (int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and frame is not None:
-            out.append((name, d, int(m.group(1)), frame, st, ld))
-            d = None
+            out.append((name, args, int(m.group(1)), frame, st, ld))
+            name = None
     return out
 
 
 def check_hopper_build(logs: dict) -> None:
-    """Print the registers and spills of every wgmma instantiation and fail
-    unless each kernel built at every head dim with no spill and no
-    serialized wgmma."""
+    """Print the registers and spills of every kernel in ``HOPPER_KERNELS``
+    (the wgmma routes of K4-K6 and K9, K11's cluster route) and fail unless
+    each built every instantiation with no spill and no serialized wgmma."""
     for source, kernels in HOPPER_KERNELS.items():
         if logs.get(source, "(cached)") == "(cached)":
             continue
         hop = hopper_ptxas(logs[source])
-        for name, d, regs, frame, st, ld in hop:
-            print(f"[build] {name}, head dim {d}: {regs} registers, {frame} bytes stack frame, "
+        for name, args, regs, frame, st, ld in hop:
+            print(f"[build] {name}<{args}>: {regs} registers, {frame} bytes stack frame, "
                   f"{st} bytes spill stores, {ld} bytes spill loads", flush=True)
         serialized = "serialized" in logs[source]
-        dims = {k: sorted(h[1] for h in hop if h[0] == k) for k in kernels}
-        if any(v != HOPPER_DIMS for v in dims.values()) or serialized or any(
+        built = {k: sorted(h[1] for h in hop if h[0] == k) for k in kernels}
+        if any(built[k] != sorted(v) for k, v in kernels.items()) or serialized or any(
                 h[4] or h[5] for h in hop):
-            fail(f"{source}'s wgmma route does not build clean: {hop}, wgmma "
+            fail(f"{source}'s sm_90a kernels do not build clean: {hop}, wgmma "
                  f"serialized={serialized}")
 
 
@@ -1300,12 +1343,14 @@ def run_train(device) -> tuple:
         wall = time.perf_counter() - t0
         launches = dict(counts.LAUNCHES)
         plain = dict(counts.PLAIN_CALLS)
+        k11_routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("rmsnorm")}
     peak = torch.cuda.max_memory_allocated()
     steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
     print(f"[train] Trainer.run({TRAIN_STEPS}): losses {losses}; wall_s={wall:.6f}; step_s "
           f"{step_s} (the first includes warm-up); steady step_ms={steady * 1e3:.3f} "
           f"tokens_per_s={B * S / steady:.1f}; max_memory_allocated={peak}; launches "
-          f"{ {k: launches[k] for k in TRAIN_KERNELS} } plain_calls {plain}", flush=True)
+          f"{ {k: launches[k] for k in TRAIN_KERNELS} } (K11 by route {k11_routes}) "
+          f"plain_calls {plain}", flush=True)
     # K4-K6 once a layer a step; K10 and K11 twice a layer and at the final
     # norm
     for name in TRAIN_KERNELS:
@@ -1313,6 +1358,8 @@ def run_train(device) -> tuple:
         if launches[name] != want or plain[name] != 0:
             fail(f"Trainer.run launched {name} {launches[name]} times (want {want}) and its "
                  f"plain version {plain[name]} times (want 0)")
+    if k11_routes != {"rmsnorm_bwd/cluster": launches["rmsnorm_bwd"]}:
+        fail(f"K11 did not take its cluster route at d_model {cfg.d_model}: {k11_routes}")
     ln_v = math.log(cfg.vocab)
     if not all(math.isfinite(x) for x in losses) or abs(losses[0] - ln_v) > LOSS_MARGIN:
         fail(f"losses {losses} are not finite or the first is not within {LOSS_MARGIN} of "
@@ -1493,11 +1540,25 @@ def gmm_bound(x, w):
     return (*bound(nbytes(x, w) + out_bytes, flop, BF16_OPS_PER_S), flop)
 
 
-def hold_gmm(kept, launches: int, decode_launches: int, decode_x) -> dict:
+def time_gmm_designs(x, w, reps: int) -> tuple:
+    """(ms of the route ``ops.gmm_route`` picks, ms of PR 14's mma.sync
+    design, the four turns) on these bf16 inputs, timed in turns: PR 14,
+    this, this, PR 14, each the mean of ``reps`` calls; the means of each
+    pair."""
+    from repro_torch.kernels.moe_gmm import ops
+
+    new = lambda: ops.gmm_cuda(x, w)                       # noqa: E731
+    old = lambda: ops.gmm_cuda(x, w, route="mma_sync")     # noqa: E731
+    o1, n1, n2, o2 = (cuda_time_ms(f, reps) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2, (o1, n1, n2, o2)
+
+
+def hold_gmm(kept, launches: int, decode_launches: int, decode_x, decode_xd) -> dict:
     """K9 on the first layer's w_gate and w_down inputs from the prefill
     against its plain version, in bf16 and upcast to float32; timed beside
-    the plain version, ``torch.bmm`` (cuBLAS, bf16) and its bound; then the
-    same timings at a decode step's shape."""
+    PR 14's mma.sync design (in turns), the plain version, ``torch.bmm``
+    (cuBLAS, bf16) and its bound; then the same at a decode step's w_gate
+    and w_down shapes."""
     import torch
 
     from repro_torch.kernels.moe_gmm import ops
@@ -1505,68 +1566,118 @@ def hold_gmm(kept, launches: int, decode_launches: int, decode_x) -> dict:
     match, err = True, 0.0
     for label, (x, w, gs) in (("w_gate", kept[0][0]), ("w_down", kept[2][0])):
         for kind, args in (("bf16", (x, w, gs)), ("upcast to float32", (x.float(), w.float(), gs))):
+            route = ops.route_of(*args[:2])
             got, want = ops.gmm_cuda(*args), ops.gmm_plain(*args)
             torch.cuda.synchronize()
             ok, e, scale = gmm_errs(got, want)
             print(f"[moe] K9 vs plain at the first layer's {label} product {tuple(x.shape)} x "
-                  f"{tuple(w.shape)}, {kind}: max|plain| {scale} err {e} match={ok}", flush=True)
+                  f"{tuple(w.shape)}, {kind}, route {route}: max|plain| {scale} err {e} "
+                  f"match={ok}", flush=True)
             match, err = match and ok, max(err, e)
             del got, want, args
     x, w, gs = kept[0][0]
     b_ms, b_by, flop = gmm_bound(x, w)
+    ms, prior_ms, turns = time_gmm_designs(x, w, 5)
     row = dict(name="moe_gmm", source=K9_SOURCE[0], replaces=K9_SOURCE[1],
                shape=f"x={tuple(x.shape)} w={tuple(w.shape)} {str(x.dtype)[6:]} group_sizes=None",
-               match=match, max_abs_err=err,
-               ms=cuda_time_ms(lambda: ops.gmm_cuda(x, w), 10),
+               path_route=ops.route_of(x, w),
+               match=match, max_abs_err=err, ms=ms, prior_ms=prior_ms,
                plain_ms=cuda_time_ms(lambda: ops.gmm_plain(x, w), 3),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=cuda_time_ms(lambda: torch.bmm(x, w), 10),
                library="torch.bmm (cuBLAS, bf16)")
     xd, wd, _ = kept[2][0]
-    down_ms = cuda_time_ms(lambda: ops.gmm_cuda(xd, wd), 10)
-    print(f"[moe] K9 at the first layer's w_gate product: {row['shape']} match={match} "
-          f"max_abs_err={err} ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} bmm_ms="
-          f"{row['library_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) flop={flop:.4g} "
-          f"launches={launches}; its w_down product ms={down_ms:.6f}", flush=True)
+    down_ms, down_prior_ms, _ = time_gmm_designs(xd, wd, 5)
+    row.update(w_down_shape=f"x={tuple(xd.shape)} w={tuple(wd.shape)}", w_down_ms=down_ms,
+               w_down_prior_ms=down_prior_ms,
+               w_down_library_ms=cuda_time_ms(lambda: torch.bmm(xd, wd), 10))
+    print(f"[moe] K9 at the first layer's w_gate product: {row['shape']} route "
+          f"{row['path_route']} "
+          f"match={match} max_abs_err={err} ms={ms:.6f} PR 14 design ms={prior_ms:.6f} (turns "
+          f"PR 14, this, this, PR 14: {', '.join(f'{t:.6f}' for t in turns)}) plain_ms="
+          f"{row['plain_ms']:.6f} bmm_ms={row['library_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+          f"flop={flop:.4g} launches={launches}; its w_down product {row['w_down_shape']}: "
+          f"ms={down_ms:.6f} PR 14 design ms={down_prior_ms:.6f} bmm_ms="
+          f"{row['w_down_library_ms']:.6f}", flush=True)
     d_ms, d_by, d_flop = gmm_bound(decode_x, w)
+    dec_ms, dec_prior_ms, dturns = time_gmm_designs(decode_x, w, 20)
+    dd_ms, dd_prior_ms, _ = time_gmm_designs(decode_xd, wd, 20)
+    dd_bound, dd_by, _ = gmm_bound(decode_xd, wd)
     row.update(
         decode_shape=f"x={tuple(decode_x.shape)} w={tuple(w.shape)}",
-        decode_launches=decode_launches,
-        decode_ms=cuda_time_ms(lambda: ops.gmm_cuda(decode_x, w), 20),
+        decode_route=ops.route_of(decode_x, w),
+        decode_launches=decode_launches, decode_ms=dec_ms, decode_prior_ms=dec_prior_ms,
         decode_plain_ms=cuda_time_ms(lambda: ops.gmm_plain(decode_x, w), 5),
         decode_bound_ms=d_ms, decode_bound_by=d_by,
-        decode_library_ms=cuda_time_ms(lambda: torch.bmm(decode_x, w), 20))
-    print(f"[moe] K9 at a decode step's shape {row['decode_shape']}: ms={row['decode_ms']:.6f} "
-          f"plain_ms={row['decode_plain_ms']:.6f} bmm_ms={row['decode_library_ms']:.6f} "
-          f"bound_ms={d_ms:.6f} ({d_by}) launches per step={decode_launches}", flush=True)
+        decode_library_ms=cuda_time_ms(lambda: torch.bmm(decode_x, w), 20),
+        decode_w_down_shape=f"x={tuple(decode_xd.shape)} w={tuple(wd.shape)}",
+        decode_w_down_ms=dd_ms, decode_w_down_prior_ms=dd_prior_ms,
+        decode_w_down_bound_ms=dd_bound,
+        decode_w_down_library_ms=cuda_time_ms(lambda: torch.bmm(decode_xd, wd), 20))
+    print(f"[moe] K9 at a decode step's shape {row['decode_shape']} route {row['decode_route']}: "
+          f"ms={dec_ms:.6f} PR 14 design ms={dec_prior_ms:.6f} (turns: "
+          f"{', '.join(f'{t:.6f}' for t in dturns)}) plain_ms={row['decode_plain_ms']:.6f} "
+          f"bmm_ms={row['decode_library_ms']:.6f} bound_ms={d_ms:.6f} ({d_by}); its w_down "
+          f"product {row['decode_w_down_shape']}: ms={dd_ms:.6f} PR 14 design ms="
+          f"{dd_prior_ms:.6f} bmm_ms={row['decode_w_down_library_ms']:.6f} bound_ms="
+          f"{dd_bound:.6f} ({dd_by}); launches per step={decode_launches}", flush=True)
     return row
+
+
+# (E, C, D, F) of check_gmm_small: each bf16 route of ops.gmm_route, small
+# and at mixtral-8x22b's decode shapes (w_gate and w_down); the prefill
+# shape is held in hold_gmm on the path's own inputs
+GMM_SMALL = [
+    ((2, 32, 48, 24), "wgmma_decode"),     # N = 32
+    ((2, 10, 64, 136), "wgmma_decode"),    # N = 16, C off it
+    ((2, 40, 64, 72), "wgmma_decode"),     # N = 64
+    ((3, 130, 96, 200), "wgmma"),          # C, D and F off the 128 x 256 x 64 tiles
+    ((2, 300, 520, 264), "wgmma"),
+    ((2, 77, 50, 30), "mma_sync"),         # D, F not multiples of 8: no TMA map
+    ((3, 140, 60, 72), "mma_sync"),
+    ((8, 16, 6144, 16384), "wgmma_decode"),
+    ((8, 16, 16384, 6144), "wgmma_decode"),
+]
 
 
 def check_gmm_small() -> list:
     """K9 against its plain version at small and ragged shapes and at the
-    decode shape, both dtypes, with and without group sizes; returns the
-    cases that disagree."""
+    decode shapes, both dtypes, with and without group sizes (0, a partial
+    tile, past C, and NaN past every group size), each case on the route
+    ``ops.gmm_route`` picks (asserted from the route counts) and, in bf16,
+    on PR 14's mma.sync design too; returns the cases that disagree."""
     import torch
 
+    from repro_torch.kernels import counts
     from repro_torch.kernels.moe_gmm import ops
 
     bad, worst = [], {}
     g = torch.Generator(device="cpu").manual_seed(2)
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
-        # C, D and F off the tile edges; D, F not multiples of 8; decode
-        for E, C, D, F in [(2, 32, 48, 24), (3, 130, 96, 200), (2, 77, 50, 30),
-                           (8, 16, 6144, 16384)]:
+        for (E, C, D, F), bf16_route in GMM_SMALL:
+            route = bf16_route if dtype == "bfloat16" else "cuda_core_f32"
             x = torch.randn((E, C, D), generator=g).to("cuda", td)
             w = (torch.randn((E, D, F), generator=g) / D ** 0.5).to("cuda", td)
-            for gs in (None, torch.tensor([C] + [C // 2] * (E - 1), dtype=torch.int32,
-                                          device="cuda")):
-                ok, e, _ = gmm_errs(ops.gmm_cuda(x, w, gs), ops.gmm_plain(x, w, gs))
-                worst[dtype] = max(worst.get(dtype, 0.0), e)
-                if not ok:
-                    bad.append(f"{dtype} {(E, C, D, F)} masked={gs is not None}")
-    print(f"[moe] K9 small shapes x dtypes x group sizes: max abs err {worst} disagree={bad}",
-          flush=True)
+            for gs in (None, [C] + [C // 2] * (E - 1), [0] + [C + 5] + [min(C, 129)] * (E - 2)):
+                xg = x.clone()
+                if gs is not None:
+                    for e, n in enumerate(gs):
+                        xg[e, n:] = float("nan")   # rows past the group size are never used
+                    gs = torch.tensor(gs, dtype=torch.int32, device="cuda")
+                for forced in (None, "mma_sync") if dtype == "bfloat16" else (None,):
+                    counts.reset()
+                    got = ops.gmm_cuda(xg, w, gs, route=forced)
+                    took = dict(counts.ROUTE_LAUNCHES)
+                    ok, e, _ = gmm_errs(got, ops.gmm_plain(x, w, gs))
+                    ok = ok and took == {f"moe_gmm/{forced or route}": 1}
+                    worst[dtype] = max(worst.get(dtype, 0.0), e)
+                    if not ok:
+                        bad.append(f"{dtype} {(E, C, D, F)} group_sizes="
+                                   f"{None if gs is None else gs.tolist()} routes {took} err {e}")
+    torch.cuda.synchronize()
+    print(f"[moe] K9 small shapes x dtypes x group sizes x routes: max abs err {worst} "
+          f"disagree={bad}", flush=True)
     return bad
 
 
@@ -1630,16 +1741,20 @@ def run_moe(device) -> tuple:
             k9, k4 = counts.LAUNCHES["moe_gmm"], counts.LAUNCHES["flash_attn_fwd"]
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
             plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+            k9_routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("moe_gmm")}
         dropped = [int((r[2] == r[3]).sum()) for r in routes]
         print(f"[moe] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} tokens_per_s="
               f"{B * S / wall:.1f} max_memory_allocated={torch.cuda.max_memory_allocated()} "
-              f"K9 launches={k9} K4 launches={k4} K10 launches={k10} plain_calls={plain}; of "
+              f"K9 launches={k9} ({k9_routes}) K4 launches={k4} K10 launches={k10} "
+              f"plain_calls={plain}; of "
               f"{S * cfg.moe.top_k} "
               f"assignments a layer, capacity {routes[0][3]} per expert drops, by layer: "
               f"{dropped}", flush=True)
-        if k9 != 3 * L or k4 != L or k10 != 2 * L + 1 or plain:
-            fail(f"prefill launched K9 {k9} times (want {3 * L}), K4 {k4} times (want {L}) and "
-                 f"K10 {k10} times (want {2 * L + 1}), plain calls {plain} (want none)")
+        if k9 != 3 * L or k4 != L or k10 != 2 * L + 1 or plain or k9_routes != {
+                "moe_gmm/wgmma": 3 * L}:
+            fail(f"prefill launched K9 {k9} times (want {3 * L}, all on the wgmma route: "
+                 f"{k9_routes}), K4 {k4} times (want {L}) and K10 {k10} times (want "
+                 f"{2 * L + 1}), plain calls {plain} (want none)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
         sample = list(range(0, S, 512)) + [S - 1]
@@ -1707,18 +1822,23 @@ def run_moe(device) -> tuple:
         step_toks = torch.full((SERVE_REQS, 1), 7, device=device)
         for _ in range(SERVE_PROMPT):
             _, cache = decode_step(params, cfg, rt, cache, step_toks)
-        with keep_calls(gmm_ops, "gmm_cuda", (0,)) as kept_dec:
+        with keep_calls(gmm_ops, "gmm_cuda", (0, 2)) as kept_dec:
             counts.reset()
             decode_step(params, cfg, rt, cache, step_toks)
             torch.cuda.synchronize()
             dec_k9, dec_k7 = counts.LAUNCHES["moe_gmm"], counts.LAUNCHES["flash_decode"]
+            dec_routes = dict(counts.ROUTE_LAUNCHES)
         dec_plain = sum(counts.PLAIN_CALLS.values())
-        print(f"[moe] one decode step of {SERVE_REQS} slots: K9 launches={dec_k9} (want {3 * L}) "
-              f"K7 launches={dec_k7} (want {L}) plain_calls={dec_plain}", flush=True)
-        if dec_k9 != 3 * L or dec_k7 != L or dec_plain:
-            fail(f"a decode step launched K9 {dec_k9} times (want {3 * L}) and K7 {dec_k7} times "
-                 f"(want {L}), plain versions {dec_plain} times")
-        decode_x = kept_dec[0][0][0]
+        print(f"[moe] one decode step of {SERVE_REQS} slots: K9 launches={dec_k9} (want {3 * L}, "
+              f"routes {dec_routes}) K7 launches={dec_k7} (want {L}) plain_calls={dec_plain}",
+              flush=True)
+        if dec_k9 != 3 * L or dec_k7 != L or dec_plain or dec_routes.get(
+                "moe_gmm/wgmma_decode") != 3 * L:
+            fail(f"a decode step launched K9 {dec_k9} times (want {3 * L}, all on the "
+                 f"wgmma_decode route: {dec_routes}) and K7 {dec_k7} times (want {L}), plain "
+                 f"versions {dec_plain} times")
+        decode_x, decode_xd = kept_dec[0][0][0], kept_dec[2][0][0]
+        del kept_dec   # its weight copies: hold_gmm takes the prefill's
 
         # decode against forward on a 64-token prompt, each decode step
         # taking the forward's routing of its token: its experts, its gates,
@@ -1764,8 +1884,8 @@ def run_moe(device) -> tuple:
                        f"decode step of {SERVE_REQS} slots at position {SERVE_PROMPT + 1}", 10,
                        tag="moe")
 
-    row = hold_gmm(kept, k9, dec_k9, decode_x)
-    del params, engine, cache, kept, kept_dec, decode_x
+    row = hold_gmm(kept, k9, dec_k9, decode_x, decode_xd)
+    del params, engine, cache, kept, decode_x, decode_xd
     gc.collect()
     torch.cuda.empty_cache()
     bad = check_gmm_small()
@@ -2040,9 +2160,12 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     """K10 and K11 on the prefill's first ln1 input (and a cotangent drawn
     from seed 3) against their plain versions, timed beside them,
     ``torch.nn.functional.rms_norm`` and its autograd backward (timed, never
-    used) and their bounds. bf16 outputs within one bf16 step of their
-    largest magnitude, rstd within 2e-6 relative, the float32 dw partials
-    within 1e-5 of their largest magnitude."""
+    used) and their bounds; K11 also in turns with PR 15's one-block-a-tile
+    design (the ``tile`` route) and, like for like with the library's dx
+    and whole dw, with the sum of its dw partials. bf16 outputs within one
+    bf16 step of their largest magnitude, rstd within 2e-6 relative, the
+    float32 dw partials within 1e-5 of their largest magnitude; the tile
+    route held the same."""
     import torch
     import torch.nn.functional as F
 
@@ -2054,6 +2177,7 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     out, rstd = ops.rmsnorm_fwd_cuda(x, w, eps)
     pout, prstd = ops.rmsnorm_fwd_plain(x, w, eps)
     dx, parts = ops.rmsnorm_bwd_cuda(x, w, rstd, do)
+    tdx, tparts = ops.rmsnorm_bwd_cuda(x, w, rstd, do, route="tile")
     pdx, pparts = ops.rmsnorm_bwd_plain(x, w, rstd, do)
     torch.cuda.synchronize()
 
@@ -2067,7 +2191,8 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     ok10 = ok10 and r_err <= 2e-6
     ok11, e11 = close(dx, pdx, BF16_STEP)
     okp, ep = close(parts, pparts, 1e-5)
-    ok11 = ok11 and okp
+    ok11 = ok11 and okp and close(tdx, pdx, BF16_STEP)[0] and close(tparts, pparts, 1e-5)[0]
+    del tdx, tparts
     print(f"[ssm] K10 vs plain at the prefill's ln1 input {tuple(x.shape)} {str(x.dtype)[6:]}: "
           f"out err {e10} rstd rel err {r_err} match={ok10}; K11: dx err {e11}, dw partials "
           f"err {ep} match={ok11}", flush=True)
@@ -2083,9 +2208,18 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
                bound_ms=f_ms, bound_by=f_by,
                library_ms=cuda_time_ms(lambda: F.rms_norm(x, (D,), w, eps), 50),
                library="torch.nn.functional.rms_norm")
+    route = ops.rmsnorm_bwd_route(D)
+    new = lambda: ops.rmsnorm_bwd_cuda(x, w, rstd, do)                  # noqa: E731
+    old = lambda: ops.rmsnorm_bwd_cuda(x, w, rstd, do, route="tile")    # noqa: E731
+    o1, n1, n2, o2 = (cuda_time_ms(f, 50) for f in (old, new, new, old))
+
+    def with_dw():
+        _, p = ops.rmsnorm_bwd_cuda(x, w, rstd, do)
+        return p.sum(dim=0).to(w.dtype)
+
     k11 = dict(name="rmsnorm_bwd", source=K11_SOURCE[0], replaces=K11_SOURCE[1], shape=shape,
-               match=ok11, max_abs_err=max(e11, ep),
-               ms=cuda_time_ms(lambda: ops.rmsnorm_bwd_cuda(x, w, rstd, do), 50),
+               path_route=route, match=ok11, max_abs_err=max(e11, ep), ms=(n1 + n2) / 2,
+               prior_ms=(o1 + o2) / 2, with_dw_sum_ms=cuda_time_ms(with_dw, 50),
                plain_ms=cuda_time_ms(lambda: ops.rmsnorm_bwd_plain(x, w, rstd, do), 20),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=cuda_time_ms(lambda: torch.autograd.grad(lib_out, (xg, wg), do,
@@ -2095,6 +2229,10 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
         print(f"[ssm] {r['name']}: {shape} match={r['match']} max_abs_err={r['max_abs_err']} "
               f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) launches={n}", flush=True)
+    print(f"[ssm] rmsnorm_bwd on the {route} route: ms={k11['ms']:.6f}, PR 15 design (tile "
+          f"route) ms={k11['prior_ms']:.6f} (turns PR 15, this, this, PR 15: {o1:.6f}, "
+          f"{n1:.6f}, {n2:.6f}, {o2:.6f}); with the partials' sum (dx and the whole dw, as the "
+          f"library row) ms={k11['with_dw_sum_ms']:.6f}", flush=True)
     return k10, k11
 
 
@@ -2125,7 +2263,9 @@ def check_ssm_small() -> list:
                 ok = scan_errs(*wkv.wkv_cuda(*a), *wkv.wkv_plain(*a), bf16_intra)[0]
                 if not ok:
                     bad.append(f"K12 {(B, S, H, K, c)} {dt} w {wdt} bf16_intra={bf16_intra}")
-    for N, D in [(1, 64), (37, 50), (300, 96)]:
+    # K11: (300, 4100) splits its rows over 5 blocks of 824 columns, the
+    # last 804; (129, 1030) over 2, unvectorised, with a one-row tile
+    for N, D in [(1, 64), (37, 50), (300, 96), (300, 4100), (129, 1030)]:
         for dt, wdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                         (torch.bfloat16, torch.float32)):
             x = (torch.randn((N, D), generator=g) * 3).to("cuda", dt)
@@ -2134,10 +2274,11 @@ def check_ssm_small() -> list:
             out, rstd = rms.rmsnorm_fwd_cuda(x, w)
             pout, prstd = rms.rmsnorm_fwd_plain(x, w)
             dx, parts = rms.rmsnorm_bwd_cuda(x, w, rstd, do)
+            tdx, tparts = rms.rmsnorm_bwd_cuda(x, w, rstd, do, route="tile")
             pdx, pparts = rms.rmsnorm_bwd_plain(x, w, rstd, do)
             frac = BF16_STEP if dt == torch.bfloat16 else 1e-5
             for a, b, f in ((out, pout, frac), (dx, pdx, frac), (parts, pparts, 1e-5),
-                            (rstd, prstd, 2e-6)):
+                            (rstd, prstd, 2e-6), (tdx, pdx, frac), (tparts, pparts, 1e-5)):
                 if not torch.allclose(a.float(), b.float(), atol=f * float(b.float().abs().max()),
                                       rtol=0):
                     bad.append(f"K10/K11 {(N, D)} {dt} w {wdt}")
@@ -2875,7 +3016,8 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         out.update({k: v for k, v in r.items()
                     if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
-                                     "by_path", "simt_", "floor_"))
+                                     "by_path", "simt_", "floor_", "prior_", "path_route",
+                                     "w_down_", "with_dw_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]

@@ -4,8 +4,7 @@
 // body _gmm_kernel). Computes, for x (E, C, D) and w (E, D, F) of one dtype
 // (bfloat16 or float32), out[e, c, :] = x[e, c, :] . w[e] summed in float32
 // and written in x's dtype, with rows c >= group_sizes[e] written as 0
-// (group_sizes may be null: every row is valid). Any E, C, D and F are taken;
-// the ragged edges are masked here.
+// (group_sizes may be null: every row is valid). Any E, C, D and F are taken.
 //
 // What bounds it on this card: operations at the MoE prefill, bytes at
 // decode. At mixtral-8x22b's first layer with 1 x 8192 tokens a call
@@ -14,25 +13,53 @@
 // (C = 16) the 1.61 GB of expert weights take 0.48 ms at 3.35 TB/s and the
 // products almost nothing.
 //
-// Design. One block per (tile of rows, tile of columns, expert); the row
-// tiles are the fastest grid index, so the blocks that share one column
-// tile of w run together and read it from device memory about once. D is
-// streamed in slabs through shared memory; the next slab is loaded into
-// registers while the current one is multiplied. A block whose rows all lie
-// past the expert's group size (or past C) writes zeros and skips its loop;
-// rows past the group size read no input.
-// - bfloat16: 128 x 128 tiles, 32-deep slabs, 8 warps each owning a 64 x 32
-//   patch, mma.sync m16n8k16 on the tensor cores (bf16 products are exact in
-//   float32; the sums are float32). A warp skips the 16-row groups of its
-//   patch that hold no valid row, so decode (C = 16) runs one of them.
-// - float32: 64 x 64 tiles, 16-deep slabs, each thread a 4 x 4 register tile
-//   of fmaf on the CUDA cores (the port builds with --fmad=false, so the
-//   fused multiply-add is written out).
-// wgmma and TMA come later.
+// Four routes; kernels/moe_gmm/ops.py picks one by dtype, shape and
+// alignment (gmm_route) and passes the grid it plans (gmm_plan):
+//
+// bfloat16 where TMA can describe both operands (D and F multiples of 8,
+// x and w 16-byte aligned): wgmma and TMA, built from hopper.cuh.
+// - gmm_prefill_hopper (C > 64): persistent, one block an SM walking 128 x
+//   256 output tiles, row tiles fastest, so the blocks at work at one time
+//   share a few column blocks of w and one expert's x. A producer warpgroup
+//   (one thread, setmaxnreg down to 40) keeps four stages of 64-deep K in
+//   flight: x's 128 x 64 tile (K-major A) and w's 64 x 256 tile as it lies
+//   (MN-major B, four 64-column atoms, LBO one atom), each from a 3-D
+//   tensor map (D, C, E) or (F, D, E) that zero-fills past C, D and F
+//   inside each expert, so the ragged edges need no masking loads. Two
+//   consumer warpgroups (setmaxnreg up to 232) take 64 rows each with
+//   wgmma m64n256k16, keep one product group in flight and free its stage
+//   when the next is issued; the producer runs on into the next tile while
+//   they store this one.
+// - gmm_decode_hopper (C <= 64): the operands swapped, out^T = w^T . x^T,
+//   so F fills wgmma's 64 rows and the C <= 64 token rows are its N (16, 32
+//   or 64): no tile is mostly empty rows. A block takes 128 columns of w
+//   of one expert over the whole of D, two consumer warpgroups of 64, w's
+//   64 x 128 tile the MN-major A and x's N x 64 tile the K-major B, in as
+//   many stages as let two blocks share an SM (six at N = 16): what
+//   matters here is keeping w's bytes in flight.
+// - bf16 products are exact in float32 and the sums are float32, so no
+//   hi + lo split is needed (unlike K4-K6).
+// - Rows past the group size lie inside the tile's box and are loaded, but
+//   a row of x reaches only its own output row, which is written as 0. A
+//   tile (prefill) or block (decode) with no valid row loads nothing and
+//   writes zeros.
+//
+// bfloat16 otherwise (D or F not a multiple of 8, or an unaligned base):
+// gmm_bf16_kernel, the design of the first port, one block per (128 rows,
+// 128 columns, expert) tile, 32-deep slabs staged through registers,
+// mma.sync m16n8k16, any shape. Also exported as moe_gmm_bf16_mma for
+// timing it beside the wgmma routes.
+//
+// float32: gmm_f32_kernel, 64 x 64 tiles, 16-deep slabs, each thread a 4 x
+// 4 register tile of fmaf on the CUDA cores (tf32 would miss the 2e-5
+// gate; the port builds with --fmad=false, so the fused multiply-add is
+// written out).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -272,12 +299,322 @@ __global__ void __launch_bounds__(NT) gmm_f32_kernel(
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
+// ------------------------------------------- bfloat16: wgmma, TMA, mbarrier
+
+namespace hop {
+
+using namespace hopper;
+
+constexpr int NTH = 384;         // producer warpgroup + two consumer warpgroups
+constexpr int BK = 64;           // K (D) a stage: one 128-byte swizzle atom of bf16
+constexpr int ATOM = 64 * 128;   // 64 K rows x 64 columns of w, swizzled
+constexpr int K16 = 16 * 128;    // a k16 step inside an MN-major atom
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---- prefill: 128 x 256 tiles, persistent
+
+constexpr int PM = 128, PN = 256, PSTAGES = 4;
+constexpr int PA_BYTES = PM * 128;          // x: 128 rows x 64 K
+constexpr int PB_BYTES = (PN / 64) * ATOM;  // w: 64 K rows x 256 columns
+constexpr int PSTAGE = PA_BYTES + PB_BYTES;
+constexpr int PSMEM = 1024 + PSTAGES * PSTAGE + 8 * 2 * PSTAGES;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 <= 65536
+
+__global__ void __launch_bounds__(NTH, 1) gmm_prefill_hopper(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int E, int C, int D, int F) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + PSTAGES * PSTAGE;
+  auto sA = [&](int s) { return base + s * PSTAGE; };
+  auto sB = [&](int s) { return base + s * PSTAGE + PA_BYTES; };
+  auto full = [&](int s) { return bar + 8u * s; };
+  auto empty = [&](int s) { return bar + 8u * (PSTAGES + s); };
+
+  const int mt = (C + PM - 1) / PM, nt = (F + PN - 1) / PN;
+  const int tiles = mt * nt * E;
+  const int kb_n = (D + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile t: row tile fastest, then column tile, then expert; block b takes
+  // t = b, b + gridDim.x, ... (ops.persistent_tiles mirrors this order)
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tx);
+      tma_prefetch_map(&tw);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m = t % mt, n = (t / mt) % nt, e = t / (mt * nt);
+        if (m * PM >= valid_rows(gs, e, C)) continue;
+        for (int kb = 0; kb < kb_n; ++kb, ++it) {
+          const int s = it % PSTAGES;
+          mbar_wait(empty(s), ((it / PSTAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), PSTAGE);
+          tma_load_3d(sA(s), &tx, full(s), kb * BK, m * PM, e);
+#pragma unroll
+          for (int a = 0; a < PN / 64; ++a)
+            tma_load_3d(sB(s) + a * ATOM, &tw, full(s), n * PN + 64 * a, kb * BK, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+  const int tq = threadIdx.x % 128, warp = tq / 32, lane = tq % 32;
+  float acc[PN / 2];
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m = t % mt, n = (t / mt) % nt, e = t / (mt * nt);
+    const int nv = valid_rows(gs, e, C);
+    const int row0 = m * PM + 64 * cw, n0 = n * PN;
+    __nv_bfloat16* ob = out + (int64_t)e * C * F;
+    if (m * PM >= nv) {  // no valid row in this tile: zeros, nothing loaded
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int i = tq; i < 64 * (PN / 8); i += 128) {
+        const int r = row0 + i / (PN / 8), c = n0 + (i % (PN / 8)) * 8;
+        if (r < C && c < F) *reinterpret_cast<uint4*>(ob + (int64_t)r * F + c) = z;
+      }
+      continue;
+    }
+    for (int kb = 0; kb < kb_n; ++kb, ++it) {
+      const int s = it % PSTAGES;
+      mbar_wait(full(s), (it / PSTAGES) & 1);
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_ss_t<PN, 0, 1>(acc, desc_sw128(sA(s) + cw * 64 * 128 + ks * 32, 16, 1024),
+                             desc_sw128(sB(s) + ks * K16, ATOM, 1024), kb > 0 || ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: free it
+      fence_operands(acc);
+      if (kb > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty((it - 1) % PSTAGES));
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty((it - 1) % PSTAGES));
+
+    // acc[4i + {0,1}]: row ra, columns 8i + 2 (lane % 4) + {0,1}; acc[4i +
+    // {2,3}]: row ra + 8; F is a multiple of 8, so a pair is whole or past F
+    const int ra = row0 + 16 * warp + lane / 4, rb = ra + 8;
+    const bool oka = ra < nv, okb = rb < nv;
+#pragma unroll
+    for (int i = 0; i < PN / 8; ++i) {
+      const int c = n0 + 8 * i + 2 * (lane % 4);
+      if (c >= F) continue;
+      if (ra < C)
+        store_pair(ob + (int64_t)ra * F + c, oka ? acc[4 * i] : 0.f, oka ? acc[4 * i + 1] : 0.f);
+      if (rb < C)
+        store_pair(ob + (int64_t)rb * F + c, okb ? acc[4 * i + 2] : 0.f,
+                   okb ? acc[4 * i + 3] : 0.f);
+    }
+  }
+}
+
+// ---- decode: out^T = w^T . x^T, 128 columns of w a block
+
+constexpr int SF = 128;  // columns of F a block: two consumer warpgroups of 64
+
+template <int NC>
+struct Swap {
+  static constexpr int W_BYTES = (SF / 64) * ATOM;  // w: 64 K rows x 128 columns
+  static constexpr int X_BYTES = NC * 128;          // x: NC rows x 64 K
+  static constexpr int STAGE = W_BYTES + X_BYTES;   // a multiple of 1024
+  // two blocks an SM: 228 KB of shared memory, 1 KB of it reserved a block
+  static constexpr int STAGES = (114 * 1024 - 1024 - 1024 - 128) / STAGE;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 8 * 2 * STAGES;
+  static_assert(STAGE % 1024 == 0 && STAGES >= 3 && 2 * (SMEM + 1024) <= 228 * 1024,
+                "decode stages must fit two blocks an SM");
+};
+
+template <int NC>
+__global__ void __launch_bounds__(NTH, 2) gmm_decode_hopper(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+    const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+  using S = Swap<NC>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + S::STAGES * S::STAGE;
+  auto sW = [&](int s) { return base + s * S::STAGE; };
+  auto sX = [&](int s) { return base + s * S::STAGE + S::W_BYTES; };
+  auto full = [&](int s) { return bar + 8u * s; };
+  auto empty = [&](int s) { return bar + 8u * (S::STAGES + s); };
+
+  const int e = blockIdx.y, f0 = blockIdx.x * SF;
+  const int nv = valid_rows(gs, e, C);
+  const int kb_n = (D + BK - 1) / BK;
+  __nv_bfloat16* ob = out + (int64_t)e * C * F;
+  if (nv == 0) {  // no valid row in this expert: zeros, nothing loaded
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < C * (SF / 8); i += NTH) {
+      const int r = i / (SF / 8), c = f0 + (i % (SF / 8)) * 8;
+      if (c < F) *reinterpret_cast<uint4*>(ob + (int64_t)r * F + c) = z;
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tx);
+      tma_prefetch_map(&tw);
+      for (int kb = 0; kb < kb_n; ++kb) {
+        const int s = kb % S::STAGES;
+        mbar_wait(empty(s), ((kb / S::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), S::STAGE);
+#pragma unroll
+        for (int a = 0; a < SF / 64; ++a)
+          tma_load_3d(sW(s) + a * ATOM, &tw, full(s), f0 + 64 * a, kb * BK, e);
+        tma_load_3d(sX(s), &tx, full(s), kb * BK, 0, e);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;  // this warpgroup's 64 columns of w
+  const int tq = threadIdx.x % 128, warp = tq / 32, lane = tq % 32;
+  float acc[NC / 2];
+  for (int kb = 0; kb < kb_n; ++kb) {
+    const int s = kb % S::STAGES;
+    mbar_wait(full(s), (kb / S::STAGES) & 1);
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_ss_t<NC, 1, 0>(acc, desc_sw128(sW(s) + cw * ATOM + ks * K16, ATOM, 1024),
+                           desc_sw128(sX(s) + ks * 32, 16, 1024), kb > 0 || ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(acc);
+    if (kb > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty((kb - 1) % S::STAGES));
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // acc[4i + {0,1}]: w column fa, token rows 8i + 2 (lane % 4) + {0,1};
+  // acc[4i + {2,3}]: column fa + 8
+  const int fa = f0 + 64 * cw + 16 * warp + lane / 4, fb = fa + 8;
+#pragma unroll
+  for (int i = 0; i < NC / 8; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 8 * i + 2 * (lane % 4) + h;
+      if (r >= C) continue;
+      const bool ok = r < nv;
+      if (fa < F) ob[(int64_t)r * F + fa] = __float2bfloat16_rn(ok ? acc[4 * i + h] : 0.f);
+      if (fb < F) ob[(int64_t)r * F + fb] = __float2bfloat16_rn(ok ? acc[4 * i + 2 + h] : 0.f);
+    }
+  }
+}
+
+// TMA reads 16-byte-aligned rows: D and F multiples of 8, aligned bases
+bool tma_ok(const void* x, const void* w, int D, int F) {
+  return D > 0 && D % 8 == 0 && F % 8 == 0 && aligned16(x) && aligned16(w);
+}
+
+int launch_prefill(const void* x, const void* w, const void* gs, void* out, int E, int C, int D,
+                   int F, int blocks, cudaStream_t stream) {
+  if (!tma_ok(x, w, D, F) || blocks <= 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  int rc = encode_bf16_3d_sw128(&tx, x, D, C, E, PM);
+  if (rc == 0) rc = encode_bf16_3d_sw128(&tw, w, F, D, E, BK);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(gmm_prefill_hopper,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, PSMEM);
+  if (err != cudaSuccess) return (int)err;
+  gmm_prefill_hopper<<<blocks, NTH, PSMEM, stream>>>(tx, tw, (const int*)gs, (__nv_bfloat16*)out,
+                                                     E, C, D, F);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int launch_decode_n(const void* x, const void* w, const void* gs, void* out, int E, int C, int D,
+                    int F, cudaStream_t stream) {
+  using S = Swap<NC>;
+  CUtensorMap tx, tw;
+  int rc = encode_bf16_3d_sw128(&tx, x, D, C, E, NC);
+  if (rc == 0) rc = encode_bf16_3d_sw128(&tw, w, F, D, E, BK);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(gmm_decode_hopper<NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((F + SF - 1) / SF, E);
+  gmm_decode_hopper<NC><<<grid, NTH, S::SMEM, stream>>>(tx, tw, (const int*)gs,
+                                                        (__nv_bfloat16*)out, C, D, F);
+  return (int)cudaGetLastError();
+}
+
+int launch_decode(const void* x, const void* w, const void* gs, void* out, int E, int C, int D,
+                  int F, cudaStream_t stream) {
+  if (!tma_ok(x, w, D, F) || C > 64) return (int)cudaErrorInvalidValue;
+  if (C <= 16) return launch_decode_n<16>(x, w, gs, out, E, C, D, F, stream);
+  if (C <= 32) return launch_decode_n<32>(x, w, gs, out, E, C, D, F, stream);
+  return launch_decode_n<64>(x, w, gs, out, E, C, D, F, stream);
+}
+
+}  // namespace hop
+
 }  // namespace
 
-extern "C" int moe_gmm_bf16(const void* x, const void* w, const void* gs, void* out, int E,
-                            int C, int D, int F, void* stream) {
+// Each entry takes the grid that ops.gmm_plan planned and refuses any other,
+// so the host's plan and the kernel's tiling cannot drift apart.
+
+extern "C" int moe_gmm_bf16_wgmma(const void* x, const void* w, const void* gs, void* out, int E,
+                                  int C, int D, int F, int gx, int gy, int gz, void* stream) {
+  if (E <= 0 || C <= 0 || F <= 0) return 0;
+  if (gy != 1 || gz != 1) return (int)cudaErrorInvalidConfiguration;
+  return hop::launch_prefill(x, w, gs, out, E, C, D, F, gx, (cudaStream_t)stream);
+}
+
+extern "C" int moe_gmm_bf16_wgmma_decode(const void* x, const void* w, const void* gs, void* out,
+                                         int E, int C, int D, int F, int gx, int gy, int gz,
+                                         void* stream) {
+  if (E <= 0 || C <= 0 || F <= 0) return 0;
+  if (gx != (F + hop::SF - 1) / hop::SF || gy != E || gz != 1)
+    return (int)cudaErrorInvalidConfiguration;
+  return hop::launch_decode(x, w, gs, out, E, C, D, F, (cudaStream_t)stream);
+}
+
+extern "C" int moe_gmm_bf16_mma(const void* x, const void* w, const void* gs, void* out, int E,
+                                int C, int D, int F, int gx, int gy, int gz, void* stream) {
   if (E <= 0 || C <= 0 || F <= 0) return 0;
   dim3 grid((C + HM - 1) / HM, (F + HN - 1) / HN, E);
+  if ((int)grid.x != gx || (int)grid.y != gy || (int)grid.z != gz)
+    return (int)cudaErrorInvalidConfiguration;
   const int vec = aligned16(x) && aligned16(w);
   gmm_bf16_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const int*)gs, (__nv_bfloat16*)out, C,
@@ -286,9 +623,11 @@ extern "C" int moe_gmm_bf16(const void* x, const void* w, const void* gs, void* 
 }
 
 extern "C" int moe_gmm_f32(const void* x, const void* w, const void* gs, void* out, int E, int C,
-                           int D, int F, void* stream) {
+                           int D, int F, int gx, int gy, int gz, void* stream) {
   if (E <= 0 || C <= 0 || F <= 0) return 0;
   dim3 grid((C + FM - 1) / FM, (F + FN - 1) / FN, E);
+  if ((int)grid.x != gx || (int)grid.y != gy || (int)grid.z != gz)
+    return (int)cudaErrorInvalidConfiguration;
   gmm_f32_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const int*)gs, (float*)out, C, D, F);
   return (int)cudaGetLastError();

@@ -2,16 +2,18 @@
 
 Each wrapper adds one to ``LAUNCHES[name]`` right after its kernel is
 launched on the card, and one to ``PLAIN_CALLS[name]`` when a CPU tensor
-sends it to the kernel's plain PyTorch version. A run sets both to zero
-with :func:`reset`, drives the path, and reads them back to show which
-route the path took.
+sends it to the kernel's plain PyTorch version. A kernel with several
+routes on the card (K9 and K11 choose one by shape) also adds one to
+``ROUTE_LAUNCHES["name/route"]``. A run sets all three to zero with
+:func:`reset`, drives the path, and reads them back to show which route
+the path took.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-__all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "reset", "snapshot"]
+__all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "ROUTE_LAUNCHES", "reset", "snapshot"]
 
 KERNELS = (
     "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_dq",
@@ -21,13 +23,16 @@ KERNELS = (
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+ROUTE_LAUNCHES: Dict[str, int] = {}
 
 
 def reset() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def snapshot() -> Dict[str, Dict[str, int]]:
-    return {"launches": dict(LAUNCHES), "plain_calls": dict(PLAIN_CALLS)}
+    return {"launches": dict(LAUNCHES), "plain_calls": dict(PLAIN_CALLS),
+            "route_launches": dict(ROUTE_LAUNCHES)}

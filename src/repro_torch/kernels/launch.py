@@ -8,7 +8,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .counts import LAUNCHES
+from .counts import LAUNCHES, ROUTE_LAUNCHES
 
 __all__ = ["check", "launch"]
 
@@ -44,12 +44,14 @@ def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
 
 def launch(kernel: str, symbol: str, device: torch.device,
            tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
-           source: Optional[str] = None, floats: Sequence[float] = ()) -> None:
+           source: Optional[str] = None, floats: Sequence[float] = (),
+           route: Optional[str] = None) -> None:
     """Call ``symbol`` of the library built from ``source`` (by default
     ``kernel``) on the current stream of ``device`` with the pointers of
     ``tensors`` (a ``None`` tensor passes a null pointer), then ``ints`` as
     C ints and ``floats`` as C floats; raise on a nonzero CUDA error; count
-    the launch under ``kernel``."""
+    the launch under ``kernel`` (and under ``kernel/route`` when a route is
+    named)."""
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel needs tensors on the card, got {device}")
     for v in ints:
@@ -63,3 +65,6 @@ def launch(kernel: str, symbol: str, device: torch.device,
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
     LAUNCHES[kernel] += 1
+    if route is not None:
+        key = f"{kernel}/{route}"
+        ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1

@@ -4,19 +4,35 @@
 ``moe_gmm/ops.py`` entry point: x (E, C, D) dispatched tokens, w (E, D, F)
 stacked expert weights -> (E, C, F) in x's dtype, summed in float32, rows
 ``c >= group_sizes[e]`` set to 0 (``None``: every row is valid). Tensors on
-the card launch the CUDA kernel (``csrc/moe_gmm.cu``); tensors on the CPU
+the card launch a CUDA kernel of ``csrc/moe_gmm.cu``; tensors on the CPU
 take the plain version in ``ref.py``. There is no other route: a CUDA
 tensor never reaches the plain version, and a build or launch failure
 raises.
 
+On the card :func:`gmm_route` picks one of four hand-written kernels by
+dtype, shape and alignment, and :func:`gmm_plan` its grid:
+
+- ``wgmma`` (bfloat16, C > 64, D and F multiples of 8, x and w 16-byte
+  aligned): TMA and wgmma, 128 x 256 output tiles, one persistent block an
+  SM walking them in the order of :func:`persistent_tiles`; the prefill;
+- ``wgmma_decode`` (the same, C <= 64): out^T = w^T . x^T on wgmma, a block
+  per 128 columns of one expert's w, C padded to an N of 16, 32 or 64;
+  decode steps;
+- ``mma_sync`` (bfloat16 otherwise: D or F not a multiple of 8, or an
+  unaligned base, which a TMA map cannot describe): the first port's
+  mma.sync kernel, 128 x 128 tiles, any shape;
+- ``cuda_core_f32`` (float32): fmaf on the CUDA cores, 64 x 64 tiles (tf32
+  would miss the float32 gate).
+
 The reference halves its Pallas blocks (128 rows, 128 columns, 512-deep
-slabs) until they divide C, F and D; the CUDA kernel masks its ragged
-edges instead, so any C, D and F are taken.
+slabs) until they divide C, F and D; the CUDA kernels mask or zero-fill
+their ragged edges instead, so any C, D and F are taken.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -24,10 +40,76 @@ from ..counts import PLAIN_CALLS
 from ..launch import check, launch
 from .ref import gmm_plain
 
-__all__ = ["grouped_matmul", "gmm_cuda", "gmm_plain"]
+__all__ = [
+    "ROUTES", "GmmPlan", "gmm_cuda", "gmm_plain", "gmm_plan", "gmm_route", "grouped_matmul",
+    "persistent_tiles", "route_of",
+]
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_GRID = 65535  # gridDim.y (column tiles of 64 at the least) and gridDim.z (experts)
+
+# route -> (C entry point, output tile (rows, columns)); the tiles are the
+# kernels' compile-time constants in csrc/moe_gmm.cu
+ROUTES = {
+    "wgmma": ("moe_gmm_bf16_wgmma", (128, 256)),
+    "wgmma_decode": ("moe_gmm_bf16_wgmma_decode", (64, 128)),   # rows: C <= 64, padded
+    "mma_sync": ("moe_gmm_bf16_mma", (128, 128)),
+    "cuda_core_f32": ("moe_gmm_f32", (64, 64)),
+}
+DECODE_MAX_C = 64  # wgmma's N: the decode route's token rows
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gmm_route(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool) -> str:
+    """The kernel that takes (E, C, D) x (E, D, F) in ``dtype`` on the card;
+    ``aligned``: x and w start on 16-byte boundaries."""
+    if dtype == torch.float32:
+        return "cuda_core_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"moe_gmm: dtype {dtype} not supported (bfloat16, float32)")
+    # a TMA map needs 16-byte strides (D, F multiples of 8) and base
+    if aligned and D > 0 and D % 8 == 0 and F % 8 == 0:
+        return "wgmma_decode" if C <= DECODE_MAX_C else "wgmma"
+    return "mma_sync"
+
+
+@dataclass(frozen=True)
+class GmmPlan:
+    route: str
+    symbol: str
+    tiles: int                   # output tiles the kernel computes
+    grid: Tuple[int, int, int]   # the launch's (x, y, z)
+
+
+def gmm_plan(route: str, E: int, C: int, F: int, n_sms: int) -> GmmPlan:
+    """Tiles and grid of ``route`` for an (E, C, F) output on a card of
+    ``n_sms`` SMs; the C entry point refuses any other grid."""
+    symbol, (bm, bn) = ROUTES[route]
+    if route == "wgmma_decode":
+        if C > DECODE_MAX_C:
+            raise ValueError(f"moe_gmm: the decode route takes C <= {DECODE_MAX_C}, got {C}")
+        tiles = _cdiv(F, bn) * E
+        return GmmPlan(route, symbol, tiles, (_cdiv(F, bn), E, 1))
+    mt, nt = _cdiv(C, bm), _cdiv(F, bn)
+    tiles = mt * nt * E
+    if route == "wgmma":   # persistent: at most one block an SM
+        return GmmPlan(route, symbol, tiles, (max(1, min(tiles, n_sms)), 1, 1))
+    return GmmPlan(route, symbol, tiles, (mt, nt, E))
+
+
+def persistent_tiles(block: int, n_blocks: int, E: int, C: int,
+                     F: int) -> List[Tuple[int, int, int]]:
+    """The (row tile, column tile, expert) of each output tile that block
+    ``block`` of the ``wgmma`` route's persistent grid computes, in order:
+    tile t = block, block + n_blocks, ..., row tiles fastest, then column
+    tiles, then experts (the kernel's own loop)."""
+    bm, bn = ROUTES["wgmma"][1]
+    mt, nt = _cdiv(C, bm), _cdiv(F, bn)
+    return [(t % mt, (t // mt) % nt, t // (mt * nt))
+            for t in range(block, mt * nt * E, n_blocks)]
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: Optional[torch.Tensor]) -> tuple:
@@ -50,13 +132,34 @@ def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: Optional[torch.Tensor]
     return E, C, D, F
 
 
-def gmm_cuda(x: torch.Tensor, w: torch.Tensor,
-             group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K9 on the card (arguments as :func:`_check` takes them)."""
+def route_of(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The route :func:`gmm_route` picks for these tensors on the card."""
+    E, C, D = x.shape
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return gmm_route(x.dtype, C, D, w.shape[-1], aligned)
+
+
+def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: Optional[torch.Tensor] = None,
+             route: Optional[str] = None) -> torch.Tensor:
+    """Launch K9 on the card (arguments as :func:`_check` takes them), by the
+    route :func:`gmm_route` picks, or by ``route`` where the caller names one
+    (the tests and the smoke's timings; a wgmma route raises on what TMA
+    cannot describe)."""
     E, C, D, F = _check(x, w, group_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm: the CUDA kernel needs tensors on the card, got {x.device}")
+    if route is None:
+        route = route_of(x, w)
+    elif route not in ROUTES:
+        raise ValueError(f"moe_gmm: unknown route {route!r} (one of {sorted(ROUTES)})")
+    want = "f32" if route == "cuda_core_f32" else "bf16"
+    if _DTYPES[x.dtype] != want:
+        raise TypeError(f"moe_gmm: route {route} takes {want}, got {x.dtype}")
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = gmm_plan(route, E, C, F, n_sms)
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
-    launch("moe_gmm", f"moe_gmm_{_DTYPES[x.dtype]}", x.device, (x, w, group_sizes, out),
-           (E, C, D, F))
+    launch("moe_gmm", plan.symbol, x.device, (x, w, group_sizes, out), (E, C, D, F, *plan.grid),
+           route=route)
     return out
 
 

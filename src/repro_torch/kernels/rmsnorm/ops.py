@@ -11,6 +11,12 @@ take the plain versions in ``ref.py``, so the CPU runs the backward formula
 that the card runs. There is no other route: a CUDA tensor never reaches a
 plain version, and a build or launch failure raises.
 
+K11 has two layouts on the card, picked by :func:`rmsnorm_bwd_route`:
+``cluster`` (D <= 8192, every model of the repo) splits each 128-row tile's
+columns over a thread-block cluster of up to 8 blocks that exchange the row
+sums through distributed shared memory; ``tile`` (wider rows) is the first
+port's one block a tile. Both write the same dx and dw partials.
+
 Both kernels are reductions over a row, and are written in CUDA C++ rather
 than Triton: the port's other kernels are CUDA, and neither Triton nor a
 GPU exists where the port's CPU tests run, so a Triton kernel would add a
@@ -19,7 +25,7 @@ second toolchain that only the card ever compiles.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,11 +34,19 @@ from ..launch import check, launch
 from .ref import ROWS, rmsnorm_bwd_plain, rmsnorm_fwd_plain
 
 __all__ = [
-    "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_cuda", "rmsnorm_bwd_plain", "rmsnorm_fwd",
-    "rmsnorm_fwd_cuda", "rmsnorm_fwd_plain",
+    "BWD_ROUTES", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_cuda", "rmsnorm_bwd_plain",
+    "rmsnorm_bwd_route", "rmsnorm_fwd", "rmsnorm_fwd_cuda", "rmsnorm_fwd_plain",
 ]
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# K11's routes -> the prefix of their C entry points
+BWD_ROUTES = {"cluster": "rmsnorm_bwd", "tile": "rmsnorm_bwd_tile"}
+CLUSTER_MAX_D = 8 * 1024   # 8 blocks (the portable cluster size) of at most 1024 columns
+
+
+def rmsnorm_bwd_route(D: int) -> str:
+    """K11's layout for rows of D columns."""
+    return "cluster" if D <= CLUSTER_MAX_D else "tile"
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
@@ -75,15 +89,20 @@ def _check_bwd(x, w, rstd, do) -> Tuple[int, int]:
     return N, D
 
 
-def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
-                     do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor, do: torch.Tensor,
+                     route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K11 on the card: x, do (N, D) of one dtype, w (D,), rstd (N,)
-    float32 -> (dx in x's dtype, dw partials (ceil(N / 128), D) float32)."""
+    float32 -> (dx in x's dtype, dw partials (ceil(N / 128), D) float32); by
+    :func:`rmsnorm_bwd_route`'s layout, or ``route`` where the caller names
+    one (the tests and the smoke's timings)."""
     N, D = _check_bwd(x, w, rstd, do)
+    route = route or rmsnorm_bwd_route(D)
+    if route not in BWD_ROUTES or (route == "cluster" and D > CLUSTER_MAX_D):
+        raise ValueError(f"rmsnorm_bwd: route {route!r} does not take D = {D}")
     dx = torch.empty_like(x)
     parts = torch.empty((-(-N // ROWS), D), dtype=torch.float32, device=x.device)
-    launch("rmsnorm_bwd", _symbol("rmsnorm_bwd", x, w), x.device, (x, w, rstd, do, dx, parts),
-           (N, D), source="rmsnorm")
+    launch("rmsnorm_bwd", _symbol(BWD_ROUTES[route], x, w), x.device,
+           (x, w, rstd, do, dx, parts), (N, D), source="rmsnorm", route=route)
     return dx, parts
 
 

@@ -27,10 +27,14 @@ step on the card are held to the same on the CPU. K9 (the grouped expert matmul)
 version within one bf16 step of the largest magnitude in bfloat16 and
 2e-5 in float32, at small and ragged shapes, at mixtral-8x22b's decode and
 prefill shapes and with group sizes; the reduced mixtral on the card is
-held to the CPU. K10 and K11 (RMSNorm) are held to their plain versions
+held to the CPU; each of its four routes (wgmma at prefill, wgmma_decode,
+mma.sync, the float32 CUDA cores) is held to it, the route taken asserted
+from the launch counts per route, with NaN in every row past a group size.
+K10 and K11 (RMSNorm) are held to their plain versions
 within one bf16 step of the largest magnitude in bfloat16 and 1e-6/1e-5 in
 float32, over ragged shapes and mixed gain types, through autograd on the
-card against the CPU, and in a reduced dense training step whose every
+card against the CPU, K11 on both its layouts (a cluster over each tile's
+columns, and one block a tile), and in a reduced dense training step whose every
 gradient leaf must match the CPU's. K12 (the WKV scan) is held to its
 plain version in both its functions: the state within 2e-5 of its largest
 magnitude, y within one bf16 step (2e-5 in float32), and, with the
@@ -629,6 +633,97 @@ def test_gmm_refuses_what_it_does_not_take(cuda):
         ops.gmm_cuda(x, w, torch.ones(2, dtype=torch.int64, device=cuda))
 
 
+# K9's routes (ops.gmm_route): each case on the route it must take, and in
+# bf16 on PR 14's mma.sync design too, which takes any shape; the route is
+# asserted from the launch counts per route
+GMM_ROUTE_CASES = [
+    ((2, 32, 48, 24), "wgmma_decode"), ((2, 10, 64, 136), "wgmma_decode"),
+    ((2, 40, 64, 72), "wgmma_decode"), ((3, 130, 96, 200), "wgmma"),
+    ((2, 300, 520, 264), "wgmma"), ((2, 77, 50, 30), "mma_sync"), ((3, 140, 60, 72), "mma_sync"),
+]
+
+
+def _gmm_on(route, x, w, gs=None):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops
+
+    taken = route or ops.route_of(x, w)
+    counts.reset()
+    got = ops.gmm_cuda(x, w, gs, route=route)
+    assert counts.ROUTE_LAUNCHES == {f"moe_gmm/{taken}": 1}
+    assert counts.LAUNCHES["moe_gmm"] == 1 and counts.PLAIN_CALLS["moe_gmm"] == 0
+    return got
+
+
+@pytest.mark.parametrize("shape,route", GMM_ROUTE_CASES)
+@pytest.mark.parametrize("forced", [None, "mma_sync"])
+def test_gmm_each_route_matches_plain(cuda, shape, route, forced):
+    from repro_torch.kernels.moe_gmm import ops
+
+    E, C, D, F = shape
+    x, w = _gmm_inputs(E, C, D, F, torch.bfloat16, cuda, seed=3)
+    assert ops.route_of(x, w) == route
+    got = _gmm_on(forced, x, w)
+    torch.cuda.synchronize()
+    _gmm_close(got, ops.gmm_plain(x, w))
+
+
+@pytest.mark.parametrize("E,C,D,F", [(8, 16, 6144, 16384), (8, 16, 16384, 6144)])
+def test_gmm_wgmma_decode_route_at_mixtral_decode_shapes(cuda, E, C, D, F):
+    # a decode step's w_gate (and w_up) and w_down products
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(E, C, D, F, torch.bfloat16, cuda, seed=4)
+    got = _gmm_on("wgmma_decode", x, w)
+    torch.cuda.synchronize()
+    _gmm_close(got, ops.gmm_plain(x, w))
+
+
+def test_gmm_wgmma_route_at_mixtral_prefill_shape(cuda):
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(8, 2560, 6144, 16384, torch.bfloat16, cuda, seed=5)
+    got = _gmm_on(None, x, w)
+    want = ops.gmm_plain(x, w)
+    torch.cuda.synchronize()
+    _gmm_close(got, want)
+
+
+@pytest.mark.parametrize("shape,route",
+                         GMM_ROUTE_CASES + [((8, 16, 16384, 6144), "wgmma_decode")])
+def test_gmm_routes_with_group_sizes_never_use_rows_past_them(cuda, shape, route):
+    """Group sizes of 0, a partial tile and past C, with NaN in every row
+    past its group size, on the route the shape takes and on mma.sync."""
+    from repro_torch.kernels.moe_gmm import ops
+
+    E, C, D, F = shape
+    x, w = _gmm_inputs(E, C, D, F, torch.bfloat16, cuda, seed=6)
+    sizes = ([0, C + 7] + [min(C, 129)] * (E - 2))[:E]
+    xn = x.clone()
+    for e, n in enumerate(sizes):
+        xn[e, n:] = float("nan")
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    want = ops.gmm_plain(x, w, gs)
+    for forced in (None, "mma_sync"):
+        got = _gmm_on(forced, xn, w, gs)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and not bool(got[0].any())
+        _gmm_close(got, want)
+
+
+def test_gmm_wgmma_routes_refuse_what_tma_cannot_describe(cuda):
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(2, 77, 50, 30, torch.bfloat16, cuda)
+    for route, rows in (("wgmma", 77), ("wgmma_decode", 16)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops.gmm_cuda(x[:, :rows].contiguous(), w, route=route)
+    with pytest.raises(TypeError, match="takes f32"):
+        ops.gmm_cuda(x, w, route="cuda_core_f32")
+    with pytest.raises(ValueError, match="unknown route"):
+        ops.gmm_cuda(x, w, route="bmm")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reduced_mixtral_on_the_card_matches_the_cpu(cuda, dtype):
     from repro_torch.configs import get_arch, reduced
@@ -736,6 +831,41 @@ def test_rmsnorm_refuses_what_it_does_not_take(cuda):
         ops.rmsnorm_fwd_cuda(torch.ones((8, 4), device=cuda).t(), w)
     with pytest.raises(TypeError, match="dtype"):
         ops.rmsnorm_bwd_cuda(x, w, torch.ones(4, device=cuda), x.to(torch.bfloat16))
+
+
+# K11 on both layouts: the training shape, N not a multiple of 128, D not a
+# multiple of the cluster's column slice (4100: five blocks of 824 columns,
+# the last 804), unvectorised rows over two blocks, and wider than a cluster
+@pytest.mark.parametrize("N,D", [(8192, 4096), (300, 4096), (300, 4100), (129, 1030),
+                                 (130, 16384)])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("route", [None, "tile"])
+def test_rmsnorm_bwd_layouts_match_plain(cuda, N, D, dtype, wdtype, route):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rmsnorm import ops
+
+    g = torch.Generator(device="cpu").manual_seed(N * 7 + D)
+    x = (torch.randn((N, D), generator=g) * 3).to(cuda, dtype)
+    w = torch.randn((D,), generator=g).to(cuda, wdtype)
+    do = torch.randn((N, D), generator=g).to(cuda, dtype)
+    _, rstd = ops.rmsnorm_fwd(x, w, 1e-5)
+    counts.reset()
+    dx, parts = ops.rmsnorm_bwd_cuda(x, w, rstd, do, route=route)
+    assert counts.ROUTE_LAUNCHES == {f"rmsnorm_bwd/{route or ops.rmsnorm_bwd_route(D)}": 1}
+    pdx, pparts = ops.rmsnorm_bwd_plain(x, w, rstd, do)
+    torch.cuda.synchronize()
+    assert parts.shape == ((N + 127) // 128, D)
+    _bf16_or_f32_close(dx, pdx, 1e-5)
+    torch.testing.assert_close(parts, pparts, atol=1e-5 * float(pparts.abs().max()), rtol=1e-5)
+
+
+def test_rmsnorm_bwd_cluster_refuses_rows_wider_than_a_cluster(cuda):
+    from repro_torch.kernels.rmsnorm import ops
+
+    x, w = torch.ones((4, 8200), device=cuda), torch.ones(8200, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.rmsnorm_bwd_cuda(x, w, torch.ones(4, device=cuda), x, route="cluster")
 
 
 def test_dense_training_step_differentiates_through_k11(cuda):
