@@ -10,8 +10,9 @@ Phases, in order:
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
    spill lines; the wgmma routes of K4, K5 and K6 (at every head dim) and
    of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64),
-   and K11's cluster kernel (every dtype pair), must build with no spill
-   and no serialized wgmma;
+   K11's cluster kernel (every dtype pair), K10's resident kernel (every
+   dtype pair and row width) and K7's ring kernel (every dtype, lane count
+   and row block) must build with no spill and no serialized wgmma;
 3. ``tuner``: ``repro_torch.core.MFTune`` on TPC-H 100 GB, hardware A, for
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
@@ -36,12 +37,15 @@ Phases, in order:
    under what another first context token does to the logits); a
    ``torch.profiler`` breakdown of one prefill and one decode step (kernel
    count, device busy share of the unprofiled wall, the costliest
-   kernels); then K4 on the prefill's own inputs against its plain version,
-   in bf16 (o within one bf16 step plus 1e-3) and upcast to float32 (o
-   within 2e-5; lse within 1e-3 in both), timed beside it, beside the
-   earlier CUDA-core design of its bf16 route in turns (that, this, this,
-   that)
-   and beside ``scaled_dot_product_attention`` with KV expanded to all
+   kernels); a long-context decode step of 4 rows whose cache holds 4096
+   keys each, drawn on the card from seed 6, which must launch K7 32 times
+   on its ring route, with logits within 5e-2 of their largest magnitude of
+   the first design's, timed by wall and profiled device busy with each K7
+   route in turns (first, ring, ring, first); then K4 on the prefill's own
+   inputs against its plain version, in bf16 (o within one bf16 step plus
+   1e-3) and upcast to float32 (o within 2e-5; lse within 1e-3 in both),
+   timed beside it, beside the earlier CUDA-core design of its bf16 route
+   in turns (that, this, this, that) and beside ``scaled_dot_product_attention`` with KV expanded to all
    heads (timed only), its float32 route timed too, and K4 at small shapes
    in both dtypes for every mask variant, rows that see no key included;
 6. ``train``: the dense training path at llama3-8b's full width with its
@@ -119,11 +123,13 @@ Phases, in order:
    float32 rate, the bf16-operand intra-chunk products at the bf16 rate); K10
    and K11 on the prefill's first ln1 input (8192 x 4096 bf16) against
    their plain versions, timed beside ``torch.nn.functional.rms_norm`` and
-   its autograd backward, K11 in turns with PR 15's one-block-a-tile design
-   and with its partials' sum; then all three at small and ragged shapes
+   its autograd backward, K10 in turns with its first (two-pass) design, K11
+   in turns with its first one-block-a-tile design and with its partials'
+   sum; then all three at small and ragged shapes
    (K11 on both its layouts). The
    ``serve``, ``train`` and ``moe`` phases count K10 too, and ``train`` K11
-   (the backward of every norm); a decode step here launches no K7 (no
+   (the backward of every norm), each with its route (K10 resident, K11
+   cluster, and K7 ring in every decode step that counts it); a decode step here launches no K7 (no
    attention);
 9. ``hybrid``: the hybrid serving path at zamba2-2.7b's full width and depth
    (54 Mamba2 layers, d_model 2560, 80 SSD heads of P = N = 64, conv 4,
@@ -146,9 +152,11 @@ Phases, in order:
    inputs against its plain version in the model's function and the Pallas
    kernel's, timed beside it and its bound (float32 operations at the
    float32 rate, the bf16-operand intra-chunk products at the bf16 rate); K7
-   at the engine's decode step and at caches of 4 x 4096 keys of zamba2 and
-   llama3-8b against its plain version, timed beside it, SDPA and its bound
-   (the bytes of the cache); K4 at its first call (head dim 80);
+   at the engine's decode step and at caches of 4 x 4096 keys of zamba2,
+   llama3-8b and mixtral-8x22b, both routes against its plain version, the
+   ring route timed in turns with the first design (first, ring, ring,
+   first), beside the plain version, SDPA and its bound (the bytes of the
+   cache); K4 at its first call (head dim 80);
 10. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
 11. the seconds of each phase, one JSON line with the kernels' numbers, the
@@ -192,36 +200,48 @@ def card_line() -> str:
 
 # The sm_90a kernels held to a clean build: per source, each kernel's
 # instantiations by template argument ("" for a kernel that is no template)
+_TYPE_PAIRS = ("f,f", "f,bf16", "bf16,f", "bf16,bf16")
 HOPPER_KERNELS = {
     "flash_attn_fwd": {"flash_fwd_hopper": ("16", "32", "64", "80", "128")},
     "flash_attn_bwd": {"flash_dq_hopper": ("16", "32", "64", "80", "128"),
                        "flash_dkv_hopper": ("16", "32", "64", "80", "128")},
     "moe_gmm": {"gmm_prefill_hopper": ("",), "gmm_decode_hopper": ("16", "32", "64")},
-    "rmsnorm": {"rmsnorm_bwd_cluster": ("f,f", "f,bf16", "bf16,f", "bf16,bf16")},
+    # K10's resident rows: 16-byte vectors a lane by width, at most 16 in
+    # float32; K11's cluster route
+    "rmsnorm": {"rmsnorm_bwd_cluster": _TYPE_PAIRS,
+                "rmsnorm_fwd_resident": tuple(
+                    f"{p},{nv}" for p in _TYPE_PAIRS for nv in (4, 8, 16, 24, 32)
+                    if p.startswith("bf16") or nv <= 16)},
+    # K7's ring route: (dtype, lanes a key, query rows a block); float32
+    # always takes 16 lanes
+    "flash_decode": {"decode_ring": tuple(
+        f"{t},{lanes},{rows}" for t in ("f", "bf16") for lanes in (4, 8, 16)
+        for rows in (1, 2, 4, 8) if t == "bf16" or lanes == 16)},
 }
 
 
 def _template_args(mangled: str, name: str) -> str:
     """The template arguments of ``name``'s instantiation in an Itanium-
-    mangled symbol, short: ``ILi16EE`` -> "16", float and bf16 types -> "f"
+    mangled symbol, short: ``Li16E`` -> "16", float and bf16 types -> "f"
     and "bf16" (a repeated type is mangled as a substitution, ``S<n>_``, and
-    read back as the previous argument); "" for a kernel that is no
-    template."""
+    read back as the previous type), joined by commas; "" for a kernel that
+    is no template."""
     import re
 
     rest = mangled[mangled.index(name) + len(name):]
-    m = re.match(r"ILi(\d+)EE", rest)
-    if m:
-        return m.group(1)
     if not rest.startswith("I"):
         return ""
-    args, rest = [], rest[1:]
+    args, types, rest = [], [], rest[1:]
     while rest and rest[0] != "E":
-        m = re.match(r"f|13__nv_bfloat16|S\d*_", rest)
+        m = re.match(r"Li(\d+)E|f|13__nv_bfloat16|S\d*_", rest)
         if m is None:
             break
         tok = m.group(0)
-        args.append("f" if tok == "f" else "bf16" if "bfloat16" in tok else args[-1])
+        if m.group(1) is not None:
+            args.append(m.group(1))
+        else:
+            types.append("f" if tok == "f" else "bf16" if "bfloat16" in tok else types[-1])
+            args.append(types[-1])
         rest = rest[len(tok):]
     return ",".join(args)
 
@@ -256,8 +276,9 @@ def hopper_ptxas(log: str) -> list:
 
 def check_hopper_build(logs: dict) -> None:
     """Print the registers and spills of every kernel in ``HOPPER_KERNELS``
-    (the wgmma routes of K4-K6 and K9, K11's cluster route) and fail unless
-    each built every instantiation with no spill and no serialized wgmma."""
+    (the wgmma routes of K4-K6 and K9, K11's cluster route, K10's resident
+    route, K7's ring route) and fail unless each built every instantiation
+    with no spill and no serialized wgmma."""
     for source, kernels in HOPPER_KERNELS.items():
         if logs.get(source, "(cached)") == "(cached)":
             continue
@@ -862,12 +883,13 @@ def check_flash_small() -> list:
     return bad
 
 
-def device_profile(fn, label: str, reps: int, tag: str = "serve") -> None:
+def device_profile(fn, label: str, reps: int, tag: str = "serve") -> dict:
     """Time ``fn`` on the host clock (mean of ``reps`` calls), then run it
     once under ``torch.profiler`` and print the number of CUDA kernels it
     ran, their summed device time, the device busy share of the
     unprofiled wall (the profiler's own wall is longer), the kernels that
-    took the most and the device time by class of kernel."""
+    took the most and the device time by class of kernel; returns the wall,
+    the busy seconds and share and the ms by class."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -886,7 +908,7 @@ def device_profile(fn, label: str, reps: int, tag: str = "serve") -> None:
     if not kernels:
         print(f"[{tag}] profile {label}: wall_s={wall:.6f}; the profiler saw no device "
               f"kernels (device time not measured)", flush=True)
-        return
+        return {"wall_s": wall, "busy_s": None, "busy_share": None, "ms_by_class": {}}
     by_name: Counter = Counter()
     by_class: Counter = Counter()
     for e in kernels:
@@ -899,11 +921,13 @@ def device_profile(fn, label: str, reps: int, tag: str = "serve") -> None:
     print(f"[{tag}] profile {label}: wall_s={wall:.6f} (mean of {reps}, unprofiled) "
           f"profiled_wall_s={pwall:.6f} kernels={len(kernels)} device_busy_s={busy:.6f} "
           f"busy_share={busy / wall:.4f}; top: {top}; by class: {classes}", flush=True)
+    return {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall,
+            "ms_by_class": {n: us / 1e3 for n, us in by_class.items()}}
 
 
 def kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel, by its name."""
-    if "decode_partial" in name or "decode_combine" in name:
+    if any(t in name for t in ("decode_partial", "decode_combine", "decode_ring")):
         return "decode attention K7"
     if "ssd_kernel" in name:
         return "SSD scan K8"
@@ -925,9 +949,90 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+LONG_CACHE = 4096             # keys of each row of the long-context decode step
+
+
+@contextlib.contextmanager
+def k7_route(route: str):
+    """While active, every K7 call on the card takes ``route``."""
+    from repro_torch.kernels.flash_decode import ops
+
+    original = ops.decode_route
+    ops.decode_route = lambda D, aligned: route
+    try:
+        yield
+    finally:
+        ops.decode_route = original
+
+
+def run_long_decode(params, cfg, rt, device) -> dict:
+    """One decode step of SERVE_REQS rows whose cache holds LONG_CACHE keys
+    each, drawn on the card from seed 6 (the step writes the last): K7's
+    launches (one a layer, all on the ring route, no plain call), the
+    step's logits on the ring route against the first design's (within
+    LOGIT_TOL of their largest magnitude), then the step timed by wall and
+    by profiled device busy with each route in turns (first, ring, ring,
+    first)."""
+    import torch
+
+    from repro_torch.kernels import counts
+    from repro_torch.models import decode_step, init_cache
+
+    B, S = SERVE_REQS, LONG_CACHE
+    cache = init_cache(cfg, rt, B, S, device=device)
+    g = torch.Generator(device=device).manual_seed(6)
+    cache["k"].normal_(generator=g)
+    cache["v"].normal_(generator=g)
+    cache["pos"].fill_(S - 1)
+    toks = torch.full((B, 1), 7, device=device)
+    step = lambda: decode_step(params, cfg, rt, cache, toks)[0]     # noqa: E731
+    step()
+    counts.reset()
+    logits = step()
+    torch.cuda.synchronize()
+    k7, ring = counts.LAUNCHES["flash_decode"], counts.ROUTE_LAUNCHES.get("flash_decode/ring", 0)
+    plain = sum(counts.PLAIN_CALLS.values())
+    with k7_route("scalar"):
+        first = step()
+    rel, err, pmax = logit_errs(logits, first)
+    print(f"[serve] long-context decode step, {B} rows of {S} keys: K7 launches={k7} (ring route "
+          f"{ring}, want {cfg.n_layers}) plain_calls={plain}; ring vs first design: max|logit "
+          f"diff|/max|logit| {rel} (bound {LOGIT_TOL}), softmax max diff {err} beside a largest "
+          f"probability of {pmax}", flush=True)
+    if k7 != cfg.n_layers or ring != k7 or plain:
+        fail(f"the long-context decode step launched K7 {k7} times ({ring} on the ring route, "
+             f"want {cfg.n_layers}) and plain versions {plain} times")
+    if tuple(logits.shape) != (B, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()) \
+            or not rel <= LOGIT_TOL:
+        fail(f"the long-context step's logits are not finite or the routes disagree: {rel}")
+    turns = []
+    for route in ("scalar", "ring", "ring", "scalar"):
+        with k7_route(route):
+            turns.append(device_profile(step, f"long-context decode step ({B}x{S} keys), K7 on "
+                                              f"the {route} route", 10))
+    del cache
+    torch.cuda.empty_cache()
+
+    def mean(route_turns, key):
+        vals = [t[key] for t in route_turns]
+        return None if None in vals else sum(vals) / len(vals)
+
+    out = {"rows": B, "keys": S, "logit_rel_diff": rel}
+    for route, ts in (("ring", turns[1:3]), ("first", [turns[0], turns[3]])):
+        k7_ms = [t["ms_by_class"].get("decode attention K7") for t in ts]
+        out[route] = {"wall_ms": mean(ts, "wall_s") * 1e3,
+                      "busy_ms": None if mean(ts, "busy_s") is None else mean(ts, "busy_s") * 1e3,
+                      "busy_share": mean(ts, "busy_share"),
+                      "k7_device_ms": None if None in k7_ms else sum(k7_ms) / len(k7_ms)}
+    print(f"[serve] long-context decode step, means of the turns: ring {out['ring']}, first "
+          f"design {out['first']}", flush=True)
+    return out
+
+
 def run_serve(device) -> tuple:
     """The ``serve`` phase; returns (K4's row, K4's and K10's launches in the
-    prefill, K7's in one decode step)."""
+    prefill, K7's in one decode step, the long-context decode step's
+    numbers)."""
     import dataclasses
 
     import numpy as np
@@ -966,14 +1071,18 @@ def run_serve(device) -> tuple:
             wall = time.perf_counter() - t0
             launches = counts.LAUNCHES["flash_attn_fwd"]
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
+            k10_resident = counts.ROUTE_LAUNCHES.get("rmsnorm_fwd/resident", 0)
             plain = sum(counts.PLAIN_CALLS.values())
         peak = torch.cuda.max_memory_allocated()
         print(f"[serve] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} "
               f"tokens_per_s={B * S / wall:.1f} max_memory_allocated={peak} "
-              f"K4 launches={launches} K10 launches={k10} plain_calls={plain}", flush=True)
-        if launches != cfg.n_layers or k10 != 2 * cfg.n_layers + 1 or plain != 0:
+              f"K4 launches={launches} K10 launches={k10} (resident route {k10_resident}) "
+              f"plain_calls={plain}", flush=True)
+        if launches != cfg.n_layers or k10 != 2 * cfg.n_layers + 1 or plain != 0 \
+                or k10_resident != k10:
             fail(f"prefill launched K4 {launches} times (want {cfg.n_layers}), K10 {k10} times "
-                 f"(want {2 * cfg.n_layers + 1}) and plain versions {plain} times (want 0)")
+                 f"(want {2 * cfg.n_layers + 1}, {k10_resident} on the resident route) and "
+                 f"plain versions {plain} times (want 0)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
         sample = list(range(0, S, 512)) + [S - 1]
@@ -1048,20 +1157,24 @@ def run_serve(device) -> tuple:
         decode_step(params, cfg, rt, cache, step_toks)
         torch.cuda.synchronize()
         k7, k7_plain = counts.LAUNCHES["flash_decode"], counts.PLAIN_CALLS["flash_decode"]
+        k7_ring = counts.ROUTE_LAUNCHES.get("flash_decode/ring", 0)
         print(f"[serve] one decode step of {SERVE_REQS} slots: K7 launches={k7} (want "
-              f"{cfg.n_layers}) plain_calls={k7_plain}", flush=True)
-        if k7 != cfg.n_layers or k7_plain:
-            fail(f"a decode step launched K7 {k7} times (want {cfg.n_layers})")
+              f"{cfg.n_layers}, ring route {k7_ring}) plain_calls={k7_plain}", flush=True)
+        if k7 != cfg.n_layers or k7_plain or k7_ring != k7:
+            fail(f"a decode step launched K7 {k7} times (want {cfg.n_layers}, {k7_ring} on the "
+                 f"ring route)")
         device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
                        f"decode step at position {SERVE_PROMPT + 1}", 10)
+        del cache
+        long_step = run_long_decode(params, cfg, rt, device)
 
     row = hold_flash(*kept[0], launches)
     bad = check_flash_small()
     if not row["match"] or bad:
         fail(f"K4 disagrees with its plain version: prefill match={row['match']} small={bad}")
-    del params, engine, cache, kept
+    del params, engine, kept
     torch.cuda.empty_cache()
-    return row, launches, k10, k7
+    return row, launches, k10, k7, long_step
 
 
 # ---------------------------------------------------------------------------
@@ -1343,13 +1456,14 @@ def run_train(device) -> tuple:
         wall = time.perf_counter() - t0
         launches = dict(counts.LAUNCHES)
         plain = dict(counts.PLAIN_CALLS)
-        k11_routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("rmsnorm")}
+        norm_routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items()
+                       if k.startswith("rmsnorm")}
     peak = torch.cuda.max_memory_allocated()
     steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
     print(f"[train] Trainer.run({TRAIN_STEPS}): losses {losses}; wall_s={wall:.6f}; step_s "
           f"{step_s} (the first includes warm-up); steady step_ms={steady * 1e3:.3f} "
           f"tokens_per_s={B * S / steady:.1f}; max_memory_allocated={peak}; launches "
-          f"{ {k: launches[k] for k in TRAIN_KERNELS} } (K11 by route {k11_routes}) "
+          f"{ {k: launches[k] for k in TRAIN_KERNELS} } (K10 and K11 by route {norm_routes}) "
           f"plain_calls {plain}", flush=True)
     # K4-K6 once a layer a step; K10 and K11 twice a layer and at the final
     # norm
@@ -1358,8 +1472,10 @@ def run_train(device) -> tuple:
         if launches[name] != want or plain[name] != 0:
             fail(f"Trainer.run launched {name} {launches[name]} times (want {want}) and its "
                  f"plain version {plain[name]} times (want 0)")
-    if k11_routes != {"rmsnorm_bwd/cluster": launches["rmsnorm_bwd"]}:
-        fail(f"K11 did not take its cluster route at d_model {cfg.d_model}: {k11_routes}")
+    if norm_routes != {"rmsnorm_fwd/resident": launches["rmsnorm_fwd"],
+                       "rmsnorm_bwd/cluster": launches["rmsnorm_bwd"]}:
+        fail(f"K10 did not take its resident route or K11 its cluster route at d_model "
+             f"{cfg.d_model}: {norm_routes}")
     ln_v = math.log(cfg.vocab)
     if not all(math.isfinite(x) for x in losses) or abs(losses[0] - ln_v) > LOSS_MARGIN:
         fail(f"losses {losses} are not finite or the first is not within {LOSS_MARGIN} of "
@@ -1740,21 +1856,23 @@ def run_moe(device) -> tuple:
             wall = time.perf_counter() - t0
             k9, k4 = counts.LAUNCHES["moe_gmm"], counts.LAUNCHES["flash_attn_fwd"]
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
+            k10_resident = counts.ROUTE_LAUNCHES.get("rmsnorm_fwd/resident", 0)
             plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
             k9_routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("moe_gmm")}
         dropped = [int((r[2] == r[3]).sum()) for r in routes]
         print(f"[moe] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} tokens_per_s="
               f"{B * S / wall:.1f} max_memory_allocated={torch.cuda.max_memory_allocated()} "
               f"K9 launches={k9} ({k9_routes}) K4 launches={k4} K10 launches={k10} "
-              f"plain_calls={plain}; of "
+              f"(resident route {k10_resident}) plain_calls={plain}; of "
               f"{S * cfg.moe.top_k} "
               f"assignments a layer, capacity {routes[0][3]} per expert drops, by layer: "
               f"{dropped}", flush=True)
         if k9 != 3 * L or k4 != L or k10 != 2 * L + 1 or plain or k9_routes != {
-                "moe_gmm/wgmma": 3 * L}:
+                "moe_gmm/wgmma": 3 * L} or k10_resident != k10:
             fail(f"prefill launched K9 {k9} times (want {3 * L}, all on the wgmma route: "
                  f"{k9_routes}), K4 {k4} times (want {L}) and K10 {k10} times (want "
-                 f"{2 * L + 1}), plain calls {plain} (want none)")
+                 f"{2 * L + 1}, all on the resident route: {k10_resident}), plain calls "
+                 f"{plain} (want none)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
         sample = list(range(0, S, 512)) + [S - 1]
@@ -1833,10 +1951,10 @@ def run_moe(device) -> tuple:
               f"routes {dec_routes}) K7 launches={dec_k7} (want {L}) plain_calls={dec_plain}",
               flush=True)
         if dec_k9 != 3 * L or dec_k7 != L or dec_plain or dec_routes.get(
-                "moe_gmm/wgmma_decode") != 3 * L:
+                "moe_gmm/wgmma_decode") != 3 * L or dec_routes.get("flash_decode/ring") != L:
             fail(f"a decode step launched K9 {dec_k9} times (want {3 * L}, all on the "
-                 f"wgmma_decode route: {dec_routes}) and K7 {dec_k7} times (want {L}), plain "
-                 f"versions {dec_plain} times")
+                 f"wgmma_decode route: {dec_routes}) and K7 {dec_k7} times (want {L}, all on "
+                 f"the ring route), plain versions {dec_plain} times")
         decode_x, decode_xd = kept_dec[0][0][0], kept_dec[2][0][0]
         del kept_dec   # its weight copies: hold_gmm takes the prefill's
 
@@ -2175,6 +2293,7 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     do = torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(3),
                      device=x.device).to(x.dtype)
     out, rstd = ops.rmsnorm_fwd_cuda(x, w, eps)
+    tout, trstd = ops.rmsnorm_fwd_cuda(x, w, eps, route="two_pass")
     pout, prstd = ops.rmsnorm_fwd_plain(x, w, eps)
     dx, parts = ops.rmsnorm_bwd_cuda(x, w, rstd, do)
     tdx, tparts = ops.rmsnorm_bwd_cuda(x, w, rstd, do, route="tile")
@@ -2188,7 +2307,9 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
 
     ok10, e10 = close(out, pout, BF16_STEP)
     r_err = float(((rstd - prstd).abs() / prstd).max())
-    ok10 = ok10 and r_err <= 2e-6
+    ok10 = (ok10 and r_err <= 2e-6 and close(tout, pout, BF16_STEP)[0]
+            and float(((trstd - prstd).abs() / prstd).max()) <= 2e-6)
+    del tout, trstd
     ok11, e11 = close(dx, pdx, BF16_STEP)
     okp, ep = close(parts, pparts, 1e-5)
     ok11 = ok11 and okp and close(tdx, pdx, BF16_STEP)[0] and close(tparts, pparts, 1e-5)[0]
@@ -2201,9 +2322,13 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     f_ms, f_by = bound(nbytes(x, w, out, rstd), 4.0 * N * D)
     b_ms, b_by = bound(nbytes(x, w, rstd, do, dx, parts), 10.0 * N * D)
     shape = f"x={tuple(x.shape)} {str(x.dtype)[6:]} w {str(w.dtype)[6:]}"
+    fwd_route = ops.rmsnorm_fwd_route(x.dtype, D, x.data_ptr() % 16 == 0)
+    f_new = lambda: ops.rmsnorm_fwd_cuda(x, w, eps)                          # noqa: E731
+    f_old = lambda: ops.rmsnorm_fwd_cuda(x, w, eps, route="two_pass")        # noqa: E731
+    f1, f2, f3, f4 = (cuda_time_ms(f, 50) for f in (f_old, f_new, f_new, f_old))
     k10 = dict(name="rmsnorm_fwd", source=K10_SOURCE[0], replaces=K10_SOURCE[1], shape=shape,
-               match=ok10, max_abs_err=e10,
-               ms=cuda_time_ms(lambda: ops.rmsnorm_fwd_cuda(x, w, eps), 50),
+               path_route=fwd_route, match=ok10, max_abs_err=e10,
+               ms=(f2 + f3) / 2, prior_ms=(f1 + f4) / 2, turns_ms=[f1, f2, f3, f4],
                plain_ms=cuda_time_ms(lambda: ops.rmsnorm_fwd_plain(x, w, eps), 20),
                bound_ms=f_ms, bound_by=f_by,
                library_ms=cuda_time_ms(lambda: F.rms_norm(x, (D,), w, eps), 50),
@@ -2229,6 +2354,10 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
         print(f"[ssm] {r['name']}: {shape} match={r['match']} max_abs_err={r['max_abs_err']} "
               f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} library_ms={r['library_ms']:.6f} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) launches={n}", flush=True)
+    print(f"[ssm] rmsnorm_fwd on the {fwd_route} route: ms={k10['ms']:.6f}, first design "
+          f"(two_pass route) ms={k10['prior_ms']:.6f} (turns first, this, this, first: "
+          f"{', '.join(f'{t:.6f}' for t in k10['turns_ms'])}); {f_ms / k10['ms']:.4f} of the "
+          f"byte bound", flush=True)
     print(f"[ssm] rmsnorm_bwd on the {route} route: ms={k11['ms']:.6f}, PR 15 design (tile "
           f"route) ms={k11['prior_ms']:.6f} (turns PR 15, this, this, PR 15: {o1:.6f}, "
           f"{n1:.6f}, {n2:.6f}, {o2:.6f}); with the partials' sum (dx and the whole dw, as the "
@@ -2344,13 +2473,16 @@ def run_ssm(device, train_k11: int) -> tuple:
             wall = time.perf_counter() - t0
             k12 = counts.LAUNCHES["rwkv6_wkv"]
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
+            k10_resident = counts.ROUTE_LAUNCHES.get("rmsnorm_fwd/resident", 0)
             plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
         print(f"[ssm] prefill {B}x{S}: wall_s={wall:.6f} tokens_per_s={B * S / wall:.1f} "
               f"max_memory_allocated={torch.cuda.max_memory_allocated()} K12 launches={k12} "
-              f"K10 launches={k10} plain_calls={plain}", flush=True)
-        if k12 != L or k10 != 3 * L + 1 or plain:
+              f"K10 launches={k10} (resident route {k10_resident}) plain_calls={plain}",
+              flush=True)
+        if k12 != L or k10 != 3 * L + 1 or plain or k10_resident != k10:
             fail(f"prefill launched K12 {k12} times (want {L}) and K10 {k10} times (want "
-                 f"{3 * L + 1}), plain calls {plain} (want none)")
+                 f"{3 * L + 1}, {k10_resident} on the resident route), plain calls {plain} "
+                 f"(want none)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
         sample = list(range(0, S, 512)) + [S - 1]
@@ -2659,61 +2791,72 @@ def decode_need(q, k, lengths) -> tuple:
     return n_bytes, 2.0 * (k_keys + v_keys) * Hkv * G * D
 
 
-def hold_decode_one(q, k, v, lengths, splits: int, block: int, label: str) -> dict:
-    """K7 against its plain version on one set of inputs (o within one bf16
-    step of its largest magnitude in bfloat16, 2e-5 in float32), then timed
-    beside it and SDPA; the bound is what ``decode_need`` counts, the bytes at
-    the memory rate and the flop at the float32 rate."""
+def hold_decode_one(q, k, v, lengths, label: str) -> dict:
+    """K7 on one set of inputs on both routes, each against its plain
+    version at the reference's plan (o within one bf16 step of its largest
+    magnitude in bfloat16, 2e-5 in float32); then the ring route timed in
+    turns with the first design (scalar, ring, ring, scalar) beside the
+    plain version and SDPA; the bound is what ``decode_need`` counts, the
+    bytes at the memory rate and the flop at the float32 rate."""
     import torch
 
     from repro_torch.kernels.flash_decode import ops
 
-    o = ops.decode_cuda(q, k, v, lengths, splits)
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    splits, block = ops.split_plan(S, 4, 128)
+    route = ops.route_of(q, k, v)
+    new = lambda: ops.decode_cuda(q, k, v, lengths)                                 # noqa: E731
+    old = lambda: ops.decode_cuda(q, k, v, lengths, splits, route="scalar")         # noqa: E731
     po = ops.decode_plain(q, k, v, lengths, splits, block)
-    torch.cuda.synchronize()
     scale = float(po.float().abs().max())
-    err = float((o.float() - po.float()).abs().max())
     tol = BF16_STEP if q.dtype == torch.bfloat16 else 2e-5
-    match = err <= tol * scale
+    errs = {name: float((f().float() - po.float()).abs().max())
+            for name, f in (("new", new), ("old", old))}
+    torch.cuda.synchronize()
+    match = all(e <= tol * scale for e in errs.values())
     need_bytes, need_ops = decode_need(q, k, lengths)
     b_ms, b_by = bound(need_bytes, need_ops)
+    o1, n1, n2, o2 = (cuda_time_ms(f, 50) for f in (old, new, new, old))
+    plan = (ops.ring_plan(S, B * Hkv * -(-G // ops.ring_rows(G)), torch.cuda.get_device_properties(
+        q.device).multi_processor_count) if route == "ring" else (splits, S // splits))
     r = dict(shape=f"q={tuple(q.shape)} cache={tuple(k.shape)} {str(q.dtype)[6:]} "
-                   f"lengths={lengths.tolist()} splits={splits}",
-             match=match, max_abs_err=err,
-             ms=cuda_time_ms(lambda: ops.decode_cuda(q, k, v, lengths, splits), 50),
+                   f"lengths={lengths.tolist()}",
+             path_route=route, splits=plan[0], split_len=plan[1],
+             match=match, max_abs_err=errs["new"], prior_max_abs_err=errs["old"],
+             ms=(n1 + n2) / 2, prior_ms=(o1 + o2) / 2, turns_ms=[o1, n1, n2, o2],
              plain_ms=cuda_time_ms(lambda: ops.decode_plain(q, k, v, lengths, splits, block), 5),
              bound_ms=b_ms, bound_by=b_by,
              library_ms=cuda_time_ms(decode_sdpa(q, k, v, lengths), 50))
-    print(f"[hybrid] K7 {label}: {r['shape']} match={match} max_abs_err={err} (max|o| {scale}) "
-          f"ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} sdpa_ms={r['library_ms']:.6f} "
-          f"bound_ms={b_ms:.6f} ({b_by}: {need_bytes} bytes, {need_ops:.6g} flop)", flush=True)
+    print(f"[hybrid] K7 {label}: {r['shape']} match={match} max_abs_err={errs} (max|o| {scale}) "
+          f"{route} route, {plan[0]} splits of {plan[1]} keys: ms={r['ms']:.6f}, first design "
+          f"ms={r['prior_ms']:.6f} (turns first, {route}, {route}, first: "
+          f"{', '.join(f'{t:.6f}' for t in r['turns_ms'])}); plain_ms={r['plain_ms']:.6f} sdpa_ms="
+          f"{r['library_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}: {need_bytes} bytes, "
+          f"{need_ops:.6g} flop)", flush=True)
     return r
 
 
 def hold_decode(args, launches: int, per_step: dict) -> dict:
     """K7 at the engine's decode shape (the inputs of one decode step's first
     launch), then at a cache of 4 rows of DECODE_CACHE keys for zamba2-2.7b
-    (32 KV heads of 80, G = 1) and llama3-8b (8 of 128, G = 4), all rows full,
-    from seed 5."""
+    (32 KV heads of 80, G = 1), llama3-8b (8 of 128, G = 4) and mixtral-8x22b
+    (8 of 128, G = 6), all rows full, from seed 5."""
     import torch
 
-    from repro_torch.kernels.flash_decode import ops
-
-    q, k, v, lengths, splits = args
+    q, k, v, lengths = args[:4]
     row = dict(name="flash_decode", source=K7_SOURCE[0], replaces=K7_SOURCE[1],
                library="torch.nn.functional.scaled_dot_product_attention (enable_gqa, a length "
                        "mask)", launches_per_step_by_phase=per_step)
-    row.update(hold_decode_one(q, k, v, lengths, splits,
-                               ops.split_plan(k.shape[1], 4, 128)[1], "at the engine's step"))
+    row.update(hold_decode_one(q, k, v, lengths, "at the engine's step"))
     g = torch.Generator(device="cuda").manual_seed(5)
-    for name, Hkv, G, D in (("zamba2", 32, 1, 80), ("llama3", 8, 4, 128)):
+    for name, Hkv, G, D in (("zamba2", 32, 1, 80), ("llama3", 8, 4, 128), ("mixtral", 8, 6, 128)):
         B, S = 4, DECODE_CACHE
         qq = torch.randn((B, Hkv, G, D), generator=g, device="cuda").to(torch.bfloat16)
         kk, vv = (torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(torch.bfloat16)
                   for _ in range(2))
         lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
-        sp, blk = ops.split_plan(S, 4, 128)
-        r = hold_decode_one(qq, kk, vv, lens, sp, blk, f"at a {name} cache of {B} x {S}")
+        r = hold_decode_one(qq, kk, vv, lens, f"at a {name} cache of {B} x {S}")
         row[f"cache_{DECODE_CACHE}_{name}"] = r
         row["match"] = row["match"] and r["match"]
         del qq, kk, vv
@@ -2722,9 +2865,10 @@ def hold_decode(args, launches: int, per_step: dict) -> dict:
     return row
 
 
-def run_hybrid(device, per_step: dict) -> tuple:
+def run_hybrid(device, per_step: dict, long_step: dict = None) -> tuple:
     """The ``hybrid`` phase; ``per_step`` holds K7's launches in one decode
-    step of the earlier phases. Returns (K8's and K7's rows, K8's launches in
+    step of the earlier phases, ``long_step`` the serve phase's long-context
+    decode step, which K7's row carries. Returns (K8's and K7's rows, K8's launches in
     the prefill, K7's in the engine run, K4's and K10's in the prefill, K4's
     entry at its first call)."""
     import dataclasses
@@ -2788,13 +2932,14 @@ def run_hybrid(device, per_step: dict) -> tuple:
             wall = time.perf_counter() - t0
             k8, k4 = counts.LAUNCHES["mamba2_ssd"], counts.LAUNCHES["flash_attn_fwd"]
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
+            k10_resident = counts.ROUTE_LAUNCHES.get("rmsnorm_fwd/resident", 0)
             plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
         want_k10 = 2 * L + 2 * groups + 1
         print(f"[hybrid] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} tokens_per_s="
               f"{B * S / wall:.1f} max_memory_allocated={torch.cuda.max_memory_allocated()} "
-              f"K8 launches={k8} K4 launches={k4} K10 launches={k10} plain_calls={plain}",
-              flush=True)
-        if k8 != L or k4 != groups or k10 != want_k10 or plain:
+              f"K8 launches={k8} K4 launches={k4} K10 launches={k10} (resident route "
+              f"{k10_resident}) plain_calls={plain}", flush=True)
+        if k8 != L or k4 != groups or k10 != want_k10 or plain or k10_resident != k10:
             fail(f"prefill launched K8 {k8} times (want {L}), K4 {k4} times (want {groups}) and "
                  f"K10 {k10} times (want {want_k10}), plain calls {plain} (want none)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
@@ -2908,9 +3053,11 @@ def run_hybrid(device, per_step: dict) -> tuple:
             torch.cuda.synchronize()
             d7, d8 = counts.LAUNCHES["flash_decode"], counts.LAUNCHES["mamba2_ssd"]
             d10 = counts.LAUNCHES["rmsnorm_fwd"]
-        print(f"[hybrid] one decode step of {SERVE_REQS} slots: K7 launches={d7} (want {groups}) "
-              f"K10 launches={d10} (want {want_k10}) K8 launches={d8} (want 0)", flush=True)
-        if d7 != groups or d10 != want_k10 or d8:
+            d7_ring = counts.ROUTE_LAUNCHES.get("flash_decode/ring", 0)
+        print(f"[hybrid] one decode step of {SERVE_REQS} slots: K7 launches={d7} (want {groups}, "
+              f"ring route {d7_ring}) K10 launches={d10} (want {want_k10}) K8 launches={d8} "
+              f"(want 0)", flush=True)
+        if d7 != groups or d10 != want_k10 or d8 or d7_ring != d7:
             fail(f"a decode step launched K7 {d7} times, K10 {d10} times and K8 {d8} times")
         device_profile(lambda: forward(params, cfg, rt, tokens=tokens), f"prefill {B}x{S}", 2,
                        tag="hybrid")
@@ -2923,6 +3070,8 @@ def run_hybrid(device, per_step: dict) -> tuple:
     torch.cuda.empty_cache()
     rows = (hold_ssd(kept_ssd[0][0], k8), hold_decode(kept_dec[0][0], e7, dict(per_step,
                                                                               hybrid=d7)))
+    if long_step is not None:
+        rows[1]["long_context_step"] = long_step
     del kept_ssd, kept_dec
     torch.cuda.empty_cache()
     if not all(r["match"] for r in rows):
@@ -2975,7 +3124,7 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
     phase_s["tuner"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    k4_row, k4_launches, serve_k10, serve_k7 = run_serve(device)
+    k4_row, k4_launches, serve_k10, serve_k7, long_step = run_serve(device)
     phase_s["serve"] = time.perf_counter() - t0
     launches["flash_attn_fwd"] = k4_launches
     main_rows.append(k4_row)
@@ -2997,7 +3146,7 @@ def main() -> int:
     main_rows.extend(ssm_rows)
     t0 = time.perf_counter()
     (hyb_rows, launches["mamba2_ssd"], launches["flash_decode"], hyb_k4, hyb_k10,
-     hyb_k4_row) = run_hybrid(device, {"serve": serve_k7, "moe": moe_k7})
+     hyb_k4_row) = run_hybrid(device, {"serve": serve_k7, "moe": moe_k7}, long_step)
     k4_row["by_path"] += [train_k4, moe_k4_row, hyb_k4_row]
     phase_s["hybrid"] = time.perf_counter() - t0
     print(f"[hybrid] phase seconds {phase_s['hybrid']:.1f}", flush=True)
@@ -3017,7 +3166,7 @@ def main() -> int:
         out.update({k: v for k, v in r.items()
                     if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
                                      "by_path", "simt_", "floor_", "prior_", "path_route",
-                                     "w_down_", "with_dw_"))
+                                     "w_down_", "with_dw_", "turns_", "split", "long_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]

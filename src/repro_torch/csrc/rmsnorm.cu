@@ -19,11 +19,24 @@
 // few flop a byte.
 //
 // Design.
-// - K10: one warp per row, eight rows per 256-thread block. Each lane reads
-//   eight elements at a time (one 16-byte load in bf16, two in float32) when
-//   D is a multiple of 8 and the rows are 16-byte aligned, else one element
-//   at a time; the sum of squares is a shuffle reduction, and the second
-//   pass, which writes out, reads the row again from L1/L2.
+// - K10 (rmsnorm_fwd_resident: D a multiple of 8, 16-byte aligned x and
+//   out, at most 8192 columns in bf16 and 4096 in float32): a persistent
+//   grid of 256-thread blocks, as many as fit the SMs at once, a warp per
+//   row. A block stages w in shared memory as float32 once; each warp walks
+//   rows warp, warp + all the grid's warps, ... and holds its row in
+//   registers as loaded (NV 16-byte vectors a lane, NV a template argument
+//   of 4 to 32 picked by width), so the row is read from device memory
+//   once: all of a row's loads are issued before its sum of squares, and
+//   each vector of the next row is loaded as soon as this row's vector is
+//   stored, so one row's stores overlap the next row's loads.
+// - K10 (rmsnorm_fwd_two_pass: any other row, and the first design, kept
+//   for timing the two side by side): one warp per row, eight rows per
+//   256-thread block. Each lane reads eight elements at a time (one 16-byte
+//   load in bf16, two in float32) when D is a multiple of 8 and the rows are
+//   16-byte aligned, else one element at a time; the sum of squares is a
+//   shuffle reduction, and the second pass, which writes out, reads the row
+//   again (from L2, where the rows of all the warps in flight do not fit
+//   L1) and reloads w for each row.
 // - K11 (rmsnorm_bwd_cluster, D <= 8192): each 128-row tile is split by
 //   columns over a thread-block cluster of ceil(D / 1024) blocks (at most 8,
 //   the portable cluster size), so the training shape (8192 x 4096) runs
@@ -176,6 +189,59 @@ __global__ void __launch_bounds__(NT) rmsnorm_fwd_kernel(const T* __restrict__ x
     }
   } else {
     for (int c = lane; c < D; c += 32) orow[c] = from_f<T>(to_f(xr[c]) * rs * to_f(w[c]));
+  }
+}
+
+// a row in registers: NV 16-byte vectors a lane, vector i of lane l at
+// columns 8 * (l + 32 i) .. + 7 (a float32 vector is two 16-byte loads)
+template <typename T, typename W, int NV>
+__global__ void __launch_bounds__(NT) rmsnorm_fwd_resident(const T* __restrict__ x,
+                                                           const W* __restrict__ w,
+                                                           T* __restrict__ out,
+                                                           float* __restrict__ rstd, int N,
+                                                           int D, float eps) {
+  extern __shared__ float s_w[];  // D
+  const int lane = threadIdx.x & 31;
+  const int nvec = D >> 3;
+  const int64_t step = (int64_t)gridDim.x * WARPS;
+  int64_t row = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  Raw8<T> r[NV];
+  if (row < N) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i < nvec) r[i].load(x + row * D + 8 * (lane + 32 * i));
+    }
+  }
+  for (int c = threadIdx.x; c < D; c += NT) s_w[c] = to_f(w[c]);
+  __syncthreads();
+  for (; row < N; row += step) {  // warp-uniform
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i < nvec) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float f = r[i][e];
+          ss += f * f;
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    const float rs = rsqrtf(ss / (float)D + eps);
+    if (lane == 0) rstd[row] = rs;
+    const int64_t next = row + step;
+    T* orow = out + row * D;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = 8 * (lane + 32 * i);
+      if (c < D) {
+        float f[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = r[i][e] * rs * s_w[c + e];
+        store8(orow + c, f);
+        if (next < N) r[i].load(x + next * D + c);
+      }
+    }
   }
 }
 
@@ -451,13 +517,62 @@ __global__ void __launch_bounds__(NT, 2) rmsnorm_bwd_cluster(
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 template <typename T, typename W>
-int fwd_entry(const void* x, const void* w, void* out, void* rstd, int N, int D, float eps,
+int fwd_two_pass_entry(const void* x, const void* w, void* out, void* rstd, int N, int D, float eps,
               void* stream) {
   if (N <= 0 || D <= 0) return 0;
   const int vec = D % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(out);
   rmsnorm_fwd_kernel<T, W><<<(N + WARPS - 1) / WARPS, NT, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const W*)w, (T*)out, (float*)rstd, N, D, eps, vec);
   return (int)cudaGetLastError();
+}
+
+// K10's resident route: the widest row it holds (ops.py's RESIDENT_MAX_D)
+template <typename T>
+constexpr int resident_max_d() { return 32 * 32 * 8 / (int)(sizeof(T) / 2); }
+
+template <typename T, typename W, int NV>
+int fwd_resident_launch(const void* x, const void* w, void* out, void* rstd, int N, int D,
+                        float eps, cudaStream_t st) {
+  // blocks that fit the card at once, per device, for a block's largest w
+  static int grid_cap[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int cap = dev < 64 ? grid_cap[dev] : 0;
+  if (cap == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rmsnorm_fwd_resident<T, W, NV>, NT, (size_t)NV * 32 * 8 * sizeof(float));
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    cap = (per_sm > 0 ? per_sm : 1) * sms;
+    if (dev < 64) grid_cap[dev] = cap;
+  }
+  const int64_t want = ((int64_t)N + WARPS - 1) / WARPS;
+  const int grid = (int)(want < cap ? want : cap);
+  rmsnorm_fwd_resident<T, W, NV><<<grid, NT, (size_t)D * sizeof(float), st>>>(
+      (const T*)x, (const W*)w, (T*)out, (float*)rstd, N, D, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename W>
+int fwd_resident_entry(const void* x, const void* w, void* out, void* rstd, int N, int D,
+                       float eps, void* stream) {
+  if (D <= 0 || D % 8 || D > resident_max_d<T>() || !aligned16(x) || !aligned16(out)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (N <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int per_lane = (D / 8 + 31) / 32;  // 16-byte vectors of bf16 (32 bytes in float32)
+  if (per_lane <= 4) return fwd_resident_launch<T, W, 4>(x, w, out, rstd, N, D, eps, st);
+  if (per_lane <= 8) return fwd_resident_launch<T, W, 8>(x, w, out, rstd, N, D, eps, st);
+  if (per_lane <= 16) return fwd_resident_launch<T, W, 16>(x, w, out, rstd, N, D, eps, st);
+  if constexpr (sizeof(T) == 2) {
+    if (per_lane <= 24) return fwd_resident_launch<T, W, 24>(x, w, out, rstd, N, D, eps, st);
+    return fwd_resident_launch<T, W, 32>(x, w, out, rstd, N, D, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int bwd_vec(const void* x, const void* w, const void* dout, void* dx, void* parts, int D) {
@@ -504,12 +619,20 @@ int bwd_cluster_entry(const void* x, const void* w, const void* rstd, const void
 
 }  // namespace
 
-// rmsnorm_bwd_* is the cluster route (D <= 8192), rmsnorm_bwd_tile_* PR 15's
-// one-block-a-tile design (D > 8192, and timing); ops.rmsnorm_bwd_route picks.
+// rmsnorm_fwd_* is K10's resident route (rows that fit in registers),
+// rmsnorm_fwd_two_pass_* the first design (any other row, and timing);
+// ops.rmsnorm_fwd_route picks. rmsnorm_bwd_* is the cluster route (D <=
+// 8192), rmsnorm_bwd_tile_* the first one-block-a-tile design (D > 8192, and
+// timing); ops.rmsnorm_bwd_route picks.
 #define RMSNORM_ENTRIES(SUFFIX, T, W)                                                          \
   extern "C" int rmsnorm_fwd_##SUFFIX(const void* x, const void* w, void* out, void* rstd,    \
                                       int N, int D, float eps, void* stream) {                \
-    return fwd_entry<T, W>(x, w, out, rstd, N, D, eps, stream);                               \
+    return fwd_resident_entry<T, W>(x, w, out, rstd, N, D, eps, stream);                      \
+  }                                                                                            \
+  extern "C" int rmsnorm_fwd_two_pass_##SUFFIX(const void* x, const void* w, void* out,       \
+                                               void* rstd, int N, int D, float eps,           \
+                                               void* stream) {                                 \
+    return fwd_two_pass_entry<T, W>(x, w, out, rstd, N, D, eps, stream);                      \
   }                                                                                            \
   extern "C" int rmsnorm_bwd_##SUFFIX(const void* x, const void* w, const void* rstd,         \
                                       const void* dout, void* dx, void* parts, int N, int D,   \

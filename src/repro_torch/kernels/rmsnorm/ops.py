@@ -11,6 +11,12 @@ take the plain versions in ``ref.py``, so the CPU runs the backward formula
 that the card runs. There is no other route: a CUDA tensor never reaches a
 plain version, and a build or launch failure raises.
 
+K10 has two layouts on the card, picked by :func:`rmsnorm_fwd_route`:
+``resident`` (D a multiple of 8 up to ``RESIDENT_MAX_D`` of x's dtype,
+16-byte aligned rows) holds each row in registers in a persistent grid, so
+it reads the row once; ``two_pass`` (any other row) is the first port's
+design, which reads it twice. Both write the same out and rstd.
+
 K11 has two layouts on the card, picked by :func:`rmsnorm_bwd_route`:
 ``cluster`` (D <= 8192, every model of the repo) splits each 128-row tile's
 columns over a thread-block cluster of up to 8 blocks that exchange the row
@@ -34,14 +40,28 @@ from ..launch import check, launch
 from .ref import ROWS, rmsnorm_bwd_plain, rmsnorm_fwd_plain
 
 __all__ = [
-    "BWD_ROUTES", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_cuda", "rmsnorm_bwd_plain",
-    "rmsnorm_bwd_route", "rmsnorm_fwd", "rmsnorm_fwd_cuda", "rmsnorm_fwd_plain",
+    "BWD_ROUTES", "FWD_ROUTES", "RESIDENT_MAX_D", "rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_cuda",
+    "rmsnorm_bwd_plain", "rmsnorm_bwd_route", "rmsnorm_fwd", "rmsnorm_fwd_cuda",
+    "rmsnorm_fwd_plain", "rmsnorm_fwd_route",
 ]
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# K10's routes -> the prefix of their C entry points
+FWD_ROUTES = {"resident": "rmsnorm_fwd", "two_pass": "rmsnorm_fwd_two_pass"}
+# the widest row K10's resident route holds in registers: 32 lanes of 32
+# 16-byte vectors in bf16, of 16 pairs of them in float32
+RESIDENT_MAX_D = {torch.bfloat16: 8192, torch.float32: 4096}
 # K11's routes -> the prefix of their C entry points
 BWD_ROUTES = {"cluster": "rmsnorm_bwd", "tile": "rmsnorm_bwd_tile"}
 CLUSTER_MAX_D = 8 * 1024   # 8 blocks (the portable cluster size) of at most 1024 columns
+
+
+def rmsnorm_fwd_route(dtype: torch.dtype, D: int, aligned: bool) -> str:
+    """K10's layout for rows of D columns of ``dtype``; ``aligned``: x starts
+    on a 16-byte boundary."""
+    if aligned and D % 8 == 0 and 0 < D <= RESIDENT_MAX_D[dtype]:
+        return "resident"
+    return "two_pass"
 
 
 def rmsnorm_bwd_route(D: int) -> str:
@@ -70,15 +90,22 @@ def _symbol(name: str, x: torch.Tensor, w: torch.Tensor) -> str:
     return f"{name}_{_DTYPES[x.dtype]}_{_DTYPES[w.dtype]}"
 
 
-def rmsnorm_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
-                     eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+def rmsnorm_fwd_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+                     route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K10 on the card: x (N, D), w (D,) -> (out in x's dtype, rstd
-    (N,) float32)."""
+    (N,) float32); by :func:`rmsnorm_fwd_route`'s layout, or ``route`` where
+    the caller names one (the tests and the smoke's timings)."""
     N, D = _check("rmsnorm_fwd", x, w)
+    aligned = x.data_ptr() % 16 == 0
+    fits = rmsnorm_fwd_route(x.dtype, D, aligned)
+    route = route or fits
+    if route not in FWD_ROUTES or (route == "resident" and fits != route):
+        raise ValueError(f"rmsnorm_fwd: route {route!r} does not take D = {D} of {x.dtype} "
+                         f"(aligned: {aligned})")
     out = torch.empty_like(x)
     rstd = torch.empty((N,), dtype=torch.float32, device=x.device)
-    launch("rmsnorm_fwd", _symbol("rmsnorm_fwd", x, w), x.device, (x, w, out, rstd), (N, D),
-           source="rmsnorm", floats=(eps,))
+    launch("rmsnorm_fwd", _symbol(FWD_ROUTES[route], x, w), x.device, (x, w, out, rstd),
+           (N, D), source="rmsnorm", floats=(eps,), route=route)
     return out, rstd
 
 

@@ -136,6 +136,36 @@ def test_rmsnorm_bwd_route_by_width(D, want):
     assert rms_ops.BWD_ROUTES[want] in (CSRC / "rmsnorm.cu").read_text()
 
 
+
+# K10: rows held in registers up to 8192 columns in bf16 and 4096 in
+# float32, D a multiple of 8, x 16-byte aligned; the two-pass design beyond
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    (BF16, 4096, True, "resident"), (BF16, 2560, True, "resident"), (BF16, 8192, True, "resident"),
+    (BF16, 6144, True, "resident"), (torch.float32, 4096, True, "resident"),
+    (torch.float32, 5120, True, "two_pass"), (BF16, 8200, True, "two_pass"),
+    (BF16, 4099, True, "two_pass"), (BF16, 4096, False, "two_pass"), (BF16, 64, True, "resident")])
+def test_rmsnorm_fwd_route_by_dtype_width_and_alignment(dtype, D, aligned, want):
+    assert rms_ops.rmsnorm_fwd_route(dtype, D, aligned) == want
+    text = (CSRC / "rmsnorm.cu").read_text()
+    assert f"int {rms_ops.FWD_ROUTES[want]}_##SUFFIX(" in text
+
+
+def test_rmsnorm_fwd_resident_width_is_the_kernels():
+    text = (CSRC / "rmsnorm.cu").read_text()
+    m = re.search(r"return (\d+) \* (\d+) \* (\d+) / \(int\)\(sizeof\(T\) / 2\)", text)
+    assert m, "resident_max_d not found"
+    widest = int(m.group(1)) * int(m.group(2)) * int(m.group(3))
+    assert rms_ops.RESIDENT_MAX_D == {BF16: widest, torch.float32: widest // 2}
+
+
+def test_rmsnorm_fwd_cuda_refuses_cpu_tensors_and_routes_it_cannot_take():
+    x, w = torch.ones((4, 4096), dtype=BF16), torch.ones(4096, dtype=BF16)
+    with pytest.raises(ValueError, match="needs tensors on the card"):
+        rms_ops.rmsnorm_fwd_cuda(x, w)
+    with pytest.raises(ValueError, match="does not take"):
+        rms_ops.rmsnorm_fwd_cuda(torch.ones((4, 4099), dtype=BF16), torch.ones(4099),
+                                 route="resident")
+
 def test_rmsnorm_cluster_width_is_the_kernels():
     src = "rmsnorm.cu"
     assert rms_ops.CLUSTER_MAX_D == _constexpr(src, "MAX_CLUSTER") * _constexpr(src, "SLICE")

@@ -32,10 +32,19 @@ mma.sync, the float32 CUDA cores) is held to it, the route taken asserted
 from the launch counts per route, with NaN in every row past a group size.
 K10 and K11 (RMSNorm) are held to their plain versions
 within one bf16 step of the largest magnitude in bfloat16 and 1e-6/1e-5 in
-float32, over ragged shapes and mixed gain types, through autograd on the
-card against the CPU, K11 on both its layouts (a cluster over each tile's
+float32 (rstd within 2e-6 relative), over ragged shapes and mixed gain
+types, through autograd on the card against the CPU, K10 on both its
+layouts (rows held in registers, and the first two-pass design, which odd
+widths and unaligned rows take) at one, 4, 8192 and ragged rows of the
+models' widths, K11 on both its layouts (a cluster over each tile's
 columns, and one block a tile), and in a reduced dense training step whose every
-gradient leaf must match the CPU's. K12 (the WKV scan) is held to its
+gradient leaf must match the CPU's. K7 (split-KV decode attention) is held
+to its plain version within one bf16 step of the largest magnitude (2e-5
+in float32) on both routes (the cp.async ring, with its splits merged in
+the launch, and the first design), rows of length 0, 1, a partial tile, S
+and past S over a cache that is no whole number of tiles, G in 1, 4, 8, 9
+and D in 64, 80, 128, at the smoke's 4 x 4096-key caches, and over calls
+in a row (the ring's merge counters reset). K12 (the WKV scan) is held to its
 plain version in both its functions: the state within 2e-5 of its largest
 magnitude, y within one bf16 step (2e-5 in float32), and, with the
 model's bf16 intra-chunk operands, where ulp-level differences flip a
@@ -797,6 +806,59 @@ def test_rmsnorm_fwd_and_bwd_match_plain(cuda, N, D, dtype, wdtype):
     torch.testing.assert_close(parts, pparts, atol=1e-5 * float(pparts.abs().max()), rtol=1e-5)
 
 
+
+# K10 on both layouts: one row, a decode step's 4, a prefill's 8192 and a
+# ragged count, at the widths the models run (2560, 4096, 5120, 6144), in
+# bf16 with either gain type and in float32 (6144 in float32 is past the
+# resident route's 4096 and takes the two-pass one)
+@pytest.mark.parametrize("N", [1, 4, 8192, 37])
+@pytest.mark.parametrize("D", [2560, 4096, 5120, 6144])
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.float32)])
+@pytest.mark.parametrize("route", [None, "two_pass"])
+def test_rmsnorm_fwd_layouts_match_plain(cuda, N, D, dtype, wdtype, route):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rmsnorm import ops
+
+    g = torch.Generator(device="cpu").manual_seed(N + D)
+    x = (torch.randn((N, D), generator=g) * 3).to(cuda, dtype)
+    w = torch.randn((D,), generator=g).to(cuda, wdtype)
+    taken = route or ops.rmsnorm_fwd_route(dtype, D, True)
+    assert taken == ("resident" if route is None and D <= ops.RESIDENT_MAX_D[dtype]
+                     else "two_pass")
+    counts.reset()
+    out, rstd = ops.rmsnorm_fwd_cuda(x, w, 1e-5, route=route)
+    assert counts.ROUTE_LAUNCHES == {f"rmsnorm_fwd/{taken}": 1}
+    pout, prstd = ops.rmsnorm_fwd_plain(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and rstd.shape == (N,)
+    torch.testing.assert_close(rstd, prstd, atol=0, rtol=2e-6)
+    _bf16_or_f32_close(out, pout, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_fwd_odd_widths_and_unaligned_rows_take_the_two_pass_route(cuda, dtype):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rmsnorm import ops
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    cases = [(torch.randn((33, 4099), generator=g) * 3).to(cuda, dtype)]
+    buf = torch.empty(130 * 2560 + 1, dtype=dtype, device=cuda)
+    cases.append(buf[1:].view(130, 2560))
+    cases[1].copy_(torch.randn((130, 2560), generator=g) * 3)
+    for x in cases:
+        w = torch.randn((x.shape[1],), generator=g).to(cuda, torch.bfloat16)
+        counts.reset()
+        out, rstd = ops.rmsnorm_fwd(x, w, 1e-5)
+        assert counts.ROUTE_LAUNCHES == {"rmsnorm_fwd/two_pass": 1}
+        pout, prstd = ops.rmsnorm_fwd_plain(x, w, 1e-5)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(rstd, prstd, atol=0, rtol=2e-6)
+        _bf16_or_f32_close(out, pout, 1e-6)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.rmsnorm_fwd_cuda(cases[1], w, route="resident")
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_autograd_on_the_card_matches_the_cpu(cuda, dtype):
     from repro_torch.kernels import counts
@@ -1110,6 +1172,101 @@ def test_flash_decode_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.decode_cuda(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lens, 1)
 
+
+
+def _decode_on(route, q, k, v, lens, splits=None):
+    """K7 on a named route (None: the one ``decode_route`` picks), its launch
+    and route counted, no plain call."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_decode import ops
+
+    taken = route or ops.route_of(q, k, v)
+    counts.reset()
+    o = ops.decode_cuda(q, k, v, lens, splits, route=route)
+    assert counts.ROUTE_LAUNCHES == {f"flash_decode/{taken}": 1}
+    assert counts.LAUNCHES["flash_decode"] == 1 and counts.PLAIN_CALLS["flash_decode"] == 0
+    return o
+
+
+# both routes over a cache of 200 keys (not a multiple of the ring's 32-key
+# tile, so the ring's last split is masked at S) with rows of length 0, 1, a
+# partial tile, all of S and past S; G in 1, 4, 8, 9 and D in 64, 80, 128
+@pytest.mark.parametrize("route,splits", [("ring", None), ("scalar", 4)])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 80), (8, 128), (9, 128), (1, 80), (4, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_routes_match_plain(cuda, route, splits, G, D, dtype):
+    from repro_torch.kernels.flash_decode import ops, ref
+
+    B, S, Hkv = 5, 200, 2
+    q, k, v, _ = _decode_inputs(B, S, Hkv, G, D, dtype, cuda, seed=G * D)
+    lens = torch.tensor([0, 1, 17, S, S + 9], dtype=torch.int32, device=cuda)
+    if route == "scalar":
+        splits = 4 if S % 4 == 0 else 1
+    o = _decode_on(route, q, k, v, lens, splits)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    _decode_close(o, ops.decode_plain(q, k, v, lens, *ops.split_plan(S, 4, 32)))
+    _decode_close(o, ref.decode_ref(q, k, v, lens))
+
+
+# the smoke's long-context caches: 4 rows of 4096 keys of zamba2-2.7b (32 KV
+# heads of 80, G = 1) and llama3-8b (8 of 128, G = 4), in bf16, one row empty
+# and one a partial tile long
+@pytest.mark.parametrize("Hkv,G,D", [(32, 1, 80), (8, 4, 128)], ids=["zamba2", "llama3"])
+@pytest.mark.parametrize("route", ["ring", "scalar"])
+def test_flash_decode_at_the_long_context_caches(cuda, Hkv, G, D, route):
+    from repro_torch.kernels.flash_decode import ops
+
+    B, S = 4, 4096
+    q, k, v, _ = _decode_inputs(B, S, Hkv, G, D, torch.bfloat16, cuda, seed=Hkv + D)
+    for lengths in ([S] * B, [S, 0, 1000, 7]):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        o = _decode_on(route, q, k, v, lens)
+        _decode_close(o, ops.decode_plain(q, k, v, lens, *ops.split_plan(S, 4, 128)))
+
+
+def test_flash_decode_takes_odd_heads_and_unaligned_views_on_the_scalar_route(cuda):
+    from repro_torch.kernels.flash_decode import ops
+
+    q, k, v, lens = _decode_inputs(4, 96, 2, 3, 20, torch.bfloat16, cuda, seed=4)
+    assert ops.route_of(q, k, v) == "scalar"
+    _decode_close(_decode_on(None, q, k, v, lens),
+                  ops.decode_plain(q, k, v, lens, *ops.split_plan(96, 4, 32)))
+    q, k, v, lens = _decode_inputs(4, 96, 2, 4, 64, torch.bfloat16, cuda, seed=5)
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    ku = buf[1:].view(k.shape)
+    ku.copy_(k)
+    assert ops.route_of(q, ku, v) == "scalar"
+    _decode_close(_decode_on(None, q, ku, v, lens),
+                  ops.decode_plain(q, k, v, lens, *ops.split_plan(96, 4, 32)))
+    with pytest.raises(ValueError, match="ring route needs"):
+        ops.decode_cuda(q, ku, v, lens, route="ring")
+
+
+def test_flash_decode_ring_route_refuses_a_split_count(cuda):
+    """The ring route plans its own splits; a count is the scalar route's."""
+    from repro_torch.kernels.flash_decode import ops
+
+    q, k, v, lens = _decode_inputs(2, 96, 2, 4, 64, torch.bfloat16, cuda, seed=6)
+    assert ops.route_of(q, k, v) == "ring"
+    with pytest.raises(ValueError, match="plans its own splits"):
+        ops.decode_cuda(q, k, v, lens, 3)
+    with pytest.raises(ValueError, match="plans its own splits"):
+        ops.decode_cuda(q, k, v, lens, 3, route="ring")
+
+
+def test_flash_decode_ring_counters_reset_between_calls(cuda):
+    """The in-launch merge's counters are back at 0 after each call, so calls
+    that follow one another on a stream, of other shapes too, stay right."""
+    from repro_torch.kernels.flash_decode import ops
+
+    for B, S, Hkv, G, D in [(4, 4096, 8, 4, 128), (3, 300, 2, 9, 64), (4, 4096, 8, 4, 128)]:
+        q, k, v, lens = _decode_inputs(B, S, Hkv, G, D, torch.bfloat16, cuda, seed=S + G)
+        for _ in range(3):
+            o = _decode_on("ring", q, k, v, lens)
+        _decode_close(o, ops.decode_plain(q, k, v, lens, *ops.split_plan(S, 4, 128)))
+    for ws, cnt in ops._SCRATCH.values():
+        assert int(cnt.abs().sum()) == 0
 
 def test_model_decode_flash_route_matches_plain_route(cuda):
     """A reduced llama3-8b decode step on the card: K7 (``flash``) against
