@@ -21,8 +21,10 @@ Phases, in order:
 4. ``kernels``: each kernel launched on those inputs and held against its
    plain PyTorch version on the same card (exact equality), then timed with
    CUDA events beside its plain version, a PyTorch library yardstick where
-   one exists, and its bound; then K1 and K2 the same way at 131072
-   candidates, the scale of the fused propose step;
+   one exists, and its bound; K1's kernel time summed over the tuner run,
+   from a profiler trace of each distinct shape times its count; then K1
+   and K2 the same way at 131072 candidates, the scale of the fused
+   propose step;
 5. ``serve``: the LM serving path at the full width of llama3-8b (32
    layers, d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256,
    bf16, 16 GB of weights drawn on the card from seed 0): a 2 x 4096-token
@@ -312,6 +314,50 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def in_turns(first, new, reps: int) -> tuple:
+    """(first's ms, new's ms, the four turns): each timed by
+    :func:`cuda_time_ms` in turns, first, new, new, first, and averaged over
+    its two turns."""
+    t = tuple(cuda_time_ms(fn, reps) for fn in (first, new, new, first))
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def trace_kernels(fn) -> list:
+    """(name, start in µs, device µs) of every CUDA kernel that ``fn()`` ran,
+    in launch order, from one ``torch.profiler`` trace; [] where the
+    profiler saw no device kernel. The trace idles 50 ms on each side of
+    ``fn``: traces that stopped right after their calls held fewer
+    kernels than the calls launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    kernels = [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(kernels, key=lambda k: k[1])
+
+
+def traced_ms(fn, tags, reps: int = 10):
+    """Device ms of each of ``fn``'s kernels whose names hold each of
+    ``tags`` (one such launch a call), the mean over the launches a trace
+    of ``reps`` calls after a warm-up holds; None where it holds none of a
+    tag."""
+    fn()
+    kernels = trace_kernels(lambda: [fn() for _ in range(reps)])
+    out, seen = [], []
+    for tag in tags:
+        mine = [us for name, _, us in kernels if tag in name]
+        seen.append(len(mine))
+        out.append(sum(mine) / len(mine) / 1e3 if mine else None)
+    print(f"[trace] kernels {list(tags)} held by the trace of {reps} calls: {seen}", flush=True)
+    return None if None in out else out
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
           bf16_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
@@ -402,11 +448,13 @@ def call_size(name: str, args) -> int:
 @contextlib.contextmanager
 def capture_calls():
     """While active, every launch of a kernel's CUDA wrapper is tallied by
-    shape, and a copy of the inputs of its largest call is kept. Yields
-    ``{name: {"largest": args, "shapes": Counter}}``."""
+    shape, and a copy of the inputs of its largest call is kept, and for K1
+    a copy of the inputs of its first call of each shape. Yields ``{name:
+    {"largest": args, "shapes": Counter, "by_shape": {shape: args}}}``."""
     import torch
 
-    seen = {name: {"largest": None, "size": -1, "shapes": Counter()} for name in SOURCES}
+    seen = {name: {"largest": None, "size": -1, "shapes": Counter(), "by_shape": {}}
+            for name in SOURCES}
     restore = []
     for name in SOURCES:
         module, attr, _, _, shape = kernel_fns(name)
@@ -414,7 +462,11 @@ def capture_calls():
 
         def wrapped(*args, _name=name, _launch=launch, _shape=shape):
             rec = seen[_name]
-            rec["shapes"][_shape(args)] += 1
+            key = _shape(args)
+            rec["shapes"][key] += 1
+            if _name == "forest_eval" and key not in rec["by_shape"]:
+                rec["by_shape"][key] = tuple(a.clone() if torch.is_tensor(a) else a
+                                             for a in args)
             size = call_size(_name, args)
             if size > rec["size"]:
                 rec["size"] = size
@@ -487,7 +539,44 @@ def check_main_path(captured) -> list:
         args = rec["largest"]
         rows.append(hold(name, args, reps=200,
                          library=rank_library(args[0]) if name == "radix_rank" else None))
+        if name == "forest_eval":
+            rows[-1].update(tuner_summed(rec))
     return rows
+
+
+def tuner_summed(rec, reps: int = 3) -> dict:
+    """K1's device time summed over the tuner run's launches, from one
+    ``torch.profiler`` trace: each distinct shape launched ``reps`` times on
+    a copy of its first call's inputs (one kernel a call; a call with no
+    tree or no point launches none), each shape's kernel durations averaged
+    and multiplied by its count; None where the trace does not hold one
+    kernel a call."""
+    module, attr, _, _, _ = kernel_fns("forest_eval")
+    cuda = getattr(module, attr)
+    shapes = [(key, n, rec["by_shape"][key]) for key, n in rec["shapes"].items()
+              if rec["by_shape"][key][5].numel() and rec["by_shape"][key][6].shape[0]]
+    for _, _, args in shapes:
+        cuda(*args)
+    kernels = [us for name, _, us in trace_kernels(
+        lambda: [cuda(*args) for _, _, args in shapes for _ in range(reps)])
+        if "forest_eval" in name]
+    out = dict(tuner_launches=sum(rec["shapes"].values()), tuner_shapes=len(rec["shapes"]),
+               tuner_summed_ms=None)
+    if len(kernels) != reps * len(shapes):
+        print(f"[kernels] forest_eval summed over the tuner run: the trace holds "
+              f"{len(kernels)} kernels for {reps * len(shapes)} calls: not measured", flush=True)
+        return out
+    per_shape = []
+    for i, (key, n, _) in enumerate(shapes):
+        ms = sum(kernels[i * reps:(i + 1) * reps]) / reps / 1e3
+        per_shape.append((n * ms, n, ms, key))
+    per_shape.sort(reverse=True)
+    out["tuner_summed_ms"] = sum(p[0] for p in per_shape)
+    print(f"[kernels] forest_eval summed over the tuner run: {out['tuner_launches']} launches "
+          f"of {out['tuner_shapes']} shapes, {out['tuner_summed_ms']:.6f} ms of kernel time "
+          f"(profiler trace: each shape's kernel over {reps} launches, times its count); "
+          f"largest shares (ms, count, ms a call, shape): {per_shape[:4]}", flush=True)
+    return out
 
 
 def check_at_scale(kb, device, pool_n: int = 131072, n_sources: int = 12) -> list:
@@ -760,9 +849,9 @@ def time_k4_designs(q, k, v, kwargs, reps: int = 10) -> tuple:
 
     new = lambda: ops.flash_fwd_cuda(q, k, v, **kwargs)           # noqa: E731
     old = lambda: k4_simt(q, k, v, **kwargs)                       # noqa: E731
-    o1, n1, n2, o2 = (cuda_time_ms(f, reps) for f in (old, new, new, old))
+    old_ms, new_ms, turns = in_turns(old, new, reps)
     sdpa = cuda_time_ms(sdpa_yardstick(q, k, v, kwargs["causal"], kwargs["window"]), reps)
-    return (n1 + n2) / 2, (o1 + o2) / 2, sdpa, (o1, n1, n2, o2)
+    return new_ms, old_ms, sdpa, turns
 
 
 def hold_k4_path(tag: str, args, kwargs, launches: int) -> dict:
@@ -929,15 +1018,17 @@ def kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel, by its name."""
     if any(t in name for t in ("decode_partial", "decode_combine", "decode_ring")):
         return "decode attention K7"
-    if "ssd_kernel" in name:
+    if any(t in name for t in ("ssd_kernel", "ssd_states", "ssd_out")):
         return "SSD scan K8"
+    if "state_pass" in name:
+        return "state pass of K8 or K12"
     if "flash_" in name:
         return "attention K4-K6"
     if "gmm_" in name:
         return "expert products K9"
     if "rmsnorm_" in name:
         return "RMSNorm K10/K11"
-    if "wkv_kernel" in name:
+    if any(t in name for t in ("wkv_kernel", "wkv_states", "wkv_out")):
         return "WKV scan K12"
     if "f32f32" in name or "sgemm" in name:
         return "float32 GEMM"
@@ -1320,20 +1411,20 @@ def hold_bwd(call, launches: dict) -> list:
         b_ms, b_by = bound(in_bytes + out_bytes, flops, BF16_OPS_PER_S)
         floor_ms = bound(in_bytes + out_bytes, flops * n_kernel / n_products, BF16_OPS_PER_S)[0]
         old = lambda _n=name: bwd_simt(_n, q, k, v, do, lse, delta, **kw)   # noqa: E731
-        o1, n1, n2, o2 = (cuda_time_ms(f, 5) for f in (old, fn, fn, old))
+        simt_ms, ms, turns = in_turns(old, fn, 5)
         match = all(checks[lb][ck][0] for lb in checks)
         row = dict(name=name, source=source[0], replaces=source[1], shape=shape, match=match,
                    max_abs_err=max(checks[lb][ck][1] for lb in checks),
-                   ms=(n1 + n2) / 2, plain_ms=cuda_time_ms(plain, 3), bound_ms=b_ms,
+                   ms=ms, plain_ms=cuda_time_ms(plain, 3), bound_ms=b_ms,
                    bound_by=b_by, library_ms=library_ms,
                    library="backward of scaled_dot_product_attention (delta, dq, dk and dv "
                            "in one call, KV expanded to every head)",
-                   simt_ms=(o1 + o2) / 2, simt_turns=[o1, n1, n2, o2], floor_ms=floor_ms,
+                   simt_ms=simt_ms, simt_turns=list(turns), floor_ms=floor_ms,
                    float32_ms=f32_ms[name])
         print(f"[train] {name} at the first layer's inputs: {shape} match={match} "
               f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} CUDA-core design "
               f"ms={row['simt_ms']:.6f} (turns CUDA cores, wgmma, wgmma, CUDA cores: "
-              f"{', '.join(f'{t:.6f}' for t in (o1, n1, n2, o2))}) plain_ms="
+              f"{', '.join(f'{t:.6f}' for t in turns)}) plain_ms="
               f"{row['plain_ms']:.6f} sdpa_bwd_ms={library_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
               f"floor_ms={floor_ms:.6f} ({n_kernel} products) flops={flops:.4g} "
               f"launches={launches[name]}; float32 route ms={f32_ms[name]:.6f}", flush=True)
@@ -1665,8 +1756,8 @@ def time_gmm_designs(x, w, reps: int) -> tuple:
 
     new = lambda: ops.gmm_cuda(x, w)                       # noqa: E731
     old = lambda: ops.gmm_cuda(x, w, route="mma_sync")     # noqa: E731
-    o1, n1, n2, o2 = (cuda_time_ms(f, reps) for f in (old, new, new, old))
-    return (n1 + n2) / 2, (o1 + o2) / 2, (o1, n1, n2, o2)
+    old_ms, new_ms, turns = in_turns(old, new, reps)
+    return new_ms, old_ms, turns
 
 
 def hold_gmm(kept, launches: int, decode_launches: int, decode_x, decode_xd) -> dict:
@@ -2228,48 +2319,65 @@ def wkv_op_counts(B: int, S: int, H: int, K: int, c: int, bf16_intra: bool) -> t
 def hold_wkv(args, launches: int) -> dict:
     """K12 on the first layer's inputs from the prefill against its plain
     version, in the model's function (bf16 intra-chunk operands) and the
-    Pallas kernel's (float32 products), then timed beside it and against its
-    bound."""
+    Pallas kernel's (float32 products), by the route the prefill took
+    (``chunked``), its final state against the ``serial`` route's (the first
+    design) bit for bit; then timed in turns with the first design, each of
+    its three launches' kernel time from a profiler trace, beside the plain
+    version and the bound."""
     import torch
 
     from repro_torch.kernels.rwkv6_wkv import ops
 
     r, k, v, w, u, chunk, _ = args
+    B, S, H, K = r.shape
+    route = ops.wkv_route(S, chunk, K)
     checks = {}
     for bf16_intra in (True, False):
         a = (r, k, v, w, u, chunk, bf16_intra)
-        y, st = ops.wkv_cuda(*a)
+        y, st = ops.wkv_cuda(*a, route=route)
+        _, st_serial = ops.wkv_cuda(*a, route="serial")
         py, pst = ops.wkv_plain(*a)
         torch.cuda.synchronize()
-        checks[bf16_intra] = scan_errs(y, st, py, pst, bf16_intra)
-        ok, err, share, s_err = checks[bf16_intra]
-        print(f"[ssm] K12 vs plain at the first layer's inputs, "
+        same = bool(torch.equal(st, st_serial))
+        ok, err, share, s_err = scan_errs(y, st, py, pst, bf16_intra)
+        checks[bf16_intra] = (ok and same, err, share, s_err)
+        print(f"[ssm] K12 ({route} route) vs plain at the first layer's inputs, "
               f"{'bf16' if bf16_intra else 'float32'} intra-chunk products: max|y| "
               f"{float(py.float().abs().max())} max err {err}, {share} of y within one bf16 step "
-              f"of the largest; state err / max|state| {s_err} match={ok}", flush=True)
-        del y, st, py, pst
-    B, S, H, K = r.shape
+              f"of the largest; state err / max|state| {s_err}; final state equal to the serial "
+              f"route's bit for bit: {same} (max diff {float((st - st_serial).abs().max())}) "
+              f"match={ok and same}", flush=True)
+        del y, st, st_serial, py, pst
     model = (r, k, v, w, u, chunk, True)
     n_bytes = nbytes(r, k, v, w, u, r) + B * H * K * K * 4
     f32_ops, bf16_ops = wkv_op_counts(B, S, H, K, chunk, True)
     b_ms, b_by = bound(n_bytes, f32_ops, bf16_ops=bf16_ops)
     f32_b_ms, f32_b_by = bound(n_bytes, sum(wkv_op_counts(B, S, H, K, chunk, False)))
+    first_ms, ms, _ = in_turns(lambda: ops.wkv_cuda(*model, route="serial"),
+                               lambda: ops.wkv_cuda(*model, route=route), 10)
+    f32 = model[:-1] + (False,)
+    f32_first_ms, f32_ms, _ = in_turns(lambda: ops.wkv_cuda(*f32, route="serial"),
+                                       lambda: ops.wkv_cuda(*f32, route=route), 10)
+    steps = traced_ms(lambda: ops.wkv_cuda(*model, route=route),
+                      ("wkv_states", "state_pass", "wkv_out")) if route == "chunked" else None
     row = dict(name="rwkv6_wkv", source=K12_SOURCE[0], replaces=K12_SOURCE[1],
                shape=f"r/k/v={tuple(r.shape)} {str(r.dtype)[6:]} w {str(w.dtype)[6:]} "
                      f"chunk={chunk} bf16 intra-chunk operands",
-               match=all(c[0] for c in checks.values()), max_abs_err=checks[True][1],
-               ms=cuda_time_ms(lambda: ops.wkv_cuda(*model), 10),
+               path_route=route, match=all(c[0] for c in checks.values()),
+               max_abs_err=checks[True][1], ms=ms, first_design_ms=first_ms, step_ms=steps,
                plain_ms=cuda_time_ms(lambda: ops.wkv_plain(*model), 3),
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                library="none: no PyTorch call computes the chunked WKV",
-               float32_products_ms=cuda_time_ms(lambda: ops.wkv_cuda(r, k, v, w, u, chunk, False),
-                                                10),
+               float32_products_ms=f32_ms, float32_products_first_design_ms=f32_first_ms,
                float32_products_bound_ms=f32_b_ms, float32_products_bound_by=f32_b_by)
-    print(f"[ssm] K12 at the first layer's inputs: {row['shape']} match={row['match']} "
-          f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+    print(f"[ssm] K12 at the first layer's inputs: {row['shape']} route={route} "
+          f"match={row['match']} max_abs_err={row['max_abs_err']} ms={ms:.6f} "
+          f"first_design_ms={first_ms:.6f} (in turns: first, new, new, first) steps_ms "
+          f"(increments, state pass, outputs; kernel time from a profiler trace)={steps} "
+          f"plain_ms={row['plain_ms']:.6f} "
           f"bound_ms={b_ms:.6f} ({b_by}: {n_bytes} bytes, {f32_ops:.6g} float32 and "
-          f"{bf16_ops:.6g} bf16-operand operations); float32 products ms="
-          f"{row['float32_products_ms']:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); "
+          f"{bf16_ops:.6g} bf16-operand operations); float32 products ms={f32_ms:.6f} "
+          f"first design {f32_first_ms:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); "
           f"launches={launches}", flush=True)
     return row
 
@@ -2325,10 +2433,10 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     fwd_route = ops.rmsnorm_fwd_route(x.dtype, D, x.data_ptr() % 16 == 0)
     f_new = lambda: ops.rmsnorm_fwd_cuda(x, w, eps)                          # noqa: E731
     f_old = lambda: ops.rmsnorm_fwd_cuda(x, w, eps, route="two_pass")        # noqa: E731
-    f1, f2, f3, f4 = (cuda_time_ms(f, 50) for f in (f_old, f_new, f_new, f_old))
+    f_prior, f_ms, f_turns = in_turns(f_old, f_new, 50)
     k10 = dict(name="rmsnorm_fwd", source=K10_SOURCE[0], replaces=K10_SOURCE[1], shape=shape,
                path_route=fwd_route, match=ok10, max_abs_err=e10,
-               ms=(f2 + f3) / 2, prior_ms=(f1 + f4) / 2, turns_ms=[f1, f2, f3, f4],
+               ms=f_ms, prior_ms=f_prior, turns_ms=list(f_turns),
                plain_ms=cuda_time_ms(lambda: ops.rmsnorm_fwd_plain(x, w, eps), 20),
                bound_ms=f_ms, bound_by=f_by,
                library_ms=cuda_time_ms(lambda: F.rms_norm(x, (D,), w, eps), 50),
@@ -2336,15 +2444,15 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
     route = ops.rmsnorm_bwd_route(D)
     new = lambda: ops.rmsnorm_bwd_cuda(x, w, rstd, do)                  # noqa: E731
     old = lambda: ops.rmsnorm_bwd_cuda(x, w, rstd, do, route="tile")    # noqa: E731
-    o1, n1, n2, o2 = (cuda_time_ms(f, 50) for f in (old, new, new, old))
+    prior_ms, ms, turns = in_turns(old, new, 50)
 
     def with_dw():
         _, p = ops.rmsnorm_bwd_cuda(x, w, rstd, do)
         return p.sum(dim=0).to(w.dtype)
 
     k11 = dict(name="rmsnorm_bwd", source=K11_SOURCE[0], replaces=K11_SOURCE[1], shape=shape,
-               path_route=route, match=ok11, max_abs_err=max(e11, ep), ms=(n1 + n2) / 2,
-               prior_ms=(o1 + o2) / 2, with_dw_sum_ms=cuda_time_ms(with_dw, 50),
+               path_route=route, match=ok11, max_abs_err=max(e11, ep), ms=ms,
+               prior_ms=prior_ms, with_dw_sum_ms=cuda_time_ms(with_dw, 50),
                plain_ms=cuda_time_ms(lambda: ops.rmsnorm_bwd_plain(x, w, rstd, do), 20),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=cuda_time_ms(lambda: torch.autograd.grad(lib_out, (xg, wg), do,
@@ -2359,8 +2467,9 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
           f"{', '.join(f'{t:.6f}' for t in k10['turns_ms'])}); {f_ms / k10['ms']:.4f} of the "
           f"byte bound", flush=True)
     print(f"[ssm] rmsnorm_bwd on the {route} route: ms={k11['ms']:.6f}, PR 15 design (tile "
-          f"route) ms={k11['prior_ms']:.6f} (turns PR 15, this, this, PR 15: {o1:.6f}, "
-          f"{n1:.6f}, {n2:.6f}, {o2:.6f}); with the partials' sum (dx and the whole dw, as the "
+          f"route) ms={k11['prior_ms']:.6f} (turns PR 15, this, this, PR 15: "
+          f"{', '.join(f'{t:.6f}' for t in turns)}); with the partials' sum (dx and the whole "
+          f"dw, as the "
           f"library row) ms={k11['with_dw_sum_ms']:.6f}", flush=True)
     return k10, k11
 
@@ -2472,17 +2581,18 @@ def run_ssm(device, train_k11: int) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             k12 = counts.LAUNCHES["rwkv6_wkv"]
+            k12_chunked = counts.ROUTE_LAUNCHES.get("rwkv6_wkv/chunked", 0)
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
             k10_resident = counts.ROUTE_LAUNCHES.get("rmsnorm_fwd/resident", 0)
             plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
         print(f"[ssm] prefill {B}x{S}: wall_s={wall:.6f} tokens_per_s={B * S / wall:.1f} "
               f"max_memory_allocated={torch.cuda.max_memory_allocated()} K12 launches={k12} "
-              f"K10 launches={k10} (resident route {k10_resident}) plain_calls={plain}",
-              flush=True)
-        if k12 != L or k10 != 3 * L + 1 or plain or k10_resident != k10:
-            fail(f"prefill launched K12 {k12} times (want {L}) and K10 {k10} times (want "
-                 f"{3 * L + 1}, {k10_resident} on the resident route), plain calls {plain} "
-                 f"(want none)")
+              f"(chunked route {k12_chunked}) K10 launches={k10} (resident route "
+              f"{k10_resident}) plain_calls={plain}", flush=True)
+        if k12 != L or k12_chunked != k12 or k10 != 3 * L + 1 or plain or k10_resident != k10:
+            fail(f"prefill launched K12 {k12} times (want {L}, {k12_chunked} on the chunked "
+                 f"route) and K10 {k10} times (want {3 * L + 1}, {k10_resident} on the resident "
+                 f"route), plain calls {plain} (want none)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
         sample = list(range(0, S, 512)) + [S - 1]
@@ -2717,46 +2827,63 @@ def ssd_op_counts(B: int, S: int, H: int, P: int, N: int, c: int, bf16_intra: bo
 def hold_ssd(args, launches: int) -> dict:
     """K8 on the first layer's inputs from the prefill against its plain
     version, in the model's function and the Pallas kernel's (float32
-    products), then timed beside it and against its bound."""
+    products), by the route the prefill took (``chunked``), its final state
+    against the ``serial`` route's (the first design) bit for bit; then
+    timed in turns with the first design, each of its three launches' kernel
+    time from a profiler trace, beside the plain version and the bound."""
     import torch
 
     from repro_torch.kernels.mamba2_ssd import ops
 
     x, Bm, Cm, a, chunk, _ = args
-    checks = {}
-    for model in (True, False):
-        y, st = ops.ssd_cuda(x, Bm, Cm, a, chunk, model)
-        py, pst = ops.ssd_plain(x, Bm, Cm, a, chunk, model)
-        torch.cuda.synchronize()
-        checks[model] = scan_errs(y, st, py, pst, model and x.dtype == torch.bfloat16)
-        ok, err, share, s_err = checks[model]
-        print(f"[hybrid] K8 vs plain at the first layer's inputs, "
-              f"{'model' if model else 'Pallas (float32 products)'} function: max|y| "
-              f"{float(py.float().abs().max())} max err {err}, {share} of y within one bf16 step "
-              f"of the largest; state err / max|state| {s_err} match={ok}", flush=True)
-        del y, st, py, pst
     Bt, S, H, P = x.shape
     N = Bm.shape[-1]
+    route = ops.ssd_route(S, chunk, P, N)
+    checks = {}
+    for model in (True, False):
+        y, st = ops.ssd_cuda(x, Bm, Cm, a, chunk, model, route=route)
+        _, st_serial = ops.ssd_cuda(x, Bm, Cm, a, chunk, model, route="serial")
+        py, pst = ops.ssd_plain(x, Bm, Cm, a, chunk, model)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(st, st_serial))
+        ok, err, share, s_err = scan_errs(y, st, py, pst, model and x.dtype == torch.bfloat16)
+        checks[model] = (ok and same, err, share, s_err)
+        print(f"[hybrid] K8 ({route} route) vs plain at the first layer's inputs, "
+              f"{'model' if model else 'Pallas (float32 products)'} function: max|y| "
+              f"{float(py.float().abs().max())} max err {err}, {share} of y within one bf16 step "
+              f"of the largest; state err / max|state| {s_err}; final state equal to the serial "
+              f"route's bit for bit: {same} (max diff {float((st - st_serial).abs().max())}) "
+              f"match={ok and same}", flush=True)
+        del y, st, st_serial, py, pst
     n_bytes = nbytes(x, Bm, Cm, a, x) + Bt * H * P * N * 4
     f32_ops, bf16_ops = ssd_op_counts(Bt, S, H, P, N, chunk, x.dtype == torch.bfloat16)
     b_ms, b_by = bound(n_bytes, f32_ops, bf16_ops=bf16_ops)
     f32_b_ms, f32_b_by = bound(n_bytes, sum(ssd_op_counts(Bt, S, H, P, N, chunk, False)))
+    first_ms, ms, _ = in_turns(lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, True, route="serial"),
+                               lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, True, route=route), 10)
+    f32_first_ms, f32_ms, _ = in_turns(
+        lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, False, route="serial"),
+        lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, False, route=route), 10)
+    steps = traced_ms(lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, True, route=route),
+                      ("ssd_states", "state_pass", "ssd_out")) if route == "chunked" else None
     row = dict(name="mamba2_ssd", source=K8_SOURCE[0], replaces=K8_SOURCE[1],
                shape=f"x={tuple(x.shape)} B/C={tuple(Bm.shape)} {str(x.dtype)[6:]} a "
                      f"{str(a.dtype)[6:]} chunk={chunk} model function",
-               match=all(c[0] for c in checks.values()), max_abs_err=checks[True][1],
-               ms=cuda_time_ms(lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, True), 10),
+               path_route=route, match=all(c[0] for c in checks.values()),
+               max_abs_err=checks[True][1], ms=ms, first_design_ms=first_ms, step_ms=steps,
                plain_ms=cuda_time_ms(lambda: ops.ssd_plain(x, Bm, Cm, a, chunk, True), 3),
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                library="none: no PyTorch call computes the chunked SSD scan",
-               float32_products_ms=cuda_time_ms(lambda: ops.ssd_cuda(x, Bm, Cm, a, chunk, False),
-                                                10),
+               float32_products_ms=f32_ms, float32_products_first_design_ms=f32_first_ms,
                float32_products_bound_ms=f32_b_ms, float32_products_bound_by=f32_b_by)
-    print(f"[hybrid] K8 at the first layer's inputs: {row['shape']} match={row['match']} "
-          f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+    print(f"[hybrid] K8 at the first layer's inputs: {row['shape']} route={route} "
+          f"match={row['match']} max_abs_err={row['max_abs_err']} ms={ms:.6f} "
+          f"first_design_ms={first_ms:.6f} (in turns: first, new, new, first) steps_ms "
+          f"(increments, state pass, outputs; kernel time from a profiler trace)={steps} "
+          f"plain_ms={row['plain_ms']:.6f} "
           f"bound_ms={b_ms:.6f} ({b_by}: {n_bytes} bytes, {f32_ops:.6g} float32 and "
-          f"{bf16_ops:.6g} bf16-operand operations); float32 products ms="
-          f"{row['float32_products_ms']:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); "
+          f"{bf16_ops:.6g} bf16-operand operations); float32 products ms={f32_ms:.6f} "
+          f"first design {f32_first_ms:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); "
           f"launches={launches}", flush=True)
     return row
 
@@ -2817,14 +2944,14 @@ def hold_decode_one(q, k, v, lengths, label: str) -> dict:
     match = all(e <= tol * scale for e in errs.values())
     need_bytes, need_ops = decode_need(q, k, lengths)
     b_ms, b_by = bound(need_bytes, need_ops)
-    o1, n1, n2, o2 = (cuda_time_ms(f, 50) for f in (old, new, new, old))
+    prior_ms, ms, turns = in_turns(old, new, 50)
     plan = (ops.ring_plan(S, B * Hkv * -(-G // ops.ring_rows(G)), torch.cuda.get_device_properties(
         q.device).multi_processor_count) if route == "ring" else (splits, S // splits))
     r = dict(shape=f"q={tuple(q.shape)} cache={tuple(k.shape)} {str(q.dtype)[6:]} "
                    f"lengths={lengths.tolist()}",
              path_route=route, splits=plan[0], split_len=plan[1],
              match=match, max_abs_err=errs["new"], prior_max_abs_err=errs["old"],
-             ms=(n1 + n2) / 2, prior_ms=(o1 + o2) / 2, turns_ms=[o1, n1, n2, o2],
+             ms=ms, prior_ms=prior_ms, turns_ms=list(turns),
              plain_ms=cuda_time_ms(lambda: ops.decode_plain(q, k, v, lengths, splits, block), 5),
              bound_ms=b_ms, bound_by=b_by,
              library_ms=cuda_time_ms(decode_sdpa(q, k, v, lengths), 50))
@@ -2931,17 +3058,20 @@ def run_hybrid(device, per_step: dict, long_step: dict = None) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             k8, k4 = counts.LAUNCHES["mamba2_ssd"], counts.LAUNCHES["flash_attn_fwd"]
+            k8_chunked = counts.ROUTE_LAUNCHES.get("mamba2_ssd/chunked", 0)
             k10 = counts.LAUNCHES["rmsnorm_fwd"]
             k10_resident = counts.ROUTE_LAUNCHES.get("rmsnorm_fwd/resident", 0)
             plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
         want_k10 = 2 * L + 2 * groups + 1
         print(f"[hybrid] prefill {B}x{S} attn_impl=flash: wall_s={wall:.6f} tokens_per_s="
               f"{B * S / wall:.1f} max_memory_allocated={torch.cuda.max_memory_allocated()} "
-              f"K8 launches={k8} K4 launches={k4} K10 launches={k10} (resident route "
-              f"{k10_resident}) plain_calls={plain}", flush=True)
-        if k8 != L or k4 != groups or k10 != want_k10 or plain or k10_resident != k10:
-            fail(f"prefill launched K8 {k8} times (want {L}), K4 {k4} times (want {groups}) and "
-                 f"K10 {k10} times (want {want_k10}), plain calls {plain} (want none)")
+              f"K8 launches={k8} (chunked route {k8_chunked}) K4 launches={k4} K10 launches="
+              f"{k10} (resident route {k10_resident}) plain_calls={plain}", flush=True)
+        if (k8 != L or k8_chunked != k8 or k4 != groups or k10 != want_k10 or plain
+                or k10_resident != k10):
+            fail(f"prefill launched K8 {k8} times (want {L}, {k8_chunked} on the chunked "
+                 f"route), K4 {k4} times (want {groups}) and K10 {k10} times (want {want_k10}), "
+                 f"plain calls {plain} (want none)")
         if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill logits of shape {tuple(logits.shape)} are not finite")
         sample = list(range(0, S, 512)) + [S - 1]
@@ -3166,7 +3296,8 @@ def main() -> int:
         out.update({k: v for k, v in r.items()
                     if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
                                      "by_path", "simt_", "floor_", "prior_", "path_route",
-                                     "w_down_", "with_dw_", "turns_", "split", "long_"))
+                                     "w_down_", "with_dw_", "turns_", "split", "long_",
+                                     "first_design", "step_", "tuner_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]

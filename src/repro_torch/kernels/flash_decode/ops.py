@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..counts import PLAIN_CALLS
-from ..launch import check, launch
+from ..launch import check, launch, n_sms
 from .ref import decode_plain
 
 __all__ = [
@@ -106,16 +106,8 @@ def ring_plan(S: int, pairs: int, n_sms: int) -> Tuple[int, int]:
     return _cdiv(S, split_len), split_len
 
 
-_SMS: Dict[int, int] = {}
 # (device index, stream) -> (float32 workspace, int32 counters), grown as needed
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _n_sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def _scratch(device: torch.device, n_ws: int, n_counters: int):
@@ -190,7 +182,7 @@ def decode_cuda(q, k, v, lengths, splits: Optional[int] = None, *,
         raise ValueError(f"flash_decode: the ring route needs D % 8 == 0 and 16-byte aligned "
                          f"bases, got D = {D}")
     gz = _cdiv(G, ring_rows(G))
-    n_splits, split_len = ring_plan(S, B * Hkv * gz, _n_sms(dev))
+    n_splits, split_len = ring_plan(S, B * Hkv * gz, n_sms(dev))
     ws = cnt = None
     if n_splits > 1:
         ws, cnt = _scratch(dev, B * Hkv * n_splits * G * (D + 2), B * Hkv * gz)

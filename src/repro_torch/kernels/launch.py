@@ -10,9 +10,19 @@ import torch
 from . import build
 from .counts import LAUNCHES, ROUTE_LAUNCHES
 
-__all__ = ["check", "launch"]
+__all__ = ["check", "launch", "n_sms"]
 
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
+_SMS: Dict[int, int] = {}
+
+
+def n_sms(device: torch.device) -> int:
+    """The SM count of ``device`` (the current card where it has no index),
+    read once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...],

@@ -15,32 +15,72 @@ Two entry points, one kernel:
   transposed (x, B and C are 84 MB each at the zamba2-2.7b prefill).
 
 The chunk is cut as the reference cuts it, ``min(chunk, S)`` halved until
-it divides S, before either route runs. The kernel takes P, N <= 64 and
+it divides S, before either device runs. The kernel takes P, N <= 64 and
 chunks <= 128 (every configuration in the repo); larger ones are refused
-on both routes. Tensors on the card launch ``csrc/mamba2_ssd.cu``; tensors
-on the CPU take ``ref.ssd_plain``. There is no other route: a CUDA tensor
-never reaches the plain version, and a build or launch failure raises. K8
-has no backward yet (it comes with training of the hybrid family, ROADMAP.md
-item 10(c)), so inputs that need a gradient are refused rather than given
-none.
+on both devices. Tensors on the CPU take ``ref.ssd_plain``. Tensors on the
+card launch ``csrc/mamba2_ssd.cu`` by one of two routes, which
+:func:`ssd_route` picks by shape:
+
+- ``chunked`` (the cut chunk a multiple of 16 rows, the tensor cores'
+  tile, and P N a multiple of 4): three launches over (b, h, chunk): every chunk's state increment,
+  a sequential pass over the chunks that leaves each chunk's starting state
+  in a float32 workspace (Bt, H, S / chunk, P, N), and every chunk's y from
+  its starting state, the model's bf16 intra-chunk products on the tensor
+  cores (``ref.ssd_chunked`` emulates the three). Its final state is the
+  serial route's bit for bit;
+- ``serial`` (other chunks: c = 100 at S = 100, c = 1 at odd S; and S =
+  0): the first design, one block per (b, h) walking its chunks.
+
+There is no other route: a CUDA tensor never reaches the plain version, and
+a build or launch failure raises. K8 has no backward yet (it comes with
+training of the hybrid family, ROADMAP.md item 10(c)), so inputs that need
+a gradient are refused rather than given none.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..counts import PLAIN_CALLS
-from ..launch import check, launch
+from ..launch import check, launch, n_sms
 from .ref import ssd_plain
 
-__all__ = ["MAX_CHUNK", "MAX_PN", "cut_chunk", "ssd_cuda", "ssd_fwd", "ssd_heads", "ssd_plain",
-           "ssd_scan"]
+__all__ = ["CHUNK_ROWS", "MAX_CHUNK", "MAX_PN", "ROUTES", "cut_chunk", "ssd_cuda", "ssd_fwd",
+           "ssd_heads", "ssd_plain", "ssd_route", "ssd_scan", "ssd_split"]
 
 MAX_PN = 64      # head width P and state width N the kernel holds
 MAX_CHUNK = 128  # chunk rows the kernel holds in shared memory
+CHUNK_ROWS = 16  # the chunked route's row tile (mma.sync's 16 rows)
+ROUTES = ("chunked", "serial")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def ssd_route(S: int, chunk: int, P: int, N: int) -> str:
+    """The route of a cut ``chunk`` of an S-row sequence of (P, N) states:
+    ``chunked`` where S > 0, the chunk is a multiple of ``CHUNK_ROWS`` and
+    P N a multiple of 4 (the state pass moves four floats a thread), else
+    ``serial``."""
+    return "chunked" if S > 0 and chunk % CHUNK_ROWS == 0 and P * N % 4 == 0 else "serial"
+
+
+def ssd_split(blocks: int, P: int, n_sms: int) -> int:
+    """The chunked route's split of P's columns in its output step (tensor
+    core form): 1, 2 or 4, doubled while the (b, h, chunk) grid of
+    ``blocks`` gives fewer than two blocks an SM and P has an 8-column tile
+    for each share."""
+    split = 1
+    while split < 4 and blocks * split < 2 * n_sms and 2 * split <= (P + 7) // 8:
+        split *= 2
+    return split
+
+
+def _vec(*rows) -> int:
+    """1 where every (tensor, row stride, width) in ``rows`` can be read in
+    16-byte loads: width, row stride and base multiples of 16 bytes."""
+    return int(all(w * t.element_size() % 16 == 0 and ld * t.element_size() % 16 == 0
+                   and t.data_ptr() % 16 == 0 for t, ld, w in rows))
 
 
 def cut_chunk(chunk: int, S: int) -> int:
@@ -103,15 +143,39 @@ def _check(x, Bm, Cm, a, chunk: int) -> Tuple[int, int, int, int, int, Tuple[int
     return Bt, S, H, P, N, strides
 
 
-def ssd_cuda(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def ssd_cuda(x, Bm, Cm, a, chunk: int, model: bool,
+             route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K8 on the card; the arguments of ``ref.ssd_plain``, with
-    ``chunk`` already cut to divide S and ``a`` float32."""
+    ``chunk`` already cut to divide S and ``a`` float32, by the route
+    :func:`ssd_route` picks or the one named (the tests and the smoke's
+    timings)."""
     Bt, S, H, P, N, (ldx, ldb, ldc) = _check(x, Bm, Cm, a, chunk)
+    if route is None:
+        route = ssd_route(S, chunk, P, N)
+    elif route not in ROUTES:
+        raise ValueError(f"mamba2_ssd: unknown route {route!r} (one of {ROUTES})")
     y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
-    symbol = f"mamba2_ssd_{_DTYPES[x.dtype]}_{'model' if model else 'f32'}"
-    launch("mamba2_ssd", symbol, x.device, (x, Bm, Cm, a, y, state),
-           (Bt, S, H, P, N, chunk, ldx, ldb, ldc))
+    fn = f"{_DTYPES[x.dtype]}_{'model' if model else 'f32'}"
+    if route == "serial":
+        launch("mamba2_ssd", f"mamba2_ssd_{fn}", x.device, (x, Bm, Cm, a, y, state),
+               (Bt, S, H, P, N, chunk, ldx, ldb, ldc), route=route)
+        return y, state
+    if ssd_route(S, chunk, P, N) != "chunked":
+        raise ValueError(f"mamba2_ssd: the chunked route takes S > 0, chunks of a multiple of "
+                         f"{CHUNK_ROWS} rows and P N a multiple of 4, got S = {S}, chunk "
+                         f"{chunk}, P = {P}, N = {N}")
+    nc = S // chunk
+    # the workspace lives on the launching stream: the allocator hands it out
+    # again only to work queued after these launches
+    ws = torch.empty((Bt, H, nc, P, N), dtype=torch.float32, device=x.device)
+    decay = torch.empty((Bt, H, nc), dtype=torch.float32, device=x.device)
+    mma = model and x.dtype == torch.bfloat16
+    split = ssd_split(Bt * H * nc, P, n_sms(x.device)) if mma else 1
+    vec = _vec((x, ldx, P), (Bm, ldb, N), (Cm, ldc, N))
+    launch("mamba2_ssd", f"mamba2_ssd_chunked_{fn}", x.device,
+           (x, Bm, Cm, a, y, state, ws, decay),
+           (Bt, S, H, P, N, chunk, ldx, ldb, ldc, split, vec), route=route)
     return y, state
 
 

@@ -24,6 +24,15 @@ Only the lower triangle of exp(cs_q - cs_s) is evaluated: an upper entry's
 exponent is a sum of -a over the chunk and can overflow float32. The
 reference's ``jnp.where`` discards those entries, and so does the port.
 
+``ssd_chunk_states``, ``ssd_state_pass`` and ``ssd_chunk_outputs`` (and
+``ssd_chunked``, which runs the three) emulate the ``chunked`` route's
+three launches: every chunk's increment x^T . (B * exp(total - cs)) and
+decay exp(total) at once, then the short sequential pass h = exp(total) *
+h + inc over the chunks, which keeps each chunk's starting state, then
+every chunk's y from its starting state at once. The state pass computes
+what ``ssd_plain``'s loop computes, one multiply and one add a chunk, so
+the two give the same final state where they compute the increments alike.
+
 ``ssd_ref`` is the reference's sequential oracle (``mamba2_ssd/ref.py``),
 kept for the tests.
 """
@@ -34,7 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ssd_plain", "ssd_ref"]
+__all__ = ["ssd_chunk_outputs", "ssd_chunk_states", "ssd_chunked", "ssd_plain", "ssd_ref",
+           "ssd_state_pass"]
 
 
 def ssd_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
@@ -68,6 +78,66 @@ def ssd_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tens
         state = torch.exp(total)[:, 0, :, None, None] * state + torch.einsum(
             "bkhn,bkhp->bhpn", bk * w[..., None], xk)
     return y, state
+
+
+def _chunks(t: torch.Tensor, c: int) -> torch.Tensor:
+    """(Bt, S, ...) -> float32 (Bt, S / c, c, ...)."""
+    return t.float().reshape(t.shape[0], t.shape[1] // c, c, *t.shape[2:])
+
+
+def ssd_chunk_states(x: torch.Tensor, Bm: torch.Tensor, a: torch.Tensor, chunk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 1, every chunk at once: x (Bt, S, H, P), Bm (Bt, S, H, N), a
+    (Bt, S, H) -> (inc (Bt, H, nc, P, N) = x^T . (B * exp(total - cs)),
+    decay (Bt, H, nc) = exp(total)), float32, nc = S / chunk."""
+    xk, bk = _chunks(x, chunk), _chunks(Bm, chunk)
+    cs = torch.cumsum(_chunks(a, chunk), dim=2)                        # (Bt, nc, c, H)
+    total = cs[:, :, -1:]
+    w = torch.exp(total - cs)
+    inc = torch.einsum("bjkhn,bjkhp->bhjpn", bk * w[..., None], xk)
+    return inc, torch.exp(total[:, :, 0]).transpose(1, 2)
+
+
+def ssd_state_pass(inc: torch.Tensor, decay: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 2: h = decay_j * h + inc_j over the chunks j, from h = 0 ->
+    (each chunk's starting state (Bt, H, nc, P, N), the final state (Bt,
+    H, P, N))."""
+    starts = torch.empty_like(inc)
+    h = inc.new_zeros(inc.shape[:2] + inc.shape[3:])
+    for j in range(inc.shape[2]):
+        starts[:, :, j] = h
+        h = decay[:, :, j, None, None] * h + inc[:, :, j]
+    return starts, h
+
+
+def ssd_chunk_outputs(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                      starts: torch.Tensor, chunk: int, model: bool) -> torch.Tensor:
+    """Step 3, every chunk at once from its starting state (Bt, H, nc, P,
+    N): y (Bt, S, H, P) in x's dtype, rounded as ``ssd_plain`` rounds it."""
+    dt = x.dtype
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t.to(dt).float() if model else t
+
+    c = chunk
+    xk, bk, ck = _chunks(x, c), _chunks(Bm, c), _chunks(Cm, c)
+    cs = torch.cumsum(_chunks(a, c), dim=2)                            # (Bt, nc, c, H)
+    tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    rel = cs[:, :, :, None] - cs[:, :, None]                           # (Bt, nc, q, s, H)
+    L = torch.exp(torch.where(tri, rel, 0.0)).masked_fill(~tri, 0.0)
+    s = rnd(torch.einsum("bjqhn,bjkhn->bjqkh", ck, bk)) * L
+    y_intra = rnd(torch.einsum("bjqkh,bjkhp->bjqhp", rnd(s), xk))
+    y_state = rnd(torch.einsum("bjqhn,bhjpn->bjqhp", ck * torch.exp(cs)[..., None], starts))
+    return rnd(y_intra + y_state).to(dt).reshape(x.shape)
+
+
+def ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``chunked`` route's three steps in plain PyTorch; the arguments
+    and results of ``ssd_plain``."""
+    inc, decay = ssd_chunk_states(x, Bm, a, chunk)
+    starts, state = ssd_state_pass(inc, decay)
+    return ssd_chunk_outputs(x, Bm, Cm, a, starts, chunk, model), state
 
 
 def ssd_ref(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,

@@ -7,7 +7,9 @@ stacked expert weights -> (E, C, F) in x's dtype, summed in float32, rows
 the card launch a CUDA kernel of ``csrc/moe_gmm.cu``; tensors on the CPU
 take the plain version in ``ref.py``. There is no other route: a CUDA
 tensor never reaches the plain version, and a build or launch failure
-raises.
+raises. K9 has no backward yet (it comes with training of the MoE family,
+ROADMAP.md item 10(c)), so ``grouped_matmul`` refuses inputs that need a
+gradient on both devices rather than give them none.
 
 On the card :func:`gmm_route` picks one of four hand-written kernels by
 dtype, shape and alignment, and :func:`gmm_plan` its grid:
@@ -167,7 +169,13 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, D), w (E, D, F) -> (E, C, F): K9 on the card, the plain
     version (counted) on the CPU. group_sizes may be any integer tensor; it
-    is moved to x's device as int32."""
+    is moved to x's device as int32. K9 has no backward yet and its output
+    is a fresh tensor, so inputs that need a gradient are refused on both
+    devices rather than given none."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "moe_gmm: K9 has no backward yet (ROADMAP.md item 10(c), training the MoE "
+            "family); call it under torch.no_grad()")
     if group_sizes is not None:
         group_sizes = group_sizes.to(device=x.device, dtype=torch.int32).contiguous()
     if x.device.type == "cuda":

@@ -14,32 +14,71 @@ Two entry points, one kernel:
   rwkv6-7b prefill.
 
 The chunk is cut as the reference cuts it, ``min(chunk, S)`` halved until
-it divides S, before either route runs, so both cut the sequence alike.
+it divides S, before either device runs, so both cut the sequence alike.
 The kernel takes K <= 64 and chunks <= 64 (every configuration in the
-repo); larger ones are refused on both routes. Tensors on the card launch
-``csrc/rwkv6_wkv.cu``; tensors on the CPU take ``ref.wkv_plain``. There is
-no other route: a CUDA tensor never reaches the plain version, and a build
-or launch failure raises. K12 has no backward yet (it comes with training
-of the SSM family, ROADMAP.md item 10(c)), so inputs that need a gradient
-are refused rather than given none.
+repo); larger ones are refused on both devices. Tensors on the CPU take
+``ref.wkv_plain``. Tensors on the card launch ``csrc/rwkv6_wkv.cu`` by one
+of two routes, which :func:`wkv_route` picks by shape:
+
+- ``chunked`` (the cut chunk a multiple of 16 rows, the tensor cores'
+  tile, and K a multiple of 4): three launches over (b, h, chunk): every chunk's state increment,
+  a sequential pass over the chunks that leaves each chunk's starting state
+  in a float32 workspace (B, H, S / chunk, K, K), and every chunk's y from
+  its starting state, the model's bf16 intra-chunk products on the tensor
+  cores (``ref.wkv_chunked`` emulates the three). Its final state is the
+  serial route's bit for bit;
+- ``serial`` (other chunks: 8 at S = 40, 1 at odd S; and S = 0): the first
+  design, one block per (b, h) walking its chunks.
+
+There is no other route: a CUDA tensor never reaches the plain version, and
+a build or launch failure raises. K12 has no backward yet (it comes with
+training of the SSM family, ROADMAP.md item 10(c)), so inputs that need a
+gradient are refused rather than given none.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..counts import PLAIN_CALLS
-from ..launch import check, launch
+from ..launch import check, launch, n_sms
 from .ref import wkv_plain
 
-__all__ = ["MAX_CHUNK", "MAX_K", "cut_chunk", "wkv_cuda", "wkv_fwd", "wkv_heads", "wkv_plain",
-           "wkv_scan"]
+__all__ = ["CHUNK_ROWS", "MAX_CHUNK", "MAX_K", "ROUTES", "cut_chunk", "wkv_cuda", "wkv_fwd",
+           "wkv_heads", "wkv_plain", "wkv_route", "wkv_scan", "wkv_split"]
 
 MAX_K = 64       # head width the kernel holds: a (K, K) float32 state in 256 threads' registers
 MAX_CHUNK = 64   # chunk rows the kernel holds in shared memory
+CHUNK_ROWS = 16  # the chunked route's row tile (mma.sync's 16 rows)
+ROUTES = ("chunked", "serial")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def wkv_route(S: int, chunk: int, K: int) -> str:
+    """The route of a cut ``chunk`` of an S-row sequence of head width K:
+    ``chunked`` where S > 0, the chunk is a multiple of ``CHUNK_ROWS`` and K
+    a multiple of 4 (the state moves as float4), else ``serial``."""
+    return "chunked" if S > 0 and chunk % CHUNK_ROWS == 0 and K % 4 == 0 else "serial"
+
+
+def wkv_split(blocks: int, K: int, n_sms: int) -> int:
+    """The chunked route's split of the value columns in its output step
+    (tensor-core form): 1, 2 or 4, doubled while the (b, h, chunk) grid of
+    ``blocks`` gives fewer than four blocks an SM and K has an 8-column
+    tile for each share."""
+    split = 1
+    while split < 4 and blocks * split < 4 * n_sms and 2 * split <= (K + 7) // 8:
+        split *= 2
+    return split
+
+
+def _vec(t: torch.Tensor, H: int, K: int) -> bool:
+    """Whether rows of K elements H * K apart from t's base can be read in
+    16-byte loads."""
+    n = t.element_size()
+    return K * n % 16 == 0 and H * K * n % 16 == 0 and t.data_ptr() % 16 == 0
 
 
 def cut_chunk(chunk: int, S: int) -> int:
@@ -80,16 +119,38 @@ def _check(r, k, v, w, u, chunk: int) -> Tuple[int, int, int, int]:
     return B, S, H, K
 
 
-def wkv_cuda(r, k, v, w, u, chunk: int, bf16_intra: bool
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def wkv_cuda(r, k, v, w, u, chunk: int, bf16_intra: bool,
+             route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K12 on the card; the arguments of ``ref.wkv_plain``, with
-    ``chunk`` already cut to divide S."""
+    ``chunk`` already cut to divide S, by the route :func:`wkv_route` picks
+    or the one named (the tests and the smoke's timings)."""
     B, S, H, K = _check(r, k, v, w, u, chunk)
+    if route is None:
+        route = wkv_route(S, chunk, K)
+    elif route not in ROUTES:
+        raise ValueError(f"rwkv6_wkv: unknown route {route!r} (one of {ROUTES})")
     y = torch.empty_like(r)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
-    symbol = f"rwkv6_wkv_{_DTYPES[r.dtype]}_{_DTYPES[w.dtype]}_{'bf16' if bf16_intra else 'f32'}"
-    launch("rwkv6_wkv", symbol, r.device, (r, k, v, w, u, y, state),
-           (B, S, H, K, chunk, int(u.shape[0] == B and B > 1)))
+    fn = f"{_DTYPES[r.dtype]}_{_DTYPES[w.dtype]}_{'bf16' if bf16_intra else 'f32'}"
+    u_per_row = int(u.shape[0] == B and B > 1)
+    if route == "serial":
+        launch("rwkv6_wkv", f"rwkv6_wkv_{fn}", r.device, (r, k, v, w, u, y, state),
+               (B, S, H, K, chunk, u_per_row), route=route)
+        return y, state
+    if wkv_route(S, chunk, K) != "chunked":
+        raise ValueError(f"rwkv6_wkv: the chunked route takes S > 0, chunks of a multiple of "
+                         f"{CHUNK_ROWS} rows and K a multiple of 4, got S = {S}, chunk {chunk}, "
+                         f"K = {K}")
+    nc = S // chunk
+    # the workspace lives on the launching stream: the allocator hands it out
+    # again only to work queued after these launches
+    ws = torch.empty((B, H, nc, K, K), dtype=torch.float32, device=r.device)
+    decay = torch.empty((B, H, nc, K), dtype=torch.float32, device=r.device)
+    split = wkv_split(B * H * nc, K, n_sms(r.device)) if bf16_intra else 1
+    vec = int(all(_vec(t, H, K) for t in (r, k, v))) | 2 * int(_vec(w, H, K))
+    launch("rwkv6_wkv", f"rwkv6_wkv_chunked_{fn}", r.device,
+           (r, k, v, w, u, y, state, ws, decay),
+           (B, S, H, K, chunk, u_per_row, split, vec), route=route)
     return y, state
 
 

@@ -3,14 +3,21 @@
 Each function computes what its namesake in the reference's
 ``models/blocks.py`` computes, with the same casts. ``rmsnorm`` runs the
 fused RMSNorm of ``kernels/rmsnorm`` (K10 forward, K11 backward on the
-card), which computes the reference's jnp norm. ``jax.nn.gelu``
-defaults to the tanh approximation, so ``ffn_apply`` takes
-``approximate="tanh"``. The reference's ``shard_batch`` constrains a
-layout on a mesh; on one card it is the identity, and the port has none.
+card), which computes the reference's jnp norm. XLA rounds each step of
+a bf16 activation to bf16, where one fused torch call (``F.silu``,
+``torch.sigmoid``, ``F.gelu``) rounds once, so ``silu``, ``sigmoid`` and
+``gelu_tanh`` replay the reference's ``jax.nn`` functions step by step
+(``jax.nn.gelu`` defaults to the tanh form). Autograd differentiates them;
+``sigmoid`` takes s (1 - s) from its output as its backward, as
+``lax.logistic`` does, where differentiating 1 / (1 + exp(-x)) as written
+gives NaN once exp(-x) overflows. The reference's ``shard_batch``
+constrains a layout on a mesh; on one card it is the identity, and the
+port has none.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -20,15 +27,54 @@ from ..kernels.rmsnorm.ops import rmsnorm
 from .params import ParamSpec
 
 __all__ = [
-    "rmsnorm", "silu", "ffn_specs", "ffn_apply", "rope_freqs", "apply_rope", "mrope_positions",
+    "rmsnorm", "silu", "sigmoid", "gelu_tanh", "ffn_specs", "ffn_apply", "rope_freqs",
+    "apply_rope", "mrope_positions",
 ]
+
+
+class _Sigmoid(torch.autograd.Function):
+    """1 / (1 + exp(-x)), each step rounded in x's dtype; backward
+    g (s (1 - s)) from the output s, as ``lax.logistic``'s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)), each step rounded in x's dtype
+    as XLA computes it (``torch.sigmoid`` rounds once)."""
+    return _Sigmoid.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x * (1 / (1 + exp(-x))), each step rounded in x's
-    dtype, as XLA computes it (``torch.sigmoid`` rounds once). The RWKV6 and
-    Mamba2 blocks use it; ``ffn_apply`` keeps ``F.silu``."""
-    return x * (1 / (1 + torch.exp(-x)))
+    dtype, as XLA computes it (``F.silu`` rounds once)."""
+    return x * sigmoid(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sqrt(2 / pi) and 0.044715 as 0-dim CPU tensors in ``dtype``: a CUDA
+    op takes them as scalars, so no call copies them to the card."""
+    return (torch.tensor(0.7978845608028654, dtype=dtype),
+            torch.tensor(0.044715, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form): x * (0.5 * (1 + tanh(c * (x + k x^3))))
+    with c = sqrt(2 / pi) and k = 0.044715 rounded to x's dtype (0.796875
+    and 0.044677734375 in bf16), each step rounded in x's dtype as XLA
+    computes it (``F.gelu`` rounds once)."""
+    c, k = _gelu_constants(x.dtype)
+    return x * (0.5 * (1 + torch.tanh(c * (x + k * x ** 3))))
 
 
 # ---------------------------------------------------------------------- FFN
@@ -53,9 +99,9 @@ def ffn_specs(d_model: int, d_ff: int, act: str, stacked: Optional[int] = None,
 
 def ffn_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif act == "gelu":
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
+        h = gelu_tanh(x @ p["w_up"])
     else:
         r = F.relu(x @ p["w_up"])
         h = r * r

@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import attention_apply, attention_decode_apply, attention_specs
-from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm
+from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm, sigmoid
 from .mamba2 import mamba2_apply, mamba2_decode_apply, mamba2_specs
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_leaves, tree_map
@@ -173,12 +173,12 @@ def _rwkv_cmix(p, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch
     """RWKV's channel mix: a squared-ReLU FFN on a token-shifted input,
     gated by a sigmoid receptance."""
     shifted = _token_shift(x, prev)
-    lam_k = torch.sigmoid(p["mix"][0]).to(x.dtype)
-    lam_r = torch.sigmoid(p["mix"][1]).to(x.dtype)
+    lam_k = sigmoid(p["mix"][0]).to(x.dtype)
+    lam_r = sigmoid(p["mix"][1]).to(x.dtype)
     xk = x + (shifted - x) * lam_k
     xr = x + (shifted - x) * lam_r
     k = torch.relu(xk @ p["w_k"])
-    return torch.sigmoid(xr @ p["w_r"]) * ((k * k) @ p["w_v"])
+    return sigmoid(xr @ p["w_r"]) * ((k * k) @ p["w_v"])
 
 
 def _groups(cfg: ArchConfig) -> tuple:

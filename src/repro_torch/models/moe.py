@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.moe_gmm.ops import grouped_matmul
+from .blocks import silu
 from .params import ParamSpec
 from .runtime import Runtime
 
@@ -112,7 +113,7 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
 
     # ---- expert FFN: three grouped matmuls (K9 on the card)
     if glu:
-        h = F.silu(grouped_matmul(expert_in, p["w_gate"])) * grouped_matmul(expert_in, p["w_up"])
+        h = silu(grouped_matmul(expert_in, p["w_gate"])) * grouped_matmul(expert_in, p["w_up"])
     else:
         r = F.relu(grouped_matmul(expert_in, p["w_up"]))
         h = r * r
@@ -128,7 +129,7 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     # ---- shared experts (always on)
     if e.n_shared:
         if glu:
-            hs = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
+            hs = silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
         else:
             r = F.relu(x @ p["ws_up"])
             hs = r * r

@@ -20,7 +20,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv_heads
-from .blocks import rmsnorm, silu
+from .blocks import rmsnorm, sigmoid, silu
 from .params import ParamSpec
 from .runtime import Runtime
 
@@ -71,7 +71,7 @@ def _time_mix(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, shifted: torch.T
     mix = p["mix"]  # (5, D): learned interpolation toward the shifted stream
 
     def lerp(i):
-        lam = torch.sigmoid(mix[i]).to(x.dtype)
+        lam = sigmoid(mix[i]).to(x.dtype)
         return x + (shifted - x) * lam
 
     r = (lerp(0) @ p["w_r"]).reshape(B, S, H, K)

@@ -626,6 +626,26 @@ def test_gmm_group_sizes_past_the_ends(cuda):
         _gmm_close(got, want)
 
 
+def test_gmm_refuses_inputs_that_need_a_gradient_on_the_card(cuda):
+    """K9 writes a fresh tensor and has no backward: ``grouped_matmul``
+    refuses an input that needs a gradient rather than drop it, and takes
+    it under ``torch.no_grad()``."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops
+
+    x = torch.ones((2, 32, 64), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.ones((2, 64, 48), device=cuda, dtype=torch.bfloat16)
+    counts.reset()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\)"):
+        ops.grouped_matmul(x, w)
+    assert counts.LAUNCHES["moe_gmm"] == 0
+    with torch.no_grad():
+        out = ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["moe_gmm"] == 1 and not out.requires_grad
+    assert bool((out.float() == 64).all())
+
+
 def test_gmm_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels.moe_gmm import ops
 
@@ -996,30 +1016,63 @@ def _wkv_close(y, py, st, pst, bf16_intra):
 
 # (B, S, H, K, chunk): the rwkv6-7b layout at full head width with a few
 # chunks; the reduced model's; S not a multiple of the chunk (48 -> 16,
-# 33 -> 1); K below 64 and not a power of two
+# 33 -> 1); K below 64 and not a power of two; K = 20, whose bf16 rows are
+# no 16-byte multiple (element loads), over two chunks of 32
 WKV_SHAPES = [(2, 256, 4, 64, 64), (2, 64, 4, 32, 32), (1, 48, 3, 32, 32), (2, 33, 2, 16, 16),
-              (1, 96, 5, 24, 64)]
+              (1, 96, 5, 24, 64), (1, 64, 3, 20, 32)]
+WKV_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("B,S,H,K,chunk", WKV_SHAPES)
-@pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
-                                          (torch.bfloat16, torch.float32),
-                                          (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("dtype,wdtype", WKV_DTYPES)
 @pytest.mark.parametrize("bf16_intra", [False, True])
-def test_wkv_matches_plain(cuda, B, S, H, K, chunk, dtype, wdtype, bf16_intra):
+@pytest.mark.parametrize("route", [None, "chunked", "serial"])
+def test_wkv_matches_plain(cuda, B, S, H, K, chunk, dtype, wdtype, bf16_intra, route):
+    """Each route, and the one ``wkv_route`` plans (None), against the plain
+    version; the chunked route refuses a chunk that is no multiple of 16."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.rwkv6_wkv import ops
 
     r, k, v, w, u = _wkv_inputs(B, S, H, K, dtype, wdtype, cuda, seed=S + K)
     c = ops.cut_chunk(chunk, S)
-    before = counts.LAUNCHES["rwkv6_wkv"]
+    if route == "chunked" and ops.wkv_route(S, c, K) != "chunked":
+        with pytest.raises(ValueError, match="chunked route takes"):
+            ops.wkv_cuda(r, k, v, w, u[None], c, bf16_intra, route=route)
+        return
+    counts.reset()
     with torch.no_grad():
-        y, st = ops._wkv(r, k, v, w, u[None], chunk, bf16_intra)
+        if route is None:
+            y, st = ops._wkv(r, k, v, w, u[None], chunk, bf16_intra)
+        else:
+            y, st = ops.wkv_cuda(r, k, v, w, u[None], c, bf16_intra, route=route)
         py, pst = ops.wkv_plain(r, k, v, w, u[None], c, bf16_intra)
     torch.cuda.synchronize()
-    assert counts.LAUNCHES["rwkv6_wkv"] == before + 1
+    assert counts.LAUNCHES["rwkv6_wkv"] == 1
+    assert counts.ROUTE_LAUNCHES == {f"rwkv6_wkv/{route or ops.wkv_route(S, c, K)}": 1}
     assert y.dtype == dtype and st.shape == (B, H, K, K)
     _wkv_close(y, py, st, pst, bf16_intra)
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk",
+                         [s for s in WKV_SHAPES if s[1] % 16 == 0 and s[3] % 4 == 0])
+@pytest.mark.parametrize("dtype,wdtype", WKV_DTYPES)
+@pytest.mark.parametrize("bf16_intra", [False, True])
+def test_wkv_chunked_state_is_the_serial_state(cuda, B, S, H, K, chunk, dtype, wdtype,
+                                               bf16_intra):
+    """The chunked route sums each chunk's increment in the serial route's
+    order and passes the state with its multiply and add: the final states
+    are equal bit for bit."""
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r, k, v, w, u = _wkv_inputs(B, S, H, K, dtype, wdtype, cuda, seed=3 * S + K)
+    c = ops.cut_chunk(chunk, S)
+    assert ops.wkv_route(S, c, K) == "chunked"
+    with torch.no_grad():
+        _, st = ops.wkv_cuda(r, k, v, w, u[None], c, bf16_intra, route="chunked")
+        _, st_serial = ops.wkv_cuda(r, k, v, w, u[None], c, bf16_intra, route="serial")
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_serial), float((st - st_serial).abs().max())
 
 
 def test_wkv_pallas_layout_on_the_card(cuda):
@@ -1327,30 +1380,62 @@ def _ssd_close(y, py, st, pst, model):
 
 # (B, S, H, P, N, chunk): zamba2-2.7b's P = N = 64 at chunk 128 and 64; the
 # reduced model's; chunks of 32; S that halves the chunk (96 -> 32, 200 ->
-# 8); P and N below 64 and not powers of two
+# 8); P and N below 64 and not powers of two; P and N no multiple of 16
+# over chunks of 64; P = 20, N = 12, whose bf16 rows are no 16-byte
+# multiple (element loads); one chunk of 100 rows (S = 100)
 SSD_SHAPES = [(2, 512, 3, 64, 64, 128), (1, 256, 4, 64, 64, 64), (2, 64, 8, 32, 16, 32),
-              (1, 96, 2, 32, 16, 64), (2, 200, 2, 24, 40, 128), (1, 33, 3, 64, 64, 128)]
+              (1, 96, 2, 32, 16, 64), (2, 200, 2, 24, 40, 128), (1, 33, 3, 64, 64, 128),
+              (2, 128, 3, 24, 40, 64), (1, 64, 2, 20, 12, 32), (1, 100, 2, 32, 16, 128)]
+SSD_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
-@pytest.mark.parametrize("dtype,adtype", [(torch.float32, torch.float32),
-                                          (torch.bfloat16, torch.float32),
-                                          (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("dtype,adtype", SSD_DTYPES)
 @pytest.mark.parametrize("model", [False, True])
-def test_ssd_matches_plain(cuda, B, S, H, P, N, chunk, dtype, adtype, model):
+@pytest.mark.parametrize("route", [None, "chunked", "serial"])
+def test_ssd_matches_plain(cuda, B, S, H, P, N, chunk, dtype, adtype, model, route):
+    """Each route, and the one ``ssd_route`` plans (None), against the plain
+    version; the chunked route refuses a chunk that is no multiple of 16."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.mamba2_ssd import ops
 
     x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, dtype, adtype, cuda, seed=S + P + N)
     c = ops.cut_chunk(chunk, S)
-    before = counts.LAUNCHES["mamba2_ssd"]
-    y, st = ops._ssd(x, Bm, Cm, a, chunk, model)
-    py, pst = ops.ssd_plain(x, Bm, Cm, a, c, model)
+    if route == "chunked" and ops.ssd_route(S, c, P, N) != "chunked":
+        with pytest.raises(ValueError, match="chunked route takes"):
+            ops.ssd_cuda(x, Bm, Cm, a.float(), c, model, route=route)
+        return
+    counts.reset()
+    if route is None:
+        y, st = ops._ssd(x, Bm, Cm, a, chunk, model)
+    else:
+        y, st = ops.ssd_cuda(x, Bm, Cm, a.float(), c, model, route=route)
+    py, pst = ops.ssd_plain(x, Bm, Cm, a.float(), c, model)
     torch.cuda.synchronize()
-    assert counts.LAUNCHES["mamba2_ssd"] == before + 1
+    assert counts.LAUNCHES["mamba2_ssd"] == 1
+    assert counts.ROUTE_LAUNCHES == {f"mamba2_ssd/{route or ops.ssd_route(S, c, P, N)}": 1}
     assert y.dtype == dtype and st.shape == (B, H, P, N)
     assert bool(torch.isfinite(y.float()).all())
     _ssd_close(y, py, st, pst, model)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [s for s in SSD_SHAPES if s[1] % 32 == 0])
+@pytest.mark.parametrize("dtype,adtype", SSD_DTYPES)
+@pytest.mark.parametrize("model", [False, True])
+def test_ssd_chunked_state_is_the_serial_state(cuda, B, S, H, P, N, chunk, dtype, adtype, model):
+    """The chunked route sums each chunk's increment in the serial route's
+    order and passes the state with its multiply and add: the final states
+    are equal bit for bit."""
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, dtype, adtype, cuda, seed=2 * S + P + N)
+    c = ops.cut_chunk(chunk, S)
+    assert ops.ssd_route(S, c, P, N) == "chunked"
+    _, st = ops.ssd_cuda(x, Bm, Cm, a.float(), c, model, route="chunked")
+    _, st_serial = ops.ssd_cuda(x, Bm, Cm, a.float(), c, model, route="serial")
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_serial), float((st - st_serial).abs().max())
 
 
 def test_ssd_strided_views_and_pallas_layout_on_the_card(cuda):

@@ -394,3 +394,16 @@ def test_gmm_checks_its_arguments_on_both_routes():
         gmm_ops.grouped_matmul(x, torch.ones((2, 5, 3)))
     with pytest.raises(TypeError, match="dtype"):
         gmm_ops.grouped_matmul(x, w.to(torch.bfloat16))
+
+
+def test_gmm_refuses_inputs_that_need_a_gradient():
+    """K9 has no backward and its card route writes a fresh tensor, so an
+    input that needs a gradient is refused on the CPU as on the card, and
+    taken under ``torch.no_grad()``."""
+    x, w = torch.ones((2, 4, 8)), torch.ones((2, 8, 3))
+    for xg, wg in ((x.requires_grad_(True), w), (x.detach(), w.requires_grad_(True))):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\)"):
+            gmm_ops.grouped_matmul(xg, wg)
+        with torch.no_grad():
+            out = gmm_ops.grouped_matmul(xg, wg)
+        assert out.shape == (2, 4, 3) and not out.requires_grad
