@@ -8,7 +8,8 @@ Phases, in order:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
-   spill lines; the wgmma routes of K4, K5 and K6 (at every head dim) and
+   spill lines; K1's tiled kernel, K2's count and onesweep kernels, the
+   wgmma routes of K4, K5 and K6 (at every head dim) and
    of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64),
    K11's cluster kernel (every dtype pair), K10's resident kernel (every
    dtype pair and row width) and K7's ring kernel (every dtype, lane count
@@ -16,15 +17,22 @@ Phases, in order:
 3. ``tuner``: ``repro_torch.core.MFTune`` on TPC-H 100 GB, hardware A, for
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
-   read just after (each must be > 0); the inputs of each kernel's largest
-   call in the run are kept;
+   read just after (each must be > 0, every K1 launch on its ``tiled``
+   route and every K2 launch on ``count``); the inputs of each kernel's
+   largest call in the run are kept;
 4. ``kernels``: each kernel launched on those inputs and held against its
    plain PyTorch version on the same card (exact equality), then timed with
    CUDA events beside its plain version, a PyTorch library yardstick where
-   one exists, and its bound; K1's kernel time summed over the tuner run,
-   from a profiler trace of each distinct shape times its count; then K1
-   and K2 the same way at 131072 candidates, the scale of the fused
-   propose step;
+   one exists, and its bound; K1 and K2 also against their first designs
+   (the ``gather`` and ``block`` routes) in turns (first, new, new, first), by
+   CUDA events and by their kernels' durations in ``torch.profiler``
+   traces, beside an empty kernel's trace time (the launch floor); K1's
+   kernel time summed over the tuner run for both routes in turns, from a
+   profiler trace of each distinct shape times its count; then K1 and K2
+   the same way at 131072 candidates, the scale of the fused propose step,
+   where K1 must take ``tiled`` and K2 ``onesweep`` (with K2's design
+   floor: 8 passes of 24 bytes an element, plus the keys in and the ranks
+   out);
 5. ``serve``: the LM serving path at the full width of llama3-8b (32
    layers, d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256,
    bf16, 16 GB of weights drawn on the card from seed 0): a 2 x 4096-token
@@ -204,6 +212,9 @@ def card_line() -> str:
 # instantiations by template argument ("" for a kernel that is no template)
 _TYPE_PAIRS = ("f,f", "f,bf16", "bf16,f", "bf16,bf16")
 HOPPER_KERNELS = {
+    # K1's tiled route; K2's count and onesweep routes
+    "forest_eval": {"forest_eval_tiled": ("",)},
+    "radix_rank": {"radix_rank_count": ("",), "onesweep_hist": ("",), "onesweep_pass": ("",)},
     "flash_attn_fwd": {"flash_fwd_hopper": ("16", "32", "64", "80", "128")},
     "flash_attn_bwd": {"flash_dq_hopper": ("16", "32", "64", "80", "128"),
                        "flash_dkv_hopper": ("16", "32", "64", "80", "128")},
@@ -278,9 +289,10 @@ def hopper_ptxas(log: str) -> list:
 
 def check_hopper_build(logs: dict) -> None:
     """Print the registers and spills of every kernel in ``HOPPER_KERNELS``
-    (the wgmma routes of K4-K6 and K9, K11's cluster route, K10's resident
-    route, K7's ring route) and fail unless each built every instantiation
-    with no spill and no serialized wgmma."""
+    (K1's tiled route, K2's count and onesweep routes, the wgmma routes of
+    K4-K6 and K9, K11's cluster route, K10's resident route, K7's ring
+    route) and fail unless each built every instantiation with no spill and
+    no serialized wgmma."""
     for source, kernels in HOPPER_KERNELS.items():
         if logs.get(source, "(cached)") == "(cached)":
             continue
@@ -358,6 +370,58 @@ def traced_ms(fn, tags, reps: int = 10):
     return None if None in out else out
 
 
+def traced_call_ms(fn, groups, reps: int = 10):
+    """(device ms a call of ``fn``, kernels held): for each (tag, launches
+    a call) of ``groups``, the mean duration of the kernels whose names
+    hold the tag in one trace of ``reps`` calls after a warm-up, times its
+    launches a call (a count of None: all such kernels over ``reps``),
+    summed; None where the trace holds none of a tag."""
+    fn()
+    kernels = trace_kernels(lambda: [fn() for _ in range(reps)])
+    total, held = 0.0, []
+    for tag, per_call in groups:
+        mine = [us for name, _, us in kernels if tag in name]
+        held.append(len(mine))
+        if not mine:
+            return None, held
+        total += sum(mine) / (reps if per_call is None else len(mine) / per_call)
+    return total / 1e3, held
+
+
+def traced_turns(first, new, first_groups, new_groups, reps: int = 10) -> tuple:
+    """(first's ms, new's ms, the four turns, kernels held) by
+    :func:`traced_call_ms` in turns, first, new, new, first; None where a
+    trace held none."""
+    runs = [traced_call_ms(fn, g, reps) for fn, g in ((first, first_groups), (new, new_groups),
+                                                       (new, new_groups), (first, first_groups))]
+    t = [r[0] for r in runs]
+    if None in t:
+        return None, None, t, [r[1] for r in runs]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t, [r[1] for r in runs]
+
+
+def launch_floor_ms(device, reps: int = 50) -> float:
+    """Device ms of an empty kernel (``csrc/launch_floor.cu``), the mean over
+    a trace of ``reps`` launches: the least any launch takes."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    fn = build.load("launch_floor").launch_floor_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def one():
+        if fn(torch.cuda.current_stream(device).cuda_stream) != 0:
+            fail("the empty kernel did not launch")
+
+    ms, held = traced_call_ms(one, [("launch_floor_kernel", 1)], reps)
+    print(f"[kernels] launch floor: an empty kernel's trace time {ms} ms "
+          f"({held[0]} of {reps} launches held)", flush=True)
+    return ms
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
           bf16_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
@@ -421,7 +485,7 @@ def kernel_fns(name: str):
     from repro_torch.kernels.forest_eval import chain, ops, rank
 
     if name == "forest_eval":
-        return (ops, "forest_eval_cuda", ops.forest_eval_plain,
+        return (ops, "forest_eval_cuda", lambda *a: ops.forest_eval_plain(*a[:8]),
                 lambda a: a[5].numel() * a[6].shape[0] * a[7],
                 lambda a: f"trees={a[5].numel()} nodes={a[0].numel()} depth={a[7]} "
                           f"pool={a[6].shape[0]}x{a[6].shape[1]}")
@@ -449,8 +513,10 @@ def call_size(name: str, args) -> int:
 def capture_calls():
     """While active, every launch of a kernel's CUDA wrapper is tallied by
     shape, and a copy of the inputs of its largest call is kept, and for K1
-    a copy of the inputs of its first call of each shape. Yields ``{name:
-    {"largest": args, "shapes": Counter, "by_shape": {shape: args}}}``."""
+    a copy of the inputs of its first call of each shape (K1's node table,
+    its ninth argument, by reference: it is never written). Yields
+    ``{name: {"largest": args, "shapes": Counter, "by_shape": {shape:
+    args}}}``."""
     import torch
 
     seen = {name: {"largest": None, "size": -1, "shapes": Counter(), "by_shape": {}}
@@ -460,7 +526,9 @@ def capture_calls():
         module, attr, _, _, shape = kernel_fns(name)
         launch = getattr(module, attr)
 
-        def wrapped(*args, _name=name, _launch=launch, _shape=shape):
+        def wrapped(*args, _name=name, _launch=launch, _shape=shape, **kwargs):
+            if _name == "forest_eval":
+                args = tuple(args[:8]) + (kwargs.pop("nodes", args[8] if len(args) > 8 else None),)
             rec = seen[_name]
             key = _shape(args)
             rec["shapes"][key] += 1
@@ -471,7 +539,7 @@ def capture_calls():
             if size > rec["size"]:
                 rec["size"] = size
                 rec["largest"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-            return _launch(*args)
+            return _launch(*args, **kwargs)
 
         setattr(module, attr, wrapped)
         restore.append((module, attr, launch))
@@ -527,9 +595,57 @@ def rank_library(keys):
                                                    iota)
 
 
-def check_main_path(captured) -> list:
+# the trace tags of each route's kernels, with their launches a call
+ROUTE_TAGS = {
+    "forest_eval": {"tiled": [("forest_eval_tiled", 1)], "gather": [("forest_eval_kernel", 1)]},
+    "radix_rank": {"count": [("radix_rank_count", 1)],
+                   "onesweep": [("onesweep_hist", 1), ("onesweep_pass", 8)],
+                   "block": [("radix_rank_kernel", 1)]},
+}
+FIRST_DESIGN = {"forest_eval": "gather", "radix_rank": "block"}
+
+
+def route_taken(name: str, call) -> str:
+    """The route a kernel's wrapper takes for ``call()``, from its count."""
+    from repro_torch.kernels import counts
+
+    counts.reset()
+    call()
+    taken = [k.split("/")[1] for k, v in counts.ROUTE_LAUNCHES.items() if v]
+    if len(taken) != 1 or taken[0] not in ROUTE_TAGS[name]:
+        fail(f"{name} took routes {counts.ROUTE_LAUNCHES}")
+    return taken[0]
+
+
+def design_turns(name: str, args, reps: int, library=None) -> dict:
+    """The route a K1 or K2 call takes against its first design
+    (``gather``, ``block``) in turns (first, new, new, first): by CUDA events and by the
+    kernels' durations in profiler traces; K2's ``argsort`` yardstick traced
+    too."""
+    module, attr, _, _, _ = kernel_fns(name)
+    cuda = getattr(module, attr)
+    new_route = route_taken(name, lambda: cuda(*args))
+    first = FIRST_DESIGN[name]
+    f_ms, n_ms, turns = in_turns(lambda: cuda(*args, route=first),
+                                 lambda: cuda(*args, route=new_route), reps)
+    tf, tn, tturns, held = traced_turns(lambda: cuda(*args, route=first),
+                                        lambda: cuda(*args, route=new_route),
+                                        ROUTE_TAGS[name][first], ROUTE_TAGS[name][new_route])
+    out = dict(path_route=new_route, first_design=first, first_design_ms=f_ms,
+               turns_ms=list(turns), traced_ms=tn, first_design_traced_ms=tf,
+               traced_turns_ms=tturns, traced_held=held)
+    if library is not None:
+        out["library_traced_ms"] = traced_call_ms(library, [("", None)])[0]
+    print(f"[kernels] {name}: {new_route} against {first} in turns (first, new, new, first): "
+          f"events {list(turns)} ms, traces {tturns} ms (kernels held {held}); "
+          f"library trace {out.get('library_traced_ms')}", flush=True)
+    return out
+
+
+def check_main_path(captured, floor_ms: float) -> list:
     """Each kernel at the largest call the tuner run gave it, on a copy of
-    that call's inputs."""
+    that call's inputs; K1 and K2 against their first designs in turns, beside
+    the launch floor."""
     rows = []
     for name, rec in captured.items():
         print(f"[kernels] {name}: tuner calls by shape: {dict(rec['shapes'].most_common(6))}",
@@ -537,58 +653,76 @@ def check_main_path(captured) -> list:
         if rec["largest"] is None:
             fail(f"the tuner run never called {name}")
         args = rec["largest"]
-        rows.append(hold(name, args, reps=200,
-                         library=rank_library(args[0]) if name == "radix_rank" else None))
+        library = rank_library(args[0]) if name == "radix_rank" else None
+        rows.append(hold(name, args, reps=200, library=library))
+        if name in FIRST_DESIGN:
+            rows[-1].update(design_turns(name, args, 200, library), launch_floor_ms=floor_ms)
         if name == "forest_eval":
             rows[-1].update(tuner_summed(rec))
     return rows
 
 
 def tuner_summed(rec, reps: int = 3) -> dict:
-    """K1's device time summed over the tuner run's launches, from one
-    ``torch.profiler`` trace: each distinct shape launched ``reps`` times on
-    a copy of its first call's inputs (one kernel a call; a call with no
+    """K1's device time summed over the tuner run's launches, from
+    ``torch.profiler`` traces: each distinct shape launched ``reps`` times
+    on a copy of its first call's inputs (one kernel a call; a call with no
     tree or no point launches none), each shape's kernel durations averaged
-    and multiplied by its count; None where the trace does not hold one
-    kernel a call."""
+    and multiplied by its count; for the route the run took and for the
+    first design's ``gather`` route, in turns (gather, taken, taken, gather). None where a
+    trace does not hold one kernel a call."""
     module, attr, _, _, _ = kernel_fns("forest_eval")
     cuda = getattr(module, attr)
     shapes = [(key, n, rec["by_shape"][key]) for key, n in rec["shapes"].items()
               if rec["by_shape"][key][5].numel() and rec["by_shape"][key][6].shape[0]]
     for _, _, args in shapes:
         cuda(*args)
-    kernels = [us for name, _, us in trace_kernels(
-        lambda: [cuda(*args) for _, _, args in shapes for _ in range(reps)])
-        if "forest_eval" in name]
+
+    def summed(route):
+        kernels = [us for name, _, us in trace_kernels(
+            lambda: [cuda(*args, route=route) for _, _, args in shapes for _ in range(reps)])
+            if "forest_eval" in name]
+        if len(kernels) != reps * len(shapes):
+            print(f"[kernels] forest_eval summed over the tuner run ({route or 'taken'}): the "
+                  f"trace holds {len(kernels)} kernels for {reps * len(shapes)} calls: not "
+                  f"measured", flush=True)
+            return None, []
+        per_shape = []
+        for i, (key, n, _) in enumerate(shapes):
+            ms = sum(kernels[i * reps:(i + 1) * reps]) / reps / 1e3
+            per_shape.append((n * ms, n, ms, key))
+        per_shape.sort(reverse=True)
+        return sum(p[0] for p in per_shape), per_shape
+
+    turns = [summed(r) for r in ("gather", None, None, "gather")]
+    t = [x[0] for x in turns]
     out = dict(tuner_launches=sum(rec["shapes"].values()), tuner_shapes=len(rec["shapes"]),
-               tuner_summed_ms=None)
-    if len(kernels) != reps * len(shapes):
-        print(f"[kernels] forest_eval summed over the tuner run: the trace holds "
-              f"{len(kernels)} kernels for {reps * len(shapes)} calls: not measured", flush=True)
-        return out
-    per_shape = []
-    for i, (key, n, _) in enumerate(shapes):
-        ms = sum(kernels[i * reps:(i + 1) * reps]) / reps / 1e3
-        per_shape.append((n * ms, n, ms, key))
-    per_shape.sort(reverse=True)
-    out["tuner_summed_ms"] = sum(p[0] for p in per_shape)
+               tuner_summed_ms=None, tuner_summed_first_design_ms=None, tuner_summed_turns_ms=t)
+    if None not in t:
+        out["tuner_summed_ms"] = (t[1] + t[2]) / 2
+        out["tuner_summed_first_design_ms"] = (t[0] + t[3]) / 2
     print(f"[kernels] forest_eval summed over the tuner run: {out['tuner_launches']} launches "
-          f"of {out['tuner_shapes']} shapes, {out['tuner_summed_ms']:.6f} ms of kernel time "
-          f"(profiler trace: each shape's kernel over {reps} launches, times its count); "
-          f"largest shares (ms, count, ms a call, shape): {per_shape[:4]}", flush=True)
+          f"of {out['tuner_shapes']} shapes; kernel time (profiler traces: each shape's kernel "
+          f"over {reps} launches, times its count) in turns gather, taken, taken, gather: {t} "
+          f"ms; largest shares (ms, count, ms a call, shape) taken: {turns[1][1][:4]}, "
+          f"gather: {turns[0][1][:4]}", flush=True)
     return out
 
 
-def check_at_scale(kb, device, pool_n: int = 131072, n_sources: int = 12) -> list:
+def check_at_scale(kb, device, floor_ms: float, pool_n: int = 131072,
+                   n_sources: int = 12) -> list:
     """K1 and K2 at the fused-propose scale (ROADMAP item 7): a plane of 12
-    sources over a 131072-candidate pool, and their 12 EI rows."""
+    sources over a 131072-candidate pool, and their 12 EI rows; each on the
+    route it must take there (``tiled``, ``onesweep``), against its first
+    design in turns. K2's design floor: 8 passes of 24 bytes an element
+    plus the keys in and the ranks out at the memory rate, and the same for
+    the passes this data does not skip."""
     import numpy as np
     import torch
 
     from repro_torch.core import make_forest
     from repro_torch.core.acquisition import ei_matrix
     from repro_torch.core.surrogate import ForestPlane
-    from repro_torch.kernels.forest_eval import rank
+    from repro_torch.kernels.forest_eval import ops, rank
     from repro_torch.sparksim import SparkWorkload
 
     space = SparkWorkload(*TARGET).space
@@ -602,8 +736,11 @@ def check_at_scale(kb, device, pool_n: int = 131072, n_sources: int = 12) -> lis
     plane = ForestPlane([f.pack() for f in forests])
     pool = space.sample(np.random.default_rng(7), pool_n).unit_tensor(device)
     args = (plane.feat, plane.thr, plane.child, plane.mean, plane.var, plane.roots, pool,
-            plane.depth)
+            plane.depth, plane.node_table())
+    if route_taken("forest_eval", lambda: ops.forest_eval_cuda(*args)) != "tiled":
+        fail("K1 at 131072 candidates did not take the tiled route")
     rows = [hold("forest_eval", args, reps=20)]
+    rows[-1].update(design_turns("forest_eval", args, 20), launch_floor_ms=floor_ms)
     # the EI on the card must equal the host's bit for bit (IEEE sqrt and
     # division)
     means, vars_ = plane.predict(pool)
@@ -612,7 +749,20 @@ def check_at_scale(kb, device, pool_n: int = 131072, n_sources: int = 12) -> lis
     if not torch.equal(ei.cpu(), ei_matrix(means.cpu(), vars_.cpu(), bests)):
         fail("EI on the card differs from EI on the host")
     keys = rank.monotone_keys(ei).contiguous()
-    rows.append(hold("radix_rank", (keys,), reps=20, library=rank_library(keys)))
+    if route_taken("radix_rank", lambda: rank.radix_rank_cuda(keys)) != "onesweep":
+        fail("K2 at 131072 candidates did not take the onesweep route")
+    library = rank_library(keys)
+    rows.append(hold("radix_rank", (keys,), reps=20, library=library))
+    rows[-1].update(design_turns("radix_rank", (keys,), 20, library), launch_floor_ms=floor_ms)
+    S, N = keys.shape
+    digits = torch.stack([(keys >> (8 * p)) & 0xFF for p in range(8)])
+    passes = int((~(digits == digits[:, :, :1]).all(2)).sum(0).max())
+    rows[-1].update(design_floor_ms=S * N * (8 * 24 + 16) / HBM_BYTES_PER_S * 1e3,
+                    design_floor_passes=passes,
+                    design_floor_data_ms=S * N * (passes * 24 + 16) / HBM_BYTES_PER_S * 1e3)
+    print(f"[kernels] radix_rank at scale: design floor {rows[-1]['design_floor_ms']:.6f} ms "
+          f"(8 passes), {rows[-1]['design_floor_data_ms']:.6f} ms ({passes} passes this data "
+          f"runs)", flush=True)
     return rows
 
 
@@ -664,10 +814,11 @@ def run_tuner(kb, device):
         wall = time.perf_counter() - t0
         launches = dict(counts.LAUNCHES)
         plain = dict(counts.PLAIN_CALLS)
+        routes = dict(counts.ROUTE_LAUNCHES)
     print(f"[tuner] evaluations={res.n_evaluations} full={res.n_full_evaluations} "
           f"best_latency_s={res.best_performance} wall_s={wall:.3f} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
-          f"launches={launches} plain_calls={plain}", flush=True)
+          f"launches={launches} plain_calls={plain} routes={routes}", flush=True)
     spans = span_seconds(tracer)
     print("[tuner] host seconds by span: " + " ".join(
         f"{k}={v:.3f}" for k, v in spans.items()), flush=True)
@@ -679,6 +830,10 @@ def run_tuner(kb, device):
     zero = [k for k in SOURCES if launches[k] == 0]
     if zero:
         fail(f"kernels never launched on the tuner path: {zero}")
+    # every K1 launch of the run on the tiled route, every K2 launch on count
+    if (routes.get("forest_eval/tiled") != launches["forest_eval"]
+            or routes.get("radix_rank/count") != launches["radix_rank"]):
+        fail(f"the tuner's K1 and K2 launches did not all take tiled and count: {routes}")
     return launches, captured
 
 
@@ -3247,8 +3402,9 @@ def main() -> int:
     print(f"[kb] {len(kb.tasks)} histories x {KB_OBS} observations built on "
           f"{device} in {time.perf_counter() - t0:.1f}s", flush=True)
     launches, captured = run_tuner(kb, device)
-    main_rows = check_main_path(captured)
-    scale_rows = check_at_scale(kb, device)
+    floor_ms = launch_floor_ms(torch.device(device))
+    main_rows = check_main_path(captured, floor_ms)
+    scale_rows = check_at_scale(kb, device, floor_ms)
     bad = [f"{r['name']} ({r['shape']})" for r in main_rows + scale_rows if not r["match"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -3297,7 +3453,8 @@ def main() -> int:
                     if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
                                      "by_path", "simt_", "floor_", "prior_", "path_route",
                                      "w_down_", "with_dw_", "turns_", "split", "long_",
-                                     "first_design", "step_", "tuner_"))
+                                     "first_design", "step_", "tuner_", "traced_",
+                                     "launch_floor", "design_floor"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]

@@ -19,7 +19,7 @@ var) match the reference bit for bit.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,7 +27,7 @@ import torch
 
 from .. import obs as _obs
 from ..device import DeviceLike, resolve_device
-from ..kernels.forest_eval.ops import forest_eval
+from ..kernels.forest_eval.ops import NodeTable, forest_eval, pack_nodes
 from ..numerics import div_scalar, reduce_sum
 
 __all__ = [
@@ -384,7 +384,11 @@ class PackedForest:
     (leaves: feat clamped to 0, thr = +inf); ``child`` holds the
     interleaved (left, right) pointers rebased to arena indices, with
     leaves pointing at themselves; ``roots`` holds each tree's root index.
-    ``y_mean``/``y_std`` carry the fit-time target normalization.
+    ``y_mean``/``y_std`` carry the fit-time target normalization. On the
+    card, ``node_table()`` is the arena renumbered for K1's ``tiled`` route:
+    built once on the host (from the host arrays where ``from_arrays`` has
+    them), moved to the card on first use alone; a plane concatenates the
+    host tables and moves the whole once.
     """
 
     feat: torch.Tensor        # (n_nodes,) int64
@@ -396,10 +400,28 @@ class PackedForest:
     depth: int                # max tree depth in the arena
     y_mean: float = 0.0
     y_std: float = 1.0
+    _host_nodes: Optional[Tuple[Optional[NodeTable]]] = field(
+        default=None, init=False, repr=False, compare=False)
+    _nodes: Optional[NodeTable] = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.feat.device
+
+    def host_node_table(self) -> Optional[NodeTable]:
+        """K1's node table of this arena on the host (None where the arena is
+        no forest), built on first use."""
+        if self._host_nodes is None:
+            self._host_nodes = (pack_nodes(*(getattr(self, k).cpu() for k in
+                                             ("feat", "thr", "child", "mean", "var", "roots"))),)
+        return self._host_nodes[0]
+
+    def node_table(self) -> Optional[NodeTable]:
+        """The same on the arena's device, moved there on first use."""
+        host = self.host_node_table()
+        if host is not None and self._nodes is None:
+            self._nodes = host.to(self.device)
+        return None if host is None else self._nodes
 
     @property
     def n_trees(self) -> int:
@@ -420,15 +442,14 @@ class PackedForest:
                     device: DeviceLike = None) -> "PackedForest":
         """Upload numpy arena arrays (the reference's field layout)."""
         dev = resolve_device(device)
-
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-
-        return PackedForest(
-            feat=up(feat, np.int64), thr=up(thr, np.float64), child=up(child, np.int64),
-            mean=up(mean, np.float64), var=up(var, np.float64), roots=up(roots, np.int64),
-            depth=int(depth), y_mean=float(y_mean), y_std=float(y_std),
-        )
+        host = {k: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)) for k, a, dt in (
+            ("feat", feat, np.int64), ("thr", thr, np.float64), ("child", child, np.int64),
+            ("mean", mean, np.float64), ("var", var, np.float64), ("roots", roots, np.int64))}
+        packed = PackedForest(**{k: t.to(dev) for k, t in host.items()}, depth=int(depth),
+                              y_mean=float(y_mean), y_std=float(y_std))
+        if dev.type == "cuda":
+            packed._host_nodes = (pack_nodes(*host.values()),)
+        return packed
 
     @staticmethod
     def from_trees(
@@ -463,8 +484,9 @@ class PackedForest:
     # ------------------------------------------------------------- inference
     def predict_trees(self, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-tree leaf stats through K1, each (n_trees, n_points)."""
+        nodes = self.node_table() if X.device.type == "cuda" else None
         return forest_eval(self.feat, self.thr, self.child, self.mean, self.var,
-                           self.roots, X, self.depth)
+                           self.roots, X, self.depth, nodes)
 
     def combine(self, m_t: torch.Tensor, v_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return combine(m_t, v_t, self.y_mean, self.y_std, self.y_std**2)
@@ -517,6 +539,17 @@ class ForestPlane:
             torch.tensor(v, dtype=torch.float64, device=self.device)
             for v in zip(*[(f.y_mean, f.y_std, f.y_std**2) for f in forests])
         )
+        self._nodes: Optional[Tuple[Optional[NodeTable]]] = None
+
+    def node_table(self) -> Optional[NodeTable]:
+        """K1's node table of the fused arena on its device: the forests'
+        host tables laid end to end and moved in one copy, on first use
+        (None where one arena is no forest)."""
+        if self._nodes is None:
+            tables = [f.host_node_table() for f in self.forests]
+            self._nodes = (None if any(t is None for t in tables)
+                           else NodeTable.concat(tables).to(self.device),)
+        return self._nodes[0]
 
     @property
     def uniform_tree_count(self) -> Optional[int]:
@@ -529,8 +562,9 @@ class ForestPlane:
         plane's device."""
         X = as_points(X, self.device)
         _obs.count("forest_plane/device")
+        nodes = self.node_table() if X.device.type == "cuda" else None
         m_t, v_t = forest_eval(self.feat, self.thr, self.child, self.mean, self.var,
-                               self.roots, X, self.depth)
+                               self.roots, X, self.depth, nodes)
         tps = self.uniform_tree_count
         if tps is not None:
             S, N = len(self.forests), X.shape[0]

@@ -5,7 +5,13 @@ Needs an NVIDIA GPU with nvcc; skipped elsewhere. On the GPU machine:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Small shapes and the tuner's real shapes; every comparison of K1-K3 is
-exact. K4 (flash-attention forward) is held to the float32 and bfloat16
+exact. Each route of K1 (``tiled``, ``gather``) and of K2 (``count``,
+``onesweep``, ``block``) is held to its plain version at N in 1, 255, 256,
+257, 2048, 4097 and 131072 over 1, 12 and 34 sources or rows, on planes of
+random forests and of forests fitted to simulated Spark histories, with
+the route taken asserted from the launch counts per route; K2's path runs
+under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and the
+onesweep workspace is reused across calls, shapes and streams. K4 (flash-attention forward) is held to the float32 and bfloat16
 tolerances of the reference's ``tests/test_kernels.py`` (2e-5, 2e-2), at
 small shapes with every mask variant and at the llama3-8b prefill's shape;
 its bfloat16 route (wgmma and TMA, 128-row and 128-key tiles) is also held
@@ -148,6 +154,176 @@ def test_ei_and_scores_match_host(cuda):
     assert torch.equal(got.cpu(), want)
     w = [0.4, 0.3, 0.2, 0.1]
     assert torch.equal(aggregate_ranks(got, w).cpu(), aggregate_ranks(want, w))
+
+
+# ------------------------------------------------------ K1 and K2 routes
+
+ROUTE_N = [1, 255, 256, 257, 2048, 4097, 131072]
+
+
+def _tuner_pool(n, d, seed):
+    """A pool of n candidates with NaN, +-inf and copies of thresholds."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    X = torch.rand((n, d), generator=g, dtype=torch.float64)
+    X[0, :] = float("nan")
+    if n > 2:
+        X[1, :] = float("inf")
+        X[2, :] = -float("inf")
+    return X
+
+
+@pytest.mark.parametrize("route", ["tiled", "gather"])
+@pytest.mark.parametrize("n_sources", [1, 12, 34])
+@pytest.mark.parametrize("n", ROUTE_N)
+def test_forest_eval_each_route_matches_plain(cuda, route, n_sources, n):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import ops
+
+    _, plane = _arena(n_sources, n_sources, 50, 60, cuda)
+    X = _tuner_pool(n, 60, n).to(cuda)
+    nodes = plane.node_table()
+    branching = torch.isfinite(plane.thr).nonzero()[:, 0][: min(n, 64)].cpu()
+    X[torch.arange(len(branching)).to(cuda) + min(3, n - 1), plane.feat[branching.to(cuda)]] = (
+        plane.thr[branching.to(cuda)])   # x == thr goes left on every route
+    args = (plane.feat, plane.thr, plane.child, plane.mean, plane.var, plane.roots, X,
+            plane.depth)
+    counts.reset()
+    got = ops.forest_eval_cuda(*args, nodes=nodes, route=route)
+    assert counts.ROUTE_LAUNCHES == {f"forest_eval/{route}": 1}
+    want = ops.forest_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [256, 131072])
+def test_forest_eval_routes_on_a_tuner_plane(cuda, n):
+    """A plane of forests fitted to simulated Spark histories, as the tuner
+    fits them, over a pool drawn from the tuner's space."""
+    from repro_torch.core import make_forest
+    from repro_torch.core.surrogate import ForestPlane
+    from repro_torch.kernels.forest_eval import ops
+    from repro_torch.sparksim import SparkWorkload, all_task_specs, generate_history
+
+    space = SparkWorkload("tpch", 100, "A").space
+    forests = []
+    for i, spec in enumerate(all_task_specs()[:6]):
+        obs = generate_history(spec.workload(), n_obs=50, seed=i, device=cuda).successful()
+        X = space.encode_many([o.config for o in obs])
+        forests.append(make_forest(seed=i, device=cuda).fit(
+            X, np.array([o.performance for o in obs])))
+    plane = ForestPlane([f.pack() for f in forests])
+    pool = space.sample(np.random.default_rng(7), n).unit_tensor(cuda)
+    args = (plane.feat, plane.thr, plane.child, plane.mean, plane.var, plane.roots, pool,
+            plane.depth)
+    want = ops.forest_eval_plain(*args)
+    for route in ops.ROUTES:
+        got = ops.forest_eval_cuda(*args, nodes=plane.node_table(), route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), route
+
+
+def test_forest_eval_builds_its_node_table_and_plans_tiled(cuda):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import ops
+
+    _, plane = _arena(3, 34, 50, 60, cuda)
+    X = _tuner_pool(256, 60, 1).to(cuda)
+    args = (plane.feat, plane.thr, plane.child, plane.mean, plane.var, plane.roots, X,
+            plane.depth)
+    counts.reset()
+    got = ops.forest_eval_cuda(*args)
+    assert counts.ROUTE_LAUNCHES == {"forest_eval/tiled": 1}
+    assert torch.equal(torch.stack(got), torch.stack(ops.forest_eval_plain(*args)))
+    counts.reset()
+    plane.predict(X)
+    assert counts.ROUTE_LAUNCHES == {"forest_eval/tiled": 1}
+
+
+def test_forest_eval_tiled_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.forest_eval import ops
+
+    _, plane = _arena(3, 2, 50, 60, cuda)
+    X = _tuner_pool(64, 8, 2).to(cuda)   # features past X's width
+    args = (plane.feat, plane.thr, plane.child, plane.mean, plane.var, plane.roots, X,
+            plane.depth)
+    with pytest.raises(ValueError, match="tiled route needs"):
+        ops.forest_eval_cuda(*args, nodes=plane.node_table(), route="tiled")
+
+
+def _rank_keys(S, N, seed):
+    from repro_torch.kernels.forest_eval import rank
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scores = torch.randn((S, N), generator=g, dtype=torch.float64)
+    scores[:, ::3] = 0.0
+    scores[:, 1::7] = -0.0
+    scores[:, 2::11] = float("inf")
+    if S > 1:
+        scores[0] = 1.5            # a row of one value: every pass trivial
+    if S > 2:
+        scores[1] = torch.randint(0, 3, (N,), generator=g).to(torch.float64)   # ties
+    return rank.monotone_keys(scores)
+
+
+@pytest.mark.parametrize("route", ["count", "onesweep", "block"])
+@pytest.mark.parametrize("S", [1, 12, 34])
+@pytest.mark.parametrize("N", ROUTE_N)
+def test_radix_rank_each_route_matches_plain(cuda, route, S, N):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import rank
+
+    keys = _rank_keys(S, N, S * N).to(cuda)
+    if route == "count" and N > rank.COUNT_LIMIT:
+        with pytest.raises(ValueError, match="count route takes"):
+            rank.radix_rank_cuda(keys, route=route)
+        return
+    counts.reset()
+    got = rank.radix_rank_cuda(keys, route=route)
+    assert counts.ROUTE_LAUNCHES == {f"radix_rank/{route}": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(got, rank.radix_rank_plain(keys))
+
+
+def test_radix_rank_takes_no_host_sync(cuda):
+    from repro_torch.kernels.forest_eval import rank
+
+    for S, N in [(34, 256), (12, 131072)]:
+        scores = torch.rand((S, N), dtype=torch.float64, device=cuda)
+        rank.rank_rows(scores)   # builds the library and the workspace
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = rank.rank_rows(scores)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got.cpu(), rank.rank_rows(scores.cpu()))
+
+
+def test_radix_rank_workspace_reused_across_calls_and_streams(cuda):
+    from repro_torch.kernels.forest_eval import rank
+
+    shapes = [(12, 131072), (3, 5000), (34, 70000), (12, 131072), (1, 2049)]
+    side = torch.cuda.Stream()
+    for i, (S, N) in enumerate(shapes * 2):
+        keys = _rank_keys(S, N, i).to(cuda)
+        want = rank.radix_rank_plain(keys)
+        stream = side if i % 3 == 1 else torch.cuda.current_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got = rank.radix_rank_cuda(keys, route="onesweep")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (S, N)
+    assert len(rank._WORKSPACE) >= 2   # one a stream
+
+
+def test_tuner_shapes_take_the_new_routes(cuda):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import rank
+
+    assert rank.rank_route(34, 256) == "count" and rank.rank_route(12, 131072) == "onesweep"
+    counts.reset()
+    rank.rank_rows(torch.rand((34, 256), dtype=torch.float64, device=cuda))
+    assert counts.ROUTE_LAUNCHES == {"radix_rank/count": 1}
 
 
 # --------------------------------------------------------------------- K4
