@@ -8,7 +8,8 @@ Phases, in order:
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
-   spill lines; K1's tiled kernel, K2's count and onesweep kernels, the
+   spill lines; K1's tiled kernel, K2's count and onesweep kernels, K3's
+   staged kernel, the
    wgmma routes of K4, K5 and K6 (at every head dim) and
    of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64),
    K11's cluster kernel (every dtype pair), K10's resident kernel (every
@@ -18,8 +19,11 @@ Phases, in order:
    24 virtual hours against a knowledge base of the other 31 tasks of the
    grid, with every kernel's launch count reset just before the run and
    read just after (each must be > 0, every K1 launch on its ``tiled``
-   route and every K2 launch on ``count``); the inputs of each kernel's
-   largest call in the run are kept;
+   route, every K2 launch on ``count`` and every K3 launch on ``values``
+   or ``staged``); the inputs of each kernel's largest call in the run are
+   kept; then the same run again with every chain walk on K3's ``staged``
+   route and the torch tail, whose observation stream must be the first
+   run's (its wall and ``shapley_attribution`` span beside the first's);
 4. ``kernels``: each kernel launched on those inputs and held against its
    plain PyTorch version on the same card (exact equality), then timed with
    CUDA events beside its plain version, a PyTorch library yardstick where
@@ -32,7 +36,18 @@ Phases, in order:
    the same way at 131072 candidates, the scale of the fused propose step,
    where K1 must take ``tiled`` and K2 ``onesweep`` (with K2's design
    floor: 8 passes of 24 bytes an element, plus the keys in and the ranks
-   out);
+   out); K3 at the tuner run's largest call: every route of the ordinals
+   (``per_chain``, ``staged``, ``staged`` on the chains' rows) and of the
+   chain values (``values``, and each ordinals route with the torch tail)
+   held to the plain versions bit for bit with no host sync
+   (``set_sync_debug_mode("error")``), the ordinals' kernel timed by trace
+   in turns (per_chain, staged, staged, per_chain) beside its bound, the
+   values kernel beside its own, all kernels of a chain-values call and its
+   host clock ending in the copy to the host in turns (per_chain and the
+   tail, values, values, per_chain), K3's kernel time summed over the tuner
+   run on each route in turns; and K3 the same way at sizes the tuner does
+   not reach (a two-word forest, 120 trees tiled, 64 features, 512
+   chains);
 5. ``serve``: the LM serving path at the full width of llama3-8b (32
    layers, d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256,
    bf16, 16 GB of weights drawn on the card from seed 0): a 2 x 4096-token
@@ -230,6 +245,10 @@ HOPPER_KERNELS = {
     "flash_decode": {"decode_ring": tuple(
         f"{t},{lanes},{rows}" for t in ("f", "bf16") for lanes in (4, 8, 16)
         for rows in (1, 2, 4, 8) if t == "bf16" or lanes == 16)},
+    # K3's staged route (leaf words); its values kernel, which holds the walk
+    # and the float tail in 96 registers, spills a word at W = 1 and is left
+    # out
+    "chain_ordinals": {"chain_staged_kernel": ("1", "2")},
 }
 
 
@@ -492,12 +511,17 @@ def kernel_fns(name: str):
     if name == "radix_rank":
         return (rank, "radix_rank_cuda", rank.radix_rank_plain,
                 lambda a: 0, lambda a: f"rows={a[0].shape[0]} n={a[0].shape[1]}")
-    wx, wb = 0, 1
-    return (chain, "chain_ordinals_cuda", chain.chain_ordinals_plain,
-            lambda a: a[wx].shape[0] * (a[wx].shape[1] + 1) * a[wb].shape[0]
-                      * a[wx].shape[2] * a[wx].shape[3],
-            lambda a: f"chains={a[wx].shape[0]} d={a[wx].shape[1]} bg={a[wb].shape[0]} "
-                      f"trees={a[wx].shape[2]} words={a[wx].shape[3]}")
+    return (chain, "chain_values_cuda", chain.chain_values_plain,
+            lambda a: (lambda C, d, nb, T, W: C * (d + 1) * nb * T * (W + 1))(*k3_dims(a)),
+            lambda a: "chains={} d={} bg={} trees={} words={}".format(*k3_dims(a)))
+
+
+def k3_dims(args) -> tuple:
+    """(C, d, nb, T, W) of a ``chain_values_cuda`` call (word rows, chains'
+    rows, background words, permutations, leaf means, offsets, y_std,
+    y_mean)."""
+    words, _, word_b, perms = args[:4]
+    return perms.shape[0], perms.shape[1], word_b.shape[0], words.shape[2], words.shape[3]
 
 
 def call_size(name: str, args) -> int:
@@ -506,15 +530,18 @@ def call_size(name: str, args) -> int:
         return args[5].numel() * args[6].shape[0]
     if name == "radix_rank":
         return args[0].numel()
-    return args[0].shape[0] * (args[0].shape[1] + 1) * args[1].shape[0] * args[0].shape[2]
+    C, d, nb, T, _ = k3_dims(args)
+    return C * (d + 1) * nb * T
 
 
 @contextlib.contextmanager
 def capture_calls():
     """While active, every launch of a kernel's CUDA wrapper is tallied by
     shape, and a copy of the inputs of its largest call is kept, and for K1
-    a copy of the inputs of its first call of each shape (K1's node table,
-    its ninth argument, by reference: it is never written). Yields
+    and K3 a copy of the inputs of its first call of each shape (K1's node
+    table, its ninth argument, by reference: it is never written). K3's
+    wrapper is ``chain_values_cuda``, through which every chain walk of the
+    path goes. Yields
     ``{name: {"largest": args, "shapes": Counter, "by_shape": {shape:
     args}}}``."""
     import torch
@@ -532,7 +559,7 @@ def capture_calls():
             rec = seen[_name]
             key = _shape(args)
             rec["shapes"][key] += 1
-            if _name == "forest_eval" and key not in rec["by_shape"]:
+            if _name in TUNER_SUMMED and key not in rec["by_shape"]:
                 rec["by_shape"][key] = tuple(a.clone() if torch.is_tensor(a) else a
                                              for a in args)
             size = call_size(_name, args)
@@ -601,8 +628,18 @@ ROUTE_TAGS = {
     "radix_rank": {"count": [("radix_rank_count", 1)],
                    "onesweep": [("onesweep_hist", 1), ("onesweep_pass", 8)],
                    "block": [("radix_rank_kernel", 1)]},
+    "chain_ordinals": {"per_chain": [("chain_ordinals_kernel", 1)],
+                       "staged": [("chain_staged_kernel", 1)],
+                       "values": [("chain_values_kernel", 1)]},
 }
-FIRST_DESIGN = {"forest_eval": "gather", "radix_rank": "block"}
+FIRST_DESIGN = {"forest_eval": "gather", "radix_rank": "block", "chain_ordinals": "per_chain"}
+# the kernels summed over the tuner run: the routes in turns, and the route
+# the run takes
+TUNER_SUMMED = {
+    "forest_eval": (("gather", "tiled", "tiled", "gather"), "tiled"),
+    "chain_ordinals": (("per_chain", "staged", "values", "values", "staged", "per_chain"),
+                       "values"),
+}
 
 
 def route_taken(name: str, call) -> str:
@@ -655,36 +692,41 @@ def check_main_path(captured, floor_ms: float) -> list:
         args = rec["largest"]
         library = rank_library(args[0]) if name == "radix_rank" else None
         rows.append(hold(name, args, reps=200, library=library))
-        if name in FIRST_DESIGN:
+        if name == "chain_ordinals":
+            rows[-1].update(k3_turns(args, 200), launch_floor_ms=floor_ms)
+        elif name in FIRST_DESIGN:
             rows[-1].update(design_turns(name, args, 200, library), launch_floor_ms=floor_ms)
-        if name == "forest_eval":
-            rows[-1].update(tuner_summed(rec))
+        if name in TUNER_SUMMED:
+            rows[-1].update(tuner_summed(name, rec))
     return rows
 
 
-def tuner_summed(rec, reps: int = 3) -> dict:
-    """K1's device time summed over the tuner run's launches, from
+def tuner_summed(name: str, rec, reps: int = 3) -> dict:
+    """K1's or K3's device time summed over the tuner run's launches, from
     ``torch.profiler`` traces: each distinct shape launched ``reps`` times
-    on a copy of its first call's inputs (one kernel a call; a call with no
-    tree or no point launches none), each shape's kernel durations averaged
-    and multiplied by its count; for the route the run took and for the
-    first design's ``gather`` route, in turns (gather, taken, taken, gather). None where a
-    trace does not hold one kernel a call."""
-    module, attr, _, _, _ = kernel_fns("forest_eval")
+    on a copy of its first call's inputs (one kernel a call; a K1 call with
+    no tree or no point launches none), each shape's kernel durations
+    averaged and multiplied by its count; for each route of
+    ``TUNER_SUMMED[name]``, in its turns. None where a trace does not hold
+    one kernel a call."""
+    module, attr, _, _, _ = kernel_fns(name)
     cuda = getattr(module, attr)
+    order, taken = TUNER_SUMMED[name]
     shapes = [(key, n, rec["by_shape"][key]) for key, n in rec["shapes"].items()
-              if rec["by_shape"][key][5].numel() and rec["by_shape"][key][6].shape[0]]
+              if name != "forest_eval" or (rec["by_shape"][key][5].numel()
+                                           and rec["by_shape"][key][6].shape[0])]
     for _, _, args in shapes:
         cuda(*args)
 
     def summed(route):
-        kernels = [us for name, _, us in trace_kernels(
+        tag = ROUTE_TAGS[name][route][0][0]
+        kernels = [us for kname, _, us in trace_kernels(
             lambda: [cuda(*args, route=route) for _, _, args in shapes for _ in range(reps)])
-            if "forest_eval" in name]
+            if tag in kname]
         if len(kernels) != reps * len(shapes):
-            print(f"[kernels] forest_eval summed over the tuner run ({route or 'taken'}): the "
-                  f"trace holds {len(kernels)} kernels for {reps * len(shapes)} calls: not "
-                  f"measured", flush=True)
+            print(f"[kernels] {name} summed over the tuner run ({route}): the trace holds "
+                  f"{len(kernels)} kernels for {reps * len(shapes)} calls: not measured",
+                  flush=True)
             return None, []
         per_shape = []
         for i, (key, n, _) in enumerate(shapes):
@@ -693,18 +735,99 @@ def tuner_summed(rec, reps: int = 3) -> dict:
         per_shape.sort(reverse=True)
         return sum(p[0] for p in per_shape), per_shape
 
-    turns = [summed(r) for r in ("gather", None, None, "gather")]
+    turns = [summed(r) for r in order]
     t = [x[0] for x in turns]
+    by_route = {r: None if None in [t[i] for i, q in enumerate(order) if q == r] else
+                sum(t[i] for i, q in enumerate(order) if q == r) / order.count(r)
+                for r in dict.fromkeys(order)}
+    first = order[0]
     out = dict(tuner_launches=sum(rec["shapes"].values()), tuner_shapes=len(rec["shapes"]),
-               tuner_summed_ms=None, tuner_summed_first_design_ms=None, tuner_summed_turns_ms=t)
-    if None not in t:
-        out["tuner_summed_ms"] = (t[1] + t[2]) / 2
-        out["tuner_summed_first_design_ms"] = (t[0] + t[3]) / 2
-    print(f"[kernels] forest_eval summed over the tuner run: {out['tuner_launches']} launches "
+               tuner_summed_ms=by_route[taken], tuner_summed_first_design_ms=by_route[first],
+               tuner_summed_by_route_ms=by_route, tuner_summed_turns_ms=t)
+    print(f"[kernels] {name} summed over the tuner run: {out['tuner_launches']} launches "
           f"of {out['tuner_shapes']} shapes; kernel time (profiler traces: each shape's kernel "
-          f"over {reps} launches, times its count) in turns gather, taken, taken, gather: {t} "
-          f"ms; largest shares (ms, count, ms a call, shape) taken: {turns[1][1][:4]}, "
-          f"gather: {turns[0][1][:4]}", flush=True)
+          f"over {reps} launches, times its count) in turns {', '.join(order)}: {t} ms; by "
+          f"route {by_route}; largest shares (ms, count, ms a call, shape) {taken}: "
+          f"{turns[order.index(taken)][1][:4]}, {first}: {turns[0][1][:4]}", flush=True)
+    return out
+
+
+def k3_turns(args, reps: int) -> dict:
+    """K3 at one ``chain_values_cuda`` call: every route of the ordinals
+    (``per_chain``, ``staged``, ``staged`` on the chains' rows) and of the
+    chain values (``values``, and each ordinals route with the torch tail)
+    held to the plain versions bit for bit, every wrapper call under
+    ``set_sync_debug_mode("error")``; then by profiler traces, in turns: the
+    ordinals' kernel (per_chain, staged, staged, per_chain), beside the
+    ordinals' bound; the values kernel, beside its own bound; all kernels
+    of a chain-values call (per_chain and the tail, values, values,
+    per_chain), and its host clock ending in the copy to the host."""
+    import torch
+
+    from repro_torch.kernels.forest_eval import chain
+    from repro_torch.kernels.launch import n_sms
+
+    words, xoc, wb, perms = args[:4]
+    C, d, nb, T, W = k3_dims(args)
+    wx = words[xoc.long()].contiguous()
+    want = chain.chain_ordinals_plain(wx, wb, perms)
+    want_vals = chain.chain_values_plain(*args)
+    plan = chain.values_plan(C, d, nb, T, W, args[4].numel(), n_sms(words.device))
+    routes = chain.VALUE_ROUTES if plan.route == "values" else chain.ROUTES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {r: chain.chain_ordinals_cuda(wx, wb, perms, route=r) for r in chain.ROUTES}
+        got["staged_rows"] = chain.chain_ordinals_cuda(words, wb, perms, route="staged",
+                                                       x_of_chain=xoc)
+        vals = {r: chain.chain_values_cuda(*args, route=r) for r in routes}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    bad = [r for r, g in got.items() if not torch.equal(g, want)] + [
+        f"values/{r}" for r, v in vals.items()
+        if not torch.equal(v.view(torch.int64), want_vals.view(torch.int64))]
+    if bad:
+        fail(f"K3 at chains={C} d={d} bg={nb} trees={T} words={W}: routes {bad} differ from "
+             f"their plain versions")
+    ordinals = {r: (lambda r=r: chain.chain_ordinals_cuda(wx, wb, perms, route=r))
+                for r in chain.ROUTES}
+    tags, first = ROUTE_TAGS["chain_ordinals"], FIRST_DESIGN["chain_ordinals"]
+    tf, tn, tturns, held = traced_turns(ordinals[first], ordinals["staged"], tags[first],
+                                        tags["staged"])
+    ef, en, eturns = in_turns(ordinals[first], ordinals["staged"], reps)
+    o_ms, o_by = bound(nbytes(wx, wb, perms, want), C * (d + 1) * nb * T * W)
+    out = dict(path_route=plan.route, first_design=first, first_design_traced_ms=tf,
+               staged_traced_ms=tn, traced_turns_ms=tturns, traced_held=held,
+               first_design_ms=ef, staged_ms=en, turns_ms=list(eturns),
+               staged_bound_ms=o_ms, staged_bound_by=o_by, values_plan=plan._asdict())
+    print(f"[kernels] chain_ordinals: plan {plan}; ordinals bit for bit on {list(got)}, values "
+          f"on {list(vals)}, no host sync; ordinals staged against per_chain in turns "
+          f"(first, new, new, first): traces {tturns} ms (held {held}), events {list(eturns)} "
+          f"ms; the ordinals' bound {o_ms:.6f} ms ({o_by})", flush=True)
+    if plan.route == "values":
+        call = {r: (lambda r=r: chain.chain_values_cuda(*args, route=r)) for r in routes}
+        v_ms = traced_call_ms(call["values"], tags["values"])[0]
+        all_f, all_v, all_turns, all_held = traced_turns(call["per_chain"], call["values"],
+                                                         [("", None)], [("", None)])
+
+        def host(r, n=50):
+            call[r]().cpu()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call[r]().cpu()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        host_turns = [host(r) for r in ("per_chain", "values", "values", "per_chain")]
+        out.update(values_traced_ms=v_ms, eval_traced_ms=all_v, eval_per_chain_traced_ms=all_f,
+                   eval_traced_turns_ms=all_turns, eval_traced_held=all_held,
+                   eval_host_ms=(host_turns[1] + host_turns[2]) / 2,
+                   eval_per_chain_host_ms=(host_turns[0] + host_turns[3]) / 2,
+                   eval_host_turns_ms=host_turns)
+        print(f"[kernels] chain_ordinals: values kernel trace {v_ms} ms; a chain-values call, "
+              f"all its kernels by trace, per_chain + tail against values in turns: "
+              f"{all_turns} ms (kernels held {all_held}); host clock a call ending in the copy "
+              f"to the host, in turns: {host_turns} ms", flush=True)
     return out
 
 
@@ -795,8 +918,9 @@ def span_seconds(tracer) -> dict:
 
 
 def run_tuner(kb, device):
-    """The 24 h tuner run; returns its launch counts and the kernel calls
-    it made (see :func:`capture_calls`)."""
+    """The 24 h tuner run; returns its launch counts, the kernel calls it
+    made (see :func:`capture_calls`) and its result, observation stream,
+    wall seconds and host seconds by span."""
     import math
 
     import torch
@@ -830,11 +954,100 @@ def run_tuner(kb, device):
     zero = [k for k in SOURCES if launches[k] == 0]
     if zero:
         fail(f"kernels never launched on the tuner path: {zero}")
-    # every K1 launch of the run on the tiled route, every K2 launch on count
+    # every K1 launch of the run on the tiled route, every K2 launch on
+    # count, every K3 launch on values or staged
     if (routes.get("forest_eval/tiled") != launches["forest_eval"]
-            or routes.get("radix_rank/count") != launches["radix_rank"]):
-        fail(f"the tuner's K1 and K2 launches did not all take tiled and count: {routes}")
-    return launches, captured
+            or routes.get("radix_rank/count") != launches["radix_rank"]
+            or routes.get("chain_ordinals/values", 0) + routes.get("chain_ordinals/staged", 0)
+            != launches["chain_ordinals"]):
+        fail(f"the tuner's K1, K2 and K3 launches did not all take tiled, count and values or "
+             f"staged: {routes}")
+    return launches, captured, (res, sig, wall, spans)
+
+
+def run_tuner_staged(kb, device, first) -> dict:
+    """The same 24 h run again with every chain walk on K3's ``staged``
+    route and the torch tail (the target's history of the first run taken
+    out of ``kb``, so the run starts as the first did): it must give the
+    first run's observation stream; its wall, ``shapley_attribution`` span
+    and route counts beside the first run's."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import chain
+    from repro_torch.sparksim import make_task_id
+
+    res0, sig0, wall0, spans0 = first
+    kb.tasks.pop(make_task_id(*TARGET))
+    chain._EVAL_ROUTE = "staged"
+    try:
+        counts.reset()
+        t0 = time.perf_counter()
+        with obs.tracing(name="chip_smoke_staged") as tracer:
+            res, sig, _ = tune(kb, device, hours=24.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        chain._EVAL_ROUTE = None
+    routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("chain_ordinals")}
+    spans = span_seconds(tracer)
+    out = dict(tuner_staged_wall_s=wall, tuner_values_wall_s=wall0,
+               tuner_staged_shapley_s=spans.get("shapley_attribution"),
+               tuner_values_shapley_s=spans0.get("shapley_attribution"),
+               tuner_staged_routes=routes)
+    print(f"[tuner] K3 on staged + the torch tail: evaluations={res.n_evaluations} "
+          f"best_latency_s={res.best_performance} wall_s={wall:.3f} (values: {wall0:.3f}) "
+          f"shapley_attribution_s={out['tuner_staged_shapley_s']} (values: "
+          f"{out['tuner_values_shapley_s']}) routes={routes} "
+          f"plain_calls={counts.PLAIN_CALLS['chain_ordinals']}", flush=True)
+    if sig != sig0 or res.best_performance != res0.best_performance:
+        fail("the tuner run on K3's staged route differs from the run on values")
+    if (routes.get("chain_ordinals/staged") != counts.LAUNCHES["chain_ordinals"]
+            or counts.PLAIN_CALLS["chain_ordinals"]):
+        fail(f"the staged tuner run took other K3 routes: {routes}")
+    return out
+
+
+def check_k3_sizes(device) -> None:
+    """K3 at the sizes the tuner does not reach: a two-word forest (220
+    observations of noise on 5 features), 120 trees (the staged route tiles
+    them, the values route declines), 64 features, 512 chains; every route
+    held to its plain version bit for bit (``k3_turns``), each route's
+    kernel time by trace."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.surrogate import make_forest
+    from repro_torch.kernels.forest_eval import chain
+    from repro_torch.kernels.launch import n_sms
+
+    cases = (("two_words", 220, 5, 10, True, 48, 6), ("trees_120", 50, 60, 120, False, 268, 16),
+             ("d_64", 50, 64, 10, False, 268, 16), ("chains_512", 50, 60, 10, False, 512, 16))
+    for label, n_obs, d, n_trees, noise, C, nb in cases:
+        rng = np.random.default_rng(1)
+        X = rng.random((n_obs, d))
+        y = rng.normal(size=n_obs) if noise else (
+            np.sin(4 * X[:, 0]) + X[:, 1] + 0.1 * rng.standard_normal(n_obs))
+        plan, reason = chain.build_chain_plan_ex(
+            make_forest(seed=1, device=device, n_trees=n_trees).fit(X, y), d)
+        if plan is None:
+            fail(f"K3 {label}: no chain plan ({reason})")
+        Xc, bg = rng.random((4, d)), rng.random((nb, d))
+        perms = np.stack([rng.permutation(d) for _ in range(C)]).astype(np.int32)
+        xoc = rng.integers(0, 4, C).astype(np.int32)
+        args = (chain.words_tensor(plan.row_words(Xc), device),
+                torch.from_numpy(xoc).to(device), chain.words_tensor(plan.row_words(bg), device),
+                torch.from_numpy(perms).to(device), plan.leaf_mean, plan.leaf_offs,
+                plan.forest.y_std, plan.forest.y_mean)
+        shape = (C, d, nb, plan.n_trees, plan.n_words, n_sms(plan.device))
+        staged = chain.staged_plan(*shape)
+        print(f"[kernels] chain_ordinals {label}: chains={C} d={d} bg={nb} "
+              f"trees={plan.n_trees} words={plan.n_words}; ordinals plan "
+              f"{chain.ordinals_plan(*shape)}, staged plan {staged}", flush=True)
+        if label == "trees_120" and staged.tiles < 2:
+            fail("K3's staged route at 120 trees did not tile its trees")
+        k3_turns(args, 20)
 
 
 def run_agreement() -> None:
@@ -3401,9 +3614,12 @@ def main() -> int:
     kb = grid_kb(KB_OBS, device)
     print(f"[kb] {len(kb.tasks)} histories x {KB_OBS} observations built on "
           f"{device} in {time.perf_counter() - t0:.1f}s", flush=True)
-    launches, captured = run_tuner(kb, device)
+    launches, captured, first = run_tuner(kb, device)
+    staged_run = run_tuner_staged(kb, device, first)
     floor_ms = launch_floor_ms(torch.device(device))
     main_rows = check_main_path(captured, floor_ms)
+    main_rows[[r["name"] for r in main_rows].index("chain_ordinals")].update(staged_run)
+    check_k3_sizes(device)
     scale_rows = check_at_scale(kb, device, floor_ms)
     bad = [f"{r['name']} ({r['shape']})" for r in main_rows + scale_rows if not r["match"]]
     if bad:
@@ -3454,7 +3670,8 @@ def main() -> int:
                                      "by_path", "simt_", "floor_", "prior_", "path_route",
                                      "w_down_", "with_dw_", "turns_", "split", "long_",
                                      "first_design", "step_", "tuner_", "traced_",
-                                     "launch_floor", "design_floor"))
+                                     "launch_floor", "design_floor", "staged_", "values_",
+                                     "eval_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]

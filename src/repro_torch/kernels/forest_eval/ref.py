@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the packed-forest descent (K1), and models of
-the card's routes of K1 and K2 for the tests.
+the card's routes of K1, K2 and K3 for the tests.
 
 ``forest_eval_plain`` uses the node encoding of the reference's
 ``core/surrogate.py::packed_descend``: leaves carry ``thr = +inf`` and
@@ -19,7 +19,17 @@ CPU tests can hold the algorithm, not only its result, to the oracles
 - :func:`rank_onesweep_model`: K2's ``onesweep`` route: the histogram
   plan, and each pass's tile-local offsets (the warps' running counts and
   earlier warps' counts) plus the look-back prefix over earlier tiles'
-  status words, at any tile shape.
+  status words, at any tile shape;
+- :func:`chain_ordinals_staged_model`: K3's ``staged`` route, block by
+  block: each (chain group, tree tile) block with its copy of the tile's
+  background words, each chain's copied words, the prefix table in
+  segments with their carries, and the walk in segments of levels, each
+  from the AND of the background words above it;
+- :func:`chain_values_model`: K3's ``values`` route: that walk with the
+  ordinals kept as bytes, then each (level, row)'s tree sum from
+  x[0] + 0.0 in tree order, the division by T, the denorm, and each
+  level's pairwise sum over the rows (numpy's order, halves past 128, as
+  the kernel's fixed depth of halvings), + 0.0, divided by nb.
 """
 
 from __future__ import annotations
@@ -28,7 +38,11 @@ from typing import Tuple
 
 import torch
 
+from .chain import _THREADS
+
 __all__ = [
+    "chain_ordinals_staged_model",
+    "chain_values_model",
     "forest_eval_plain",
     "forest_eval_tiled_model",
     "rank_count_model",
@@ -188,3 +202,138 @@ def rank_onesweep_model(keys: torch.Tensor, warps: int = 8, items: int = 16,
                 nk[pos], ni[pos] = key, idx
                 key, idx = nk, ni
     return out
+
+
+_SEGS = 8              # segments of K3's prefix scan
+_WALK_SEGS = 4         # segments of the levels of K3's walk
+_PAIRWISE_DEPTH = 4    # halvings of K3's pairwise sum
+
+
+def _exit_ordinal(a: torch.Tensor) -> torch.Tensor:
+    """(..., W) words -> (...) the card's exit ordinal: __ffsll(word 0) - 1,
+    or 63 + __ffsll(word 1) where word 0 is zero (W = 2)."""
+    def ffs(w):   # 1 + index of the lowest set bit (the float64 exponent of it), 0 for 0
+        low = w & -w
+        bit = ((low.to(torch.float64).view(torch.int64) >> 52) & 0x7FF) - 1022
+        return torch.where(w == 0, 0, bit)
+    o = ffs(a[..., 0]) - 1
+    if a.shape[-1] == 2:
+        o = torch.where(a[..., 0] != 0, o, 63 + ffs(a[..., 1]))
+    return o
+
+
+def _walk_blocks(word_x, word_b, perms, plan, x_of_chain, threads):
+    """Yield (chain, tree offset, (d+1, nb, tn) ordinals) block by block, as
+    the staged kernels compute them."""
+    C, d = perms.shape
+    nb, _, T, W = word_b.shape
+    rows = torch.arange(C) if x_of_chain is None else x_of_chain.long()
+    for tile in range(-(-T // plan.trees)):
+        t0 = tile * plan.trees
+        tn = min(plan.trees, T - t0)
+        segs = max(1, min(_SEGS, threads // (tn * W)))
+        seg_len = -(-d // segs)
+        hs = max(1, min(_WALK_SEGS, threads // (nb * tn)))
+        hl = -(-(d + 1) // hs)
+        for g in range(plan.groups):
+            bg = word_b[:, :, t0:t0 + tn].clone()              # (nb, d, tn, W)
+            for c in range(g, C, plan.groups):
+                xw = word_x[rows[c], :, t0:t0 + tn].clone()    # (d, tn, W)
+                pb = perms[c].long()
+                pref = torch.empty((d + 1, tn, W), dtype=torch.int64)
+                pref[0] = -1
+                totals = []
+                for s in range(segs):
+                    acc = torch.full((tn, W), -1, dtype=torch.int64)
+                    for k in range(s * seg_len, min(d, (s + 1) * seg_len)):
+                        acc = acc & xw[pb[k]]
+                        pref[k + 1] = acc
+                    totals.append(acc)
+                for s in range(1, segs):
+                    carry = torch.full((tn, W), -1, dtype=torch.int64)
+                    for r in range(s):
+                        carry = carry & totals[r]
+                    k0, k1 = s * seg_len, min(d, (s + 1) * seg_len)
+                    pref[k0 + 1:k1 + 1] &= carry
+                # the walk: levels in hs segments, each from the AND of the
+                # background words the segments above it take in
+                o = torch.empty((d + 1, nb, tn), dtype=torch.int64)
+                totals = {}
+                for h in range(1, hs):
+                    acc = torch.full((nb, tn, W), -1, dtype=torch.int64)
+                    for j in range(h * hl - 1, min(d, (h + 1) * hl - 1)):
+                        acc = acc & bg[:, pb[j]]
+                    totals[h] = acc
+                for h in range(hs):
+                    suf = torch.full((nb, tn, W), -1, dtype=torch.int64)
+                    for r in range(h + 1, hs):
+                        suf = suf & totals[r]
+                    lo, top = h * hl, min(d, (h + 1) * hl - 1)
+                    for k in range(top, lo - 1, -1):
+                        o[k] = _exit_ordinal(pref[k][None] & suf)
+                        if k > lo:
+                            suf = suf & bg[:, pb[k - 1]]
+                yield c, t0, o
+
+
+def chain_ordinals_staged_model(word_x, word_b, perms, plan, x_of_chain=None,
+                                threads: int = _THREADS) -> torch.Tensor:
+    """K3's ``staged`` route under a ``WalkPlan`` (any tree tile): (C, d+1,
+    nb, T) int32 ordinals; word_x (C, d, T, W), or rows (n, d, T, W) with
+    ``x_of_chain``. A plan the launcher refuses raises (ValueError)."""
+    C, d = perms.shape
+    nb, _, T, W = word_b.shape
+    if not 1 <= plan.groups <= C:
+        raise ValueError(f"{plan.groups} chain groups for {C} chains")
+    out = torch.full((C, d + 1, nb, T), -(1 << 30), dtype=torch.int32)
+    for c, t0, o in _walk_blocks(word_x, word_b, perms, plan, x_of_chain, threads):
+        out[c, :, :, t0:t0 + o.shape[2]] = o.to(torch.int32)
+    return out
+
+
+def _pairwise(x, n: int, depth: int) -> float:
+    """The kernel's pairwise sum of the Python floats x[:n]."""
+    if n > 128:
+        if depth == 0:
+            raise ValueError("more background rows than the kernel's halvings take")
+        n2 = n // 2
+        n2 -= n2 % 8
+        return _pairwise(x[:n2], n2, depth - 1) + _pairwise(x[n2:], n - n2, depth - 1)
+    if n < 8:
+        acc = x[0]
+        for i in range(1, n):
+            acc += x[i]
+        return acc
+    r = list(x[:8])
+    i, stop = 8, n - n % 8
+    while i < stop:
+        for j in range(8):
+            r[j] += x[i + j]
+        i += 8
+    res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+    for k in range(i, n):
+        res += x[k]
+    return res
+
+
+def chain_values_model(words, x_of_chain, word_b, perms, leaf_mean, leaf_offs, y_std: float,
+                       y_mean: float, plan, threads: int = _THREADS) -> torch.Tensor:
+    """K3's ``values`` route under a ``WalkPlan`` of one tile: (C, d+1)
+    float64 chain values from word rows (n, d, T, W) and ``x_of_chain``."""
+    C, d = perms.shape
+    nb, _, T, W = word_b.shape
+    if plan.route != "values" or plan.trees != T:
+        raise ValueError("the values route walks every tree in one block")
+    vals = torch.full((C, d + 1), float("nan"), dtype=torch.float64)
+    lm = leaf_mean.clone()
+    offs = leaf_offs.to(torch.int32).long()
+    for c, _, o in _walk_blocks(words, word_b, perms, plan, x_of_chain, threads):
+        m = lm[offs + o.to(torch.uint8).long()]                       # (d+1, nb, T)
+        s = m[..., 0] + 0.0
+        for t in range(1, T):
+            s = s + m[..., t]
+        s = s / torch.tensor(float(T), dtype=torch.float64)
+        rows = (s * y_std + y_mean).tolist()                           # (d+1) x nb
+        for k in range(d + 1):
+            vals[c, k] = (_pairwise(rows[k], nb, _PAIRWISE_DEPTH) + 0.0) / nb
+    return vals

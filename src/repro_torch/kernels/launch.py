@@ -41,12 +41,13 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...]
         raise ValueError(f"{name} must be contiguous")
 
 
-def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
+def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int, n_doubles: int = 0):
     fn = _FNS.get(symbol)
     if fn is None:
         fn = getattr(build.load(kernel), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_double] * n_doubles
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn
     return fn
@@ -55,11 +56,12 @@ def _fn(kernel: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
 def launch(kernel: str, symbol: str, device: torch.device,
            tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
            source: Optional[str] = None, floats: Sequence[float] = (),
-           route: Optional[str] = None) -> None:
+           route: Optional[str] = None, doubles: Sequence[float] = ()) -> None:
     """Call ``symbol`` of the library built from ``source`` (by default
     ``kernel``) on the current stream of ``device`` with the pointers of
     ``tensors`` (a ``None`` tensor passes a null pointer), then ``ints`` as
-    C ints and ``floats`` as C floats; raise on a nonzero CUDA error; count
+    C ints, ``floats`` as C floats and ``doubles`` as C doubles; raise on a
+    nonzero CUDA error; count
     the launch under ``kernel`` (and under ``kernel/route`` when a route is
     named)."""
     if device.type != "cuda":
@@ -67,11 +69,11 @@ def launch(kernel: str, symbol: str, device: torch.device,
     for v in ints:
         if not 0 <= v < 2**31:
             raise ValueError(f"{kernel}: launch size {v} outside the int32 range")
-    fn = _fn(source or kernel, symbol, len(tensors), len(ints), len(floats))
+    fn = _fn(source or kernel, symbol, len(tensors), len(ints), len(floats), len(doubles))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*[None if t is None else t.data_ptr() for t in tensors], *[int(v) for v in ints],
-                *[float(v) for v in floats], stream)
+                *[float(v) for v in floats], *[float(v) for v in doubles], stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
     LAUNCHES[kernel] += 1

@@ -11,7 +11,12 @@ exact. Each route of K1 (``tiled``, ``gather``) and of K2 (``count``,
 random forests and of forests fitted to simulated Spark histories, with
 the route taken asserted from the launch counts per route; K2's path runs
 under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), and the
-onesweep workspace is reused across calls, shapes and streams. K4 (flash-attention forward) is held to the float32 and bfloat16
+onesweep workspace is reused across calls, shapes and streams. Each
+route of K3 (``per_chain``, ``staged``, ``values``) is held to its plain
+version bit for bit at the tuner run's six shapes, for a two-word forest,
+120 trees (the staged route tiles them), 64 features and 512 chains, with
+no host sync (``set_sync_debug_mode("error")``); the values route over
+background sizes that take every branch of its pairwise sum. K4 (flash-attention forward) is held to the float32 and bfloat16
 tolerances of the reference's ``tests/test_kernels.py`` (2e-5, 2e-2), at
 small shapes with every mask variant and at the llama3-8b prefill's shape;
 its bfloat16 route (wgmma and TMA, 128-row and 128-key tiles) is also held
@@ -324,6 +329,141 @@ def test_tuner_shapes_take_the_new_routes(cuda):
     counts.reset()
     rank.rank_rows(torch.rand((34, 256), dtype=torch.float64, device=cuda))
     assert counts.ROUTE_LAUNCHES == {"radix_rank/count": 1}
+
+
+# ------------------------------------------------------------- K3 routes
+
+# (chains, background rows) of the tuner run's six K3 shapes: d = 60, 10
+# trees, one leaf word
+K3_TUNER_SHAPES = [(268, 16), (96, 12), (52, 16), (20, 16), (192, 16), (84, 16)]
+
+
+def _chain_forest(n_obs, d, device, n_trees=10, noise=False, seed=1):
+    from repro_torch.core.surrogate import make_forest
+    from repro_torch.kernels.forest_eval import chain
+
+    rng = np.random.default_rng(seed)
+    X = rng.random((n_obs, d))
+    y = rng.normal(size=n_obs) if noise else (
+        np.sin(4 * X[:, 0]) + X[:, 1 % d] + 0.1 * rng.standard_normal(n_obs))
+    plan, reason = chain.build_chain_plan_ex(
+        make_forest(seed=seed, device=device, n_trees=n_trees).fit(X, y), d)
+    assert plan is not None, reason
+    return plan
+
+
+def _chain_args(plan, n_chains, nb, device, n_cfg=4, seed=3):
+    """chain_values' arguments: word rows of n_cfg configs, each chain's
+    config, the background's words, permutations and the plan's leaves."""
+    from repro_torch.kernels.forest_eval import chain
+
+    rng = np.random.default_rng(seed)
+    d = plan.d
+    X, bg = rng.random((n_cfg, d)), rng.random((nb, d))
+    perms = np.stack([rng.permutation(d) for _ in range(n_chains)]).astype(np.int32)
+    xoc = rng.integers(0, n_cfg, n_chains).astype(np.int32)
+    return (chain.words_tensor(plan.row_words(X), device), torch.from_numpy(xoc).to(device),
+            chain.words_tensor(plan.row_words(bg), device), torch.from_numpy(perms).to(device),
+            plan.leaf_mean, plan.leaf_offs, plan.forest.y_std, plan.forest.y_mean)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64)
+
+
+def _hold_k3(args, values: bool):
+    """Every route of K3 on ``args`` against its plain version, bit for bit,
+    with no host sync in any wrapper; the route counts asserted (the chain
+    values on ``values`` where ``values`` says so, else on the route the
+    ordinals' plan gives)."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import chain
+    from repro_torch.kernels.launch import n_sms
+
+    words, xoc, wb, perms = args[:4]
+    wx = words[xoc.long()].contiguous()
+    want = chain.chain_ordinals_plain(wx, wb, perms)
+    want_vals = chain.chain_values_plain(*args)
+    torch.cuda.synchronize()
+    counts.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {r: chain.chain_ordinals_cuda(wx, wb, perms, route=r) for r in chain.ROUTES}
+        got["rows"] = chain.chain_ordinals_cuda(words, wb, perms, route="staged",
+                                                x_of_chain=xoc)
+        vals = chain.chain_values_cuda(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for r, g in got.items():
+        assert torch.equal(g, want), r
+    assert torch.equal(_bits(vals), _bits(want_vals))
+    C, d, T, W = wx.shape
+    taken = chain.values_plan(C, d, wb.shape[0], T, W, args[4].numel(), n_sms(wx.device)).route
+    assert (taken == "values") == values
+    want_counts = {"chain_ordinals/per_chain": 1, "chain_ordinals/staged": 2}
+    want_counts[f"chain_ordinals/{taken}"] = want_counts.get(f"chain_ordinals/{taken}", 0) + 1
+    assert counts.ROUTE_LAUNCHES == want_counts
+
+
+@pytest.mark.parametrize("C,nb", K3_TUNER_SHAPES)
+def test_chain_routes_at_the_tuner_shapes(cuda, C, nb):
+    plan = _chain_forest(50, 60, cuda)
+    assert plan.n_words == 1 and plan.n_trees == 10
+    _hold_k3(_chain_args(plan, C, nb, cuda), values=True)
+
+
+@pytest.mark.parametrize("case", ["two_words", "trees_120", "d_64", "chains_512"])
+def test_chain_routes_beyond_the_tuner(cuda, case):
+    """The sizes the tuner does not reach: a two-word forest, 120 trees
+    (tiled: the values route declines), 64 features, 512 chains."""
+    from repro_torch.kernels.forest_eval import chain
+
+    plan, C, nb = {
+        "two_words": lambda: (_chain_forest(220, 5, cuda, noise=True), 48, 6),
+        "trees_120": lambda: (_chain_forest(50, 60, cuda, n_trees=120), 268, 16),
+        "d_64": lambda: (_chain_forest(50, 64, cuda), 268, 16),
+        "chains_512": lambda: (_chain_forest(50, 60, cuda), 512, 16),
+    }[case]()
+    assert (plan.n_words == 2) == (case == "two_words")
+    args = _chain_args(plan, C, nb, cuda)
+    tiled = chain.staged_plan(C, plan.d, nb, plan.n_trees, plan.n_words, 132)
+    assert (tiled.tiles > 1) == (case == "trees_120")
+    _hold_k3(args, values=case != "trees_120")
+
+
+@pytest.mark.parametrize("nb", [1, 7, 9, 17, 130])
+def test_chain_values_route_over_background_sizes(cuda, nb):
+    """Every branch of the fused pairwise sum, leaf means of both signs and
+    -0.0."""
+    from repro_torch.kernels.forest_eval import chain
+
+    plan = _chain_forest(50, 6, cuda)   # 130 rows of 6 features fit a block
+    args = list(_chain_args(plan, 37, nb, cuda))
+    lm = args[4].clone()
+    lm[::5] = -0.0
+    args[4] = lm
+    want = chain.chain_values_plain(*args)
+    got = chain.chain_values_cuda(*args, route="values")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_eval_chains_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import chain
+
+    plans = {dev: _chain_forest(50, 60, dev) for dev in (cuda, "cpu")}
+    rng = np.random.default_rng(5)
+    X, bg = rng.random((4, 60)), rng.random((16, 60))
+    perms = np.stack([rng.permutation(60) for _ in range(67)])
+    xoc = np.repeat(np.arange(4), 17)[:67]
+    counts.reset()
+    got = plans[cuda].eval_chains(X, bg, perms, xoc)
+    assert counts.ROUTE_LAUNCHES == {"chain_ordinals/values": 1}
+    assert np.array_equal(got.view(np.int64), plans["cpu"].eval_chains(X, bg, perms, xoc)
+                          .view(np.int64))
+    assert counts.PLAIN_CALLS["chain_ordinals"] == 1   # the CPU plan's
 
 
 # --------------------------------------------------------------------- K4
