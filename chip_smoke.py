@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of MFTune on one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -9,7 +8,7 @@ Phases, in order:
 2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register and
    spill lines; K1's tiled kernel, K2's count and onesweep kernels, K3's
-   staged kernel, the
+   staged kernel, the fused propose step's Q1 and Q2, the
    wgmma routes of K4, K5 and K6 (at every head dim) and
    of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64),
    K11's cluster kernel (every dtype pair), K10's resident kernel (every
@@ -48,7 +47,25 @@ Phases, in order:
    run on each route in turns; and K3 the same way at sizes the tuner does
    not reach (a two-word forest, 120 trees tiled, 64 features, 512
    chains);
-5. ``serve``: the LM serving path at the full width of llama3-8b (32
+5. ``propose``: the fused propose step (ROADMAP item 7). The 24 h tuner
+   run again with ``acquisition_backend="fused", acquisition_pool="host"``
+   from the same knowledge base, which must give the staged run's
+   observation stream with every recommend call a CUDA-graph replay (as
+   many replays as ``propose_step`` spans, no staged ``acquisition`` span),
+   at most one graph more than its pool buckets, launches of Q2 and K2 and
+   no plain call (its wall and spans beside the staged run's); then the
+   step at 12 sources x 10 trees over the 60-knob space at every pool
+   bucket from 256 to 131072, both descents through the engine's graphs
+   with no host sync before the result's copy and the counts reset just
+   before and read just after (every selection the staged path's; K1, K2,
+   Q1 and Q2 each launched), Q1 (``csrc/qs_descent.cu``) and Q2
+   (``csrc/combine_ei.cu``) against their plain versions bit for bit at
+   every bucket, and at 256 and 131072: Q1 against K1 ``tiled`` by trace in
+   turns (K1, Q1, Q1, K1), Q2 against the staged torch combine + EI, each
+   beside its bound and the launch floor, the step's device time a call by
+   stage and its host clock, graph against eager; the device pool at
+   131072 (fresh draws a replay, the same pools from one seed);
+6. ``serve``: the LM serving path at the full width of llama3-8b (32
    layers, d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256,
    bf16, 16 GB of weights drawn on the card from seed 0): a 2 x 4096-token
    prefill through ``repro_torch.models.forward`` with
@@ -73,7 +90,7 @@ Phases, in order:
    in turns (that, this, this, that) and beside ``scaled_dot_product_attention`` with KV expanded to all
    heads (timed only), its float32 route timed too, and K4 at small shapes
    in both dtypes for every mask variant, rows that see no key included;
-6. ``train``: the dense training path at llama3-8b's full width with its
+7. ``train``: the dense training path at llama3-8b's full width with its
    depth cut from 32 to 8 layers (the cut, with its reason, is printed): bf16
    weights drawn on the card from seed 0, float32 AdamW moments, a batch of
    2 x 4096 tokens from ``SyntheticTokenPipeline(seed=0)``, ``attn_impl=
@@ -96,7 +113,7 @@ Phases, in order:
    first call in ``Trainer.run`` as in every path below: against its
    plain version, then timed in turns with the CUDA-core design, beside SDPA
    and its bound;
-7. ``moe``: the MoE serving path at mixtral-8x22b's full width with its
+8. ``moe``: the MoE serving path at mixtral-8x22b's full width with its
    depth cut from 56 to 8 layers (the cut, with its reason, is printed):
    d_model 6144, 48/8 heads of 128, 8 experts top-2 of width 16384, vocab
    32768, window 4096, bf16 weights drawn on the card from seed 0 (40.9
@@ -124,7 +141,7 @@ Phases, in order:
    past C, NaN past each), the route taken asserted;
    K4 at its first call (window 4096 at 8192 tokens, SDPA with a boolean
    mask);
-8. ``ssm``: the SSM serving path at rwkv6-7b's full width and depth (32
+9. ``ssm``: the SSM serving path at rwkv6-7b's full width and depth (32
    layers, d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab 65536, chunk
    64, bf16 weights drawn on the card from seed 0, 16.1 GB; ``u_bonus`` and
    the token-shift mixes, zero by the init rules, drawn from seed 1). A
@@ -156,7 +173,7 @@ Phases, in order:
    (the backward of every norm), each with its route (K10 resident, K11
    cluster, and K7 ring in every decode step that counts it); a decode step here launches no K7 (no
    attention);
-9. ``hybrid``: the hybrid serving path at zamba2-2.7b's full width and depth
+10. ``hybrid``: the hybrid serving path at zamba2-2.7b's full width and depth
    (54 Mamba2 layers, d_model 2560, 80 SSD heads of P = N = 64, conv 4,
    chunk 128; one shared attention + FFN block after every 6 layers, 32
    heads of 80, d_ff 10240; vocab 32000; bf16 weights drawn on the card from
@@ -182,9 +199,9 @@ Phases, in order:
    ring route timed in turns with the first design (first, ring, ring,
    first), beside the plain version, SDPA and its bound (the bytes of the
    cache); K4 at its first call (head dim 80);
-10. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+11. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
-11. the seconds of each phase, one JSON line with the kernels' numbers, the
+12. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -206,6 +223,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+FP64_OPS_PER_S = 34e12         # H100 SXM float64 outside the tensor cores (data sheet)
 
 
 def fail(msg: str) -> "NoReturn":  # noqa: F821
@@ -249,6 +267,9 @@ HOPPER_KERNELS = {
     # and the float tail in 96 registers, spills a word at W = 1 and is left
     # out
     "chain_ordinals": {"chain_staged_kernel": ("1", "2")},
+    # the fused propose step's Q1 and Q2
+    "qs_descent": {"qs_descent_kernel": ("",)},
+    "combine_ei": {"combine_ei_kernel": ("",)},
 }
 
 
@@ -831,6 +852,26 @@ def k3_turns(args, reps: int) -> dict:
     return out
 
 
+def scale_plane(kb, device, n_sources: int = 12):
+    """(space, forests, plane): one forest of 10 trees for each of the
+    first ``n_sources`` histories of ``kb`` over the tuner's 60-knob space,
+    fused: the fused propose step's scale (ROADMAP item 7)."""
+    import numpy as np
+
+    from repro_torch.core import make_forest
+    from repro_torch.core.surrogate import ForestPlane
+    from repro_torch.sparksim import SparkWorkload
+
+    space = SparkWorkload(*TARGET).space
+    forests = []
+    for i, task in enumerate([kb.get(t) for t in sorted(kb.tasks)][:n_sources]):
+        ok = task.successful()
+        X = space.encode_many([o.config for o in ok])
+        forests.append(make_forest(seed=i, device=device).fit(
+            X, np.array([o.performance for o in ok])))
+    return space, forests, ForestPlane([f.pack() for f in forests])
+
+
 def check_at_scale(kb, device, floor_ms: float, pool_n: int = 131072,
                    n_sources: int = 12) -> list:
     """K1 and K2 at the fused-propose scale (ROADMAP item 7): a plane of 12
@@ -842,21 +883,10 @@ def check_at_scale(kb, device, floor_ms: float, pool_n: int = 131072,
     import numpy as np
     import torch
 
-    from repro_torch.core import make_forest
     from repro_torch.core.acquisition import ei_matrix
-    from repro_torch.core.surrogate import ForestPlane
     from repro_torch.kernels.forest_eval import ops, rank
-    from repro_torch.sparksim import SparkWorkload
 
-    space = SparkWorkload(*TARGET).space
-    tasks = [kb.get(t) for t in sorted(kb.tasks)][:n_sources]
-    forests = []
-    for i, task in enumerate(tasks):
-        ok = task.successful()
-        X = space.encode_many([o.config for o in ok])
-        y = np.array([o.performance for o in ok])
-        forests.append(make_forest(seed=i, device=device).fit(X, y))
-    plane = ForestPlane([f.pack() for f in forests])
+    space, forests, plane = scale_plane(kb, device, n_sources)
     pool = space.sample(np.random.default_rng(7), pool_n).unit_tensor(device)
     args = (plane.feat, plane.thr, plane.child, plane.mean, plane.var, plane.roots, pool,
             plane.depth, plane.node_table())
@@ -894,17 +924,20 @@ def check_at_scale(kb, device, floor_ms: float, pool_n: int = 131072,
 # ---------------------------------------------------------------------------
 
 
-def tune(kb, device, hours: float, target=TARGET):
+def tune(kb, device, hours: float, target=TARGET, **options):
+    """A fixed-seed MFTune run (``options`` into ``MFTuneOptions``): its
+    result, observation stream, trajectory and the ``MFTune`` object."""
     from repro_torch.core import MFTune, MFTuneOptions
     from repro_torch.sparksim import SparkWorkload
     from repro_torch.tuneapi import Budget
 
     wl = SparkWorkload(*target)
-    res = MFTune(wl, kb, MFTuneOptions(seed=0), device=device).run(Budget(hours * 3600.0))
+    mft = MFTune(wl, kb, MFTuneOptions(seed=0, **options), device=device)
+    res = mft.run(Budget(hours * 3600.0))
     obs = kb.get(wl.task_id).observations
     sig = [(o.performance, o.fidelity, tuple(sorted(o.config.items()))) for o in obs]
     traj = [(p.time, p.best, tuple(sorted(p.config.items()))) for p in res.trajectory]
-    return res, sig, traj
+    return res, sig, traj, mft
 
 
 def span_seconds(tracer) -> dict:
@@ -933,7 +966,7 @@ def run_tuner(kb, device):
         counts.reset()
         t0 = time.perf_counter()
         with obs.tracing(name="chip_smoke") as tracer:
-            res, sig, _ = tune(kb, device, hours=24.0)
+            res, sig, *_ = tune(kb, device, hours=24.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(counts.LAUNCHES)
@@ -985,7 +1018,7 @@ def run_tuner_staged(kb, device, first) -> dict:
         counts.reset()
         t0 = time.perf_counter()
         with obs.tracing(name="chip_smoke_staged") as tracer:
-            res, sig, _ = tune(kb, device, hours=24.0)
+            res, sig, *_ = tune(kb, device, hours=24.0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1007,6 +1040,335 @@ def run_tuner_staged(kb, device, first) -> dict:
             or counts.PLAIN_CALLS["chain_ordinals"]):
         fail(f"the staged tuner run took other K3 routes: {routes}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fused propose step (ROADMAP item 7): Q1, Q2 and one graph a bucket
+# ---------------------------------------------------------------------------
+
+PROPOSE_SOURCES = {
+    "qs_descent": ("src/repro_torch/csrc/qs_descent.cu",
+                   "none: no Pallas original (jnp _qs_leaf_stats, "
+                   "src/repro/kernels/forest_eval/propose.py:360)"),
+    "combine_ei": ("src/repro_torch/csrc/combine_ei.cu",
+                   "none: no Pallas original (jnp _combine_source and the portable ei, "
+                   "src/repro/kernels/forest_eval/propose.py:146)"),
+}
+PROPOSE_BUCKETS = (256, 1024, 4096, 16384, 65536, 131072)
+PROPOSE_TIMED = (256, 131072)   # the sweep of scripts/propose_scaling.py, at two sizes
+PROPOSE_N = 32                  # candidates a call selects
+# float64 operations a (source, candidate) of Q2 at 10 trees a source: the
+# combine's 46 adds, subtractions, products and divisions, the EI's about 110
+# (two exp64, one ndtr64 with its polynomial ratios)
+Q2_OPS = 156
+
+
+def run_tuner_fused(kb, device, first) -> tuple:
+    """The 24 h run again on the fused step (``acquisition_backend="fused",
+    acquisition_pool="host"``) from the same knowledge base: it must give
+    the first (staged) run's observation stream, every recommend call a
+    graph replay (no staged ``acquisition`` span; as many replays as
+    ``propose_step`` spans), at most one graph more than the pool buckets it
+    saw, no plain call, and launches of Q2 and K2; its wall and spans
+    beside the first run's. Returns (numbers, launches)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import counts
+    from repro_torch.sparksim import make_task_id
+
+    res0, sig0, wall0, spans0 = first
+    kb.tasks.pop(make_task_id(*TARGET))
+    counts.reset()
+    t0 = time.perf_counter()
+    with obs.tracing(name="chip_smoke_fused") as tracer:
+        res, sig, _, mft = tune(kb, device, hours=24.0, acquisition_backend="fused",
+                                acquisition_pool="host")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(counts.LAUNCHES)
+    plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+    routes = dict(counts.ROUTE_LAUNCHES)
+    eng = mft.gen.propose_engine
+    stats = eng.graph_stats()
+    steps = sum(1 for e in tracer.events
+                if e.get("type") == "span" and e["name"] == "propose_step")
+    buckets = sorted({sig_[1] for sig_ in eng.compiled})
+    spans = span_seconds(tracer)
+    out = dict(propose_tuner_wall_s=wall, propose_tuner_staged_wall_s=wall0,
+               propose_tuner_step_s=spans.get("propose_step"),
+               propose_tuner_staged_acquisition_s=spans0.get("acquisition"),
+               propose_tuner_graphs=stats, propose_tuner_buckets=buckets,
+               propose_tuner_steps=steps, propose_tuner_signatures=len(eng.compiled))
+    print(f"[propose] the 24 h tuner run on the fused step (host pool): evaluations="
+          f"{res.n_evaluations} best_latency_s={res.best_performance} wall_s={wall:.3f} "
+          f"(staged: {wall0:.3f}); propose_step_s={out['propose_tuner_step_s']} (staged "
+          f"acquisition_s={out['propose_tuner_staged_acquisition_s']}); recommend calls "
+          f"{steps}, graphs {stats}, buckets {buckets}, reference signatures "
+          f"{len(eng.compiled)}; launches={ {k: v for k, v in launches.items() if v} } "
+          f"routes={routes} plain_calls={plain}", flush=True)
+    print("[propose] host seconds by span (fused): " + " ".join(
+        f"{k}={v:.3f}" for k, v in spans.items()), flush=True)
+    if sig != sig0 or res.best_performance != res0.best_performance:
+        fail("the tuner run on the fused step differs from the staged run")
+    if "acquisition" in spans or steps == 0 or stats["replays"] != steps:
+        fail(f"not every recommend call went through a graph replay: {steps} propose steps, "
+             f"{stats}, staged acquisition {spans.get('acquisition')}")
+    if stats["graphs"] > len(buckets) + 1:
+        fail(f"{stats['graphs']} graphs for the buckets {buckets}")
+    if plain or not (launches["combine_ei"] and launches["radix_rank"]
+                     and launches["forest_eval"] + launches["qs_descent"]):
+        fail(f"the fused run launched {launches}, plain calls {plain}")
+    out["propose_tuner_last_call"] = hold_last_call(eng)
+    return out, launches
+
+
+def hold_last_call(eng) -> dict:
+    """Q1 and Q2 against their plain versions at the shapes of the fused
+    run's last call: its plane and its pool, as its graph's buffers hold
+    them."""
+    import torch
+
+    from repro_torch.kernels.forest_eval import ops
+    from repro_torch.kernels.forest_eval import propose as P
+
+    slot = next(iter(eng.graphs.values()))
+    entry, X = slot.plane, slot.buf["X"]
+    qs, reason = entry.qs()
+    p = entry.plane
+    meta = slot.buf["meta"]
+    m, v = ops.forest_eval_cuda(p.feat, p.thr, p.child, p.mean, p.var, p.roots, X, p.depth,
+                                entry.nodes)
+    ystats, inc = entry.ystats, slot.buf["small"][3, :entry.S].contiguous()
+    q2 = P.combine_ei_cuda(m, v, ystats, inc, meta)
+    want2 = P.combine_ei_plain(m, v, ystats, inc, meta)
+    same = torch.equal(q2.view(torch.int64), want2.view(torch.int64))
+    if qs is not None:   # else a tree has more than 128 leaves: no Q1 there
+        q1 = P.qs_leaf_stats_cuda(X, qs)
+        want1 = P.qs_leaf_stats_plain(X, qs)
+        same &= all(torch.equal(a.view(torch.int64), b.view(torch.int64))
+                    for a, b in zip(q1, want1)) and torch.equal(q1[0], m)
+    torch.cuda.synchronize()
+    shape = (f"sources={entry.S} trees={entry.T} pool={X.shape[0]}x{X.shape[1]} "
+             f"valid={int(meta[2])}")
+    print(f"[propose] Q1 and Q2 at the fused run's last call ({shape}) against their plain "
+          f"versions, bit for bit: {same}{'' if qs is not None else f' (Q2 only: {reason})'}",
+          flush=True)
+    if not same:
+        fail(f"Q1 or Q2 differs from its plain version at the tuner's call {shape}")
+    return {"shape": shape, "match": same}
+
+
+def stage_of(kernel: str) -> str:
+    """The step's stage a kernel's name belongs to."""
+    for tag, stage in (("forest_eval", "descent"), ("qs_descent", "descent"),
+                       ("combine_ei", "combine_ei"), ("radix_rank", "ranks"),
+                       ("onesweep", "ranks")):
+        if tag in kernel:
+            return stage
+    return "torch"
+
+
+def step_profile(fn, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` by stage (and in all), from one trace of
+    ``reps`` calls after a warm-up."""
+    fn()
+    out: dict = {}
+    for name, _, us in trace_kernels(lambda: [fn() for _ in range(reps)]):
+        st = stage_of(name)
+        out[st] = out.get(st, 0.0) + us / 1e3 / reps
+    out["all"] = sum(out.values())
+    return out
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Host-clock ms a call of ``fn`` (which ends in a copy to the host)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
+    """The fused step at 12 sources x 10 trees over the 60-knob space, at
+    every pool bucket from 256 to 131072: the engine's graphs (host pool,
+    both descents, no host sync before the result's copy) with the counts
+    reset just before and read just after, each selection equal to the
+    staged path's; Q1 and Q2 against their plain versions bit for bit;
+    at two sizes Q1 against K1 ``tiled`` by trace in turns (K1, Q1, Q1,
+    K1), Q2 against the staged torch combine + EI, the step's device time
+    by stage and its host clock, graph against eager; the device pool's
+    draws. Returns (Q1's row, Q2's row, the drive's launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ProposeEngine, aggregate_ranks, score_sources
+    from repro_torch.core.acquisition import ei_matrix
+    from repro_torch.core.propose import _PlaneEntry
+    from repro_torch.core.surrogate import combine
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import ops
+    from repro_torch.kernels.forest_eval import propose as P
+
+    space, forests, plane = scale_plane(kb, device)
+    S, tps = len(forests), plane.uniform_tree_count
+    T = S * tps
+    incs = [float(f.y_.min()) for f in forests]
+    ws = [float(w) for w in np.linspace(1.0, 0.1, S)]
+    entry = _PlaneEntry(plane, space.dim)
+    qs, reason = entry.qs()
+    if qs is None:
+        fail(f"no QuickScorer plan for the scale plane: {reason}")
+    nodes = plane.node_table()
+    rng = np.random.default_rng(7)
+    pools = {N: space.sample(rng, N).unit() for N in PROPOSE_BUCKETS}
+    staged = {}
+    for N, X in pools.items():
+        scores = score_sources(forests, torch.from_numpy(X).to(device), incs)
+        staged[N] = np.argsort(aggregate_ranks(scores, ws).cpu().numpy(),
+                               kind="stable")[:PROPOSE_N]
+
+    # the drive: every bucket, both descents, through the engine's graphs
+    eng = ProposeEngine(space, seed=0)
+    eng.check_sync = True
+    for N, X in pools.items():   # capture first: the counted run only replays
+        for d in ("forest", "qs"):
+            eng.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d)
+    torch.cuda.synchronize()
+    counts.reset()
+    bad = []
+    for N, X in pools.items():
+        for d in ("forest", "qs"):
+            if not np.array_equal(eng.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d),
+                                  staged[N]):
+                bad.append((N, d))
+    torch.cuda.synchronize()
+    launches = dict(counts.LAUNCHES)
+    routes = dict(counts.ROUTE_LAUNCHES)
+    stats = eng.graph_stats()
+    print(f"[propose] the step at 12 x 10 trees, 60 knobs, buckets {list(PROPOSE_BUCKETS)}, "
+          f"both descents through the graphs (no host sync before the result's copy): "
+          f"launches={ {k: v for k, v in launches.items() if v} } routes={routes} "
+          f"graphs={stats}; selections equal to the staged path's except {bad}", flush=True)
+    if bad:
+        fail(f"the fused step's selections differ from the staged path's at {bad}")
+    if not all(launches[k] for k in ("forest_eval", "radix_rank", "qs_descent", "combine_ei")):
+        fail(f"the step's drive left a kernel unlaunched: {launches}")
+    if stats["graphs"] != 2 * len(PROPOSE_BUCKETS) or routes.get("forest_eval/tiled") != \
+            launches["forest_eval"]:
+        fail(f"the drive took {stats} graphs and K1 routes {routes}")
+
+    # Q1 and Q2 against their plain versions at every bucket
+    ystats = torch.stack([plane.y_means, plane.y_stds, plane.y_std_sqs])
+    inc = torch.tensor(incs, dtype=torch.float64, device=device)
+    err = {"qs_descent": 0.0, "combine_ei": 0.0}
+    match = {"qs_descent": True, "combine_ei": True}
+    for N, X in pools.items():
+        Xt = torch.from_numpy(X).to(device)
+        meta = torch.tensor([S, tps, N - 3], dtype=torch.int32, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            q1 = P.qs_leaf_stats_cuda(Xt, qs)
+            m, v = ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean,
+                                        plane.var, plane.roots, Xt, plane.depth, nodes)
+            q2 = P.combine_ei_cuda(m, v, ystats, inc, meta)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        q1p = P.qs_leaf_stats_plain(Xt, qs)
+        q2p = P.combine_ei_plain(m, v, ystats, inc, meta)
+        torch.cuda.synchronize()
+        for g, w in zip(q1, q1p):
+            match["qs_descent"] &= torch.equal(g.view(torch.int64), w.view(torch.int64))
+            err["qs_descent"] = max(err["qs_descent"], float((g - w).abs().max()))
+        match["qs_descent"] &= torch.equal(q1[0], m) and torch.equal(q1[1], v)
+        match["combine_ei"] &= torch.equal(q2.view(torch.int64), q2p.view(torch.int64))
+        err["combine_ei"] = max(err["combine_ei"], float((q2 - q2p).abs().max()))
+    print(f"[propose] Q1 and Q2 against their plain versions at every bucket (bit for bit, no "
+          f"host sync): {match}, max_abs_err {err}; Q1's leaf stats equal K1's", flush=True)
+    if not all(match.values()):
+        fail(f"Q1 or Q2 differs from its plain version: {match}")
+
+    # timings at two sizes: the kernels in turns, the step by stage and host clock
+    numbers, rows = {}, {}
+    w_t = torch.tensor(ws, dtype=torch.float64, device=device)
+    for N in PROPOSE_TIMED:
+        X = pools[N]
+        Xt = torch.from_numpy(X).to(device)
+        meta = torch.tensor([S, tps, N], dtype=torch.int32, device=device)
+        k1 = lambda: ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean,
+                                          plane.var, plane.roots, Xt, plane.depth, nodes)
+        q1 = lambda: P.qs_leaf_stats_cuda(Xt, qs)
+        m, v = k1()
+        q2 = lambda: P.combine_ei_cuda(m, v, ystats, inc, meta)
+        staged_ei = lambda: ei_matrix(*combine(m.view(S, tps, N), v.view(S, tps, N),
+                                               plane.y_means, plane.y_stds, plane.y_std_sqs),
+                                      incs)
+        k1_ms, q1_ms, q1_turns, q1_held = traced_turns(
+            k1, q1, [("forest_eval_tiled", 1)], [("qs_descent", 1)])
+        st_ms, q2_ms, q2_turns, q2_held = traced_turns(
+            staged_ei, q2, [("", None)], [("combine_ei", 1)])
+        q1_bound = bound(nbytes(Xt) + 2 * T * N * 8, 0)
+        q2_bound = bound(2 * T * N * 8 + S * N * 8, Q2_OPS * S * N, ops_per_s=FP64_OPS_PER_S)
+        graph = {}
+        for d in ("forest", "qs"):
+            run = lambda d=d: eng.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d)
+
+            def eager(d=d):
+                Xp = torch.from_numpy(X).to(device)
+                return P.propose_step(None, None, entry.arena, entry.ystats, inc, w_t,
+                                      n_pool=N, n_sources=S, tps=tps, k=PROPOSE_N, descent=d,
+                                      X=Xp, qs=qs if d == "qs" else None)[0].cpu()
+
+            graph[d] = dict(graph_device_ms=step_profile(run), eager_device_ms=step_profile(eager),
+                            host_turns_ms=[host_ms(f) for f in (eager, run, run, eager)])
+        numbers[N] = dict(k1_traced_ms=k1_ms, q1_traced_ms=q1_ms, q1_turns_ms=q1_turns,
+                          q1_held=q1_held, q1_bound_ms=q1_bound[0], staged_ei_traced_ms=st_ms,
+                          q2_traced_ms=q2_ms, q2_turns_ms=q2_turns, q2_held=q2_held,
+                          q2_bound_ms=q2_bound[0], q2_bound_by=q2_bound[1], step=graph)
+        print(f"[propose] N={N}: Q1 against K1 tiled by trace in turns (K1, Q1, Q1, K1): "
+              f"{q1_turns} ms (held {q1_held}), bound {q1_bound[0]:.6f} ms ({q1_bound[1]}); "
+              f"Q2 against the staged torch combine + EI in turns (staged, Q2, Q2, staged): "
+              f"{q2_turns} ms (held {q2_held}), bound {q2_bound[0]:.6f} ms ({q2_bound[1]}); "
+              f"launch floor {floor_ms} ms", flush=True)
+        for d, g in graph.items():
+            print(f"[propose] N={N} descent={d}: the step's device ms a call by stage, graph "
+                  f"{g['graph_device_ms']}, eager {g['eager_device_ms']}; host clock a call "
+                  f"ending in the copy to the host, in turns (eager, graph, graph, eager): "
+                  f"{g['host_turns_ms']} ms", flush=True)
+        if N == PROPOSE_TIMED[-1]:
+            for name, kernel, plain, turns, bnd in (
+                    ("qs_descent", q1, lambda: P.qs_leaf_stats_plain(Xt, qs), q1_turns, q1_bound),
+                    ("combine_ei", q2, lambda: P.combine_ei_plain(m, v, ystats, inc, meta),
+                     q2_turns, q2_bound)):
+                source, replaces = PROPOSE_SOURCES[name]
+                rows[name] = dict(
+                    name=name, source=source, replaces=replaces,
+                    shape=f"sources={S} trees={T} pool={N}x{space.dim}", match=match[name],
+                    max_abs_err=err[name], ms=(turns[1] + turns[2]) / 2,
+                    events_ms=cuda_time_ms(kernel, 20), plain_ms=cuda_time_ms(plain, 2),
+                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    launch_floor_ms=floor_ms)
+    for name, r in rows.items():
+        r["tuner_pool_traced_ms"] = numbers[PROPOSE_TIMED[0]][
+            "q1_traced_ms" if name == "qs_descent" else "q2_traced_ms"]
+
+    # the device pool: fresh draws a replay, the same pools from the same seed
+    pool_eng = [ProposeEngine(space, seed=0, pool_size=PROPOSE_BUCKETS[-1]) for _ in range(2)]
+    draws = [[e.propose(forests, incs, ws, PROPOSE_N) for _ in range(2)] for e in pool_eng]
+    same = all(np.array_equal(a[1], b[1]) for a, b in zip(*draws))
+    fresh = not np.array_equal(draws[0][0][1], draws[0][1][1])
+    ok_rows = all(np.all((d[1] >= 0) & (d[1] <= 1)) and np.all(np.isfinite(d[2]))
+                  for d in draws[0])
+    dev_prof = step_profile(lambda: pool_eng[0].propose(forests, incs, ws, PROPOSE_N))
+    numbers["device_pool"] = dict(device_ms=dev_prof, graphs=pool_eng[0].graph_stats())
+    print(f"[propose] device pool at {PROPOSE_BUCKETS[-1]}: same seed same pools {same}, a "
+          f"replay draws a fresh pool {fresh}, rows in [0, 1] with finite aggregates {ok_rows}; "
+          f"device ms a call by stage {dev_prof}", flush=True)
+    if not (same and fresh and ok_rows):
+        fail("the device pool's draws are not fresh a replay and equal from one seed")
+    return rows["qs_descent"], rows["combine_ei"], launches, numbers
 
 
 def check_k3_sizes(device) -> None:
@@ -1057,7 +1419,7 @@ def run_agreement() -> None:
     out = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        res, sig, traj = tune(build_kb(specs, 20, dev), dev, hours=8.0)
+        res, sig, traj, _ = tune(build_kb(specs, 20, dev), dev, hours=8.0)
         out[dev] = (sig, traj)
         print(f"[agree] {dev}: evaluations={res.n_evaluations} "
               f"best_latency_s={res.best_performance} wall_s={time.perf_counter() - t0:.3f}",
@@ -3626,6 +3988,19 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
     phase_s["tuner"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    fused, fused_launches = run_tuner_fused(kb, device, first)
+    q1_row, q2_row, step_launches, step_numbers = check_propose_at_scale(kb, device, floor_ms)
+    for row in (q1_row, q2_row):
+        launches[row["name"]] = step_launches[row["name"]]
+        row["tuner_launches"] = fused_launches[row["name"]]
+        main_rows.append(row)
+    for row in main_rows[:3]:
+        if row["name"] in ("forest_eval", "radix_rank"):
+            row["propose_launches"] = step_launches[row["name"]]
+            row["propose_tuner_launches"] = fused_launches[row["name"]]
+    phase_s["propose"] = time.perf_counter() - t0
+    print(f"[propose] phase seconds {phase_s['propose']:.1f}", flush=True)
+    t0 = time.perf_counter()
     k4_row, k4_launches, serve_k10, serve_k7, long_step = run_serve(device)
     phase_s["serve"] = time.perf_counter() - t0
     launches["flash_attn_fwd"] = k4_launches
@@ -3671,7 +4046,7 @@ def main() -> int:
                                      "w_down_", "with_dw_", "turns_", "split", "long_",
                                      "first_design", "step_", "tuner_", "traced_",
                                      "launch_floor", "design_floor", "staged_", "values_",
-                                     "eval_"))
+                                     "eval_", "events_", "propose_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
@@ -3703,7 +4078,8 @@ def main() -> int:
     # "at_scale": K1 and K2 at 131072 candidates, which the tuner run does
     # not reach (no launch count)
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],
-                      "at_scale": [line(r, None) for r in scale_rows]}), flush=True)
+                      "at_scale": [line(r, None) for r in scale_rows],
+                      "propose": {"tuner": fused, "step": step_numbers}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,23 @@ from .device import DeviceLike, resolve_device
 from .optim import AdamWState
 
 __all__ = [
-    "adamw_state_from_numpy", "knowledge_base_from_json", "lm_params_from_numpy",
-    "packed_forest_from_numpy",
+    "acquisition_backend_from_reference", "adamw_state_from_numpy",
+    "knowledge_base_from_json", "lm_params_from_numpy", "packed_forest_from_numpy",
 ]
+
+# the reference's acquisition backends -> the port's: its staged host path,
+# and its two fused descents, which the port's one fused step covers
+_ACQ_BACKENDS = {"numpy": "staged", "jax": "fused", "pallas": "fused"}
+
+
+def acquisition_backend_from_reference(name: str) -> str:
+    """The port's ``acquisition_backend`` for the reference's (``numpy`` ->
+    ``staged``, ``jax``/``pallas`` -> ``fused``); the pool modes share their
+    names."""
+    if name not in _ACQ_BACKENDS:
+        raise ValueError(f"unknown reference acquisition backend {name!r}; "
+                         f"expected one of {tuple(_ACQ_BACKENDS)}")
+    return _ACQ_BACKENDS[name]
 
 _ARENA_FIELDS = ("feat", "thr", "child", "mean", "var", "roots", "depth", "y_mean", "y_std")
 

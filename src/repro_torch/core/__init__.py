@@ -7,6 +7,7 @@ Public API (names as in ``repro.core``):
   SpaceCompressor           — §5 SHAP+KDE density-based compression
   greedy_query_subset       — §6.1 Alg. 2 fidelity partitioning
   CandidateGenerator        — §6.2 combined-rank BO + two-phase warm start
+  ProposeEngine             — the fused propose step (one CUDA graph a pool bucket)
   HyperbandRunner           — §3.4 HB/SHA scheduling with median early stop
   MFTune                    — §4.1/§6.3 end-to-end controller
 """
@@ -29,13 +30,20 @@ from .surrogate import (
 )
 from .acquisition import (
     EI_VAR_FLOOR,
+    acquisition_backend,
+    acquisition_pool,
     aggregate_ranks,
     expected_improvement,
+    get_acquisition_backend,
+    get_acquisition_pool,
     normal_cdf,
     plane_cache_stats,
     score_sources,
+    set_acquisition_backend,
+    set_acquisition_pool,
     set_plane_cache_size,
 )
+from .propose import ProposeEngine
 from .gbm import GradientBoostedTrees
 from .kde import WeightedKDE, alpha_mass_categories, alpha_mass_region, silverman_bandwidth
 from .shapley import draw_permutations, shapley_values_batch
@@ -74,6 +82,8 @@ __all__ = [
     "ProbabilisticRandomForest", "PackedForest", "ForestPlane", "make_forest",
     "expected_improvement", "aggregate_ranks", "normal_cdf", "score_sources",
     "EI_VAR_FLOOR", "set_plane_cache_size", "plane_cache_stats",
+    "set_acquisition_backend", "get_acquisition_backend", "acquisition_backend",
+    "set_acquisition_pool", "get_acquisition_pool", "acquisition_pool", "ProposeEngine",
     "GradientBoostedTrees",
     "WeightedKDE", "alpha_mass_categories", "alpha_mass_region", "silverman_bandwidth",
     "draw_permutations", "shapley_values_batch",

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +41,12 @@ __all__ = [
     "make_portable_kernels",
     "set_plane_cache_size",
     "plane_cache_stats",
+    "acquisition_backend",
+    "acquisition_pool",
+    "get_acquisition_backend",
+    "get_acquisition_pool",
+    "set_acquisition_backend",
+    "set_acquisition_pool",
 ]
 
 # The variance floor the reference's numpy and jax paths share.
@@ -203,6 +210,69 @@ def ei_scores(model: ProbabilisticRandomForest, X, best: float) -> np.ndarray:
     """EI of one forest over the points X, as a numpy vector."""
     mean, var = model.predict_tensor(X)
     return expected_improvement(mean, var, best).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Acquisition backend / pool-mode switches (the reference's
+# ``set_acquisition_backend`` / ``set_acquisition_pool``). "staged" keeps the
+# staged path (the reference's "numpy"); "fused" routes fusable recommend
+# calls through the fused propose step (``core/propose.py``; the
+# reference's "jax" and "pallas", which differ only in the descent kernel).
+# Pool mode: "device" draws the candidate pool on the device from the
+# engine's generator (other draws than the host pool's); "host" uploads the
+# generator's numpy pool, so selections are the staged path's bit for bit.
+# ---------------------------------------------------------------------------
+
+_ACQ_BACKENDS = ("staged", "fused")
+_ACQ_POOLS = ("device", "host")
+_ACQ_BACKEND = "staged"
+_ACQ_POOL = "device"
+
+
+def set_acquisition_backend(backend: str) -> str:
+    """Set the module-default acquisition backend; returns the previous."""
+    global _ACQ_BACKEND
+    if backend not in _ACQ_BACKENDS:
+        raise ValueError(f"unknown acquisition backend {backend!r}; "
+                         f"expected one of {_ACQ_BACKENDS}")
+    prev, _ACQ_BACKEND = _ACQ_BACKEND, backend
+    return prev
+
+
+def get_acquisition_backend() -> str:
+    return _ACQ_BACKEND
+
+
+@contextmanager
+def acquisition_backend(backend: str):
+    prev = set_acquisition_backend(backend)
+    try:
+        yield
+    finally:
+        set_acquisition_backend(prev)
+
+
+def set_acquisition_pool(mode: str) -> str:
+    """Set the pool mode of the fused propose step; returns the previous."""
+    global _ACQ_POOL
+    if mode not in _ACQ_POOLS:
+        raise ValueError(f"unknown acquisition pool mode {mode!r}; "
+                         f"expected one of {_ACQ_POOLS}")
+    prev, _ACQ_POOL = _ACQ_POOL, mode
+    return prev
+
+
+def get_acquisition_pool() -> str:
+    return _ACQ_POOL
+
+
+@contextmanager
+def acquisition_pool(mode: str):
+    prev = set_acquisition_pool(mode)
+    try:
+        yield
+    finally:
+        set_acquisition_pool(prev)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,12 @@ import numpy as np
 
 from .. import obs as _obs
 from ..device import DeviceLike, resolve_device
-from .acquisition import aggregate_ranks, score_sources
+from .acquisition import (
+    aggregate_ranks,
+    get_acquisition_backend,
+    get_acquisition_pool,
+    score_sources,
+)
 from .knowledge import TaskRecord
 from .similarity import TaskWeights, surrogate_for_task
 from .space import ConfigBatch, ConfigSpace
@@ -212,6 +217,7 @@ class CandidateGenerator:
         # each config is encoded once per tuning run instead of per call.
         self._key_cache: Dict[int, bytes] = {}
         self._key_refs: List[Config] = []  # keeps dicts alive => ids stay valid
+        self._propose_eng: Any = None  # lazy ProposeEngine
 
     def set_sample_space(self, space: ConfigSpace) -> None:
         """Install the compressed space; candidates are sampled from it and
@@ -356,8 +362,8 @@ class CandidateGenerator:
         The pool stays columnar end-to-end: one unit-cube encoding, uploaded
         once, feeds all sources in a fused device pass (shared packed-forest
         descent + EI matrix + rank aggregation); only the returned top-n
-        materialize as dicts. (The reference's fused propose step is not
-        ported yet; this is its staged path.)
+        materialize as dicts. With the ``fused`` acquisition backend the
+        fused propose step (``core/propose.py``) takes the call instead.
         """
         active = [s for s in sources if s.weight > 0]
         return self._recommend_pool_batch(n, active, incumbents, exclude).materialize()
@@ -378,6 +384,58 @@ class CandidateGenerator:
         active = [s for s in sources if s.weight > 0]
         return self._recommend_pool_batch(n, active, incumbents, exclude)
 
+    # -------------------------------------------------------- fused propose
+    @property
+    def propose_engine(self):
+        """The lazy :class:`ProposeEngine` of this generator."""
+        if self._propose_eng is None:
+            from .propose import ProposeEngine
+
+            self._propose_eng = ProposeEngine(self.space, seed=self.seed,
+                                              pool_size=self.pool_size)
+        return self._propose_eng
+
+    def _exclude(self, pool: ConfigBatch, exclude: Sequence[Config]) -> ConfigBatch:
+        """``pool`` without the rows of ``exclude`` (exact canonical row
+        match; the exclusion keys are cached across calls)."""
+        if len(exclude):
+            seen = set(self._config_keys(exclude))
+            keep = np.array([k not in seen for k in pool.row_keys()], dtype=bool)
+            if keep.any() and not keep.all():
+                pool = pool.take(np.flatnonzero(keep))
+        return pool
+
+    def _recommend_fused(
+        self,
+        n: int,
+        active: Sequence[SurrogateSource],
+        incumbents: Sequence[Config],
+        exclude: Sequence[Config],
+    ) -> Optional[ConfigBatch]:
+        """The recommend call through the fused propose step, or None where
+        it does not apply (sources that are not fitted PRFs of one tree
+        count), so the staged path takes it. Pool mode ``host`` scores the
+        generator's own pool (deduplicated against ``exclude``): the
+        selection is the staged path's bit for bit. Pool mode ``device``
+        draws the pool on the device and decodes the top n + margin rows,
+        dropping the excluded ones (other draws than the host pool's)."""
+        eng = self.propose_engine
+        models = [s.model for s in active]
+        if not eng.fusable(models):
+            return None
+        incs = [s.incumbent for s in active]
+        ws = [s.weight for s in active]
+        if get_acquisition_pool() == "host":
+            pool = self._exclude(self._candidate_pool(incumbents), exclude)
+            return pool.take(eng.score_topk(models, pool.unit(), incs, ws, n))
+        _, units, _ = eng.propose(models, incs, ws, n, sample_space=self.sample_space)
+        batch = self.space.decode_many(units)
+        if not len(exclude):
+            return batch.take(np.arange(min(n, len(batch))))
+        seen = set(self._config_keys(exclude))
+        keep = [i for i, key in enumerate(batch.row_keys()) if key not in seen][:n]
+        return batch.take(np.asarray(keep, dtype=np.int64))
+
     def _recommend_pool_batch(
         self,
         n: int,
@@ -385,15 +443,13 @@ class CandidateGenerator:
         incumbents: Sequence[Config],
         exclude: Sequence[Config],
     ) -> ConfigBatch:
-        """Staged path: host pool → dedup → device score → stable top-n."""
-        pool = self._candidate_pool(incumbents)
-        # de-duplicate against already-evaluated configs (exact canonical
-        # row match; the exclusion keys are cached across calls)
-        if len(exclude):
-            seen = set(self._config_keys(exclude))
-            keep = np.array([k not in seen for k in pool.row_keys()], dtype=bool)
-            if keep.any() and not keep.all():
-                pool = pool.take(np.flatnonzero(keep))
+        """Staged path: host pool → dedup → device score → stable top-n (or
+        the fused step, where the backend is ``fused`` and it applies)."""
+        if active and get_acquisition_backend() == "fused":
+            got = self._recommend_fused(n, active, incumbents, exclude)
+            if got is not None:
+                return got
+        pool = self._exclude(self._candidate_pool(incumbents), exclude)
         if not active:
             order = self._rng.permutation(len(pool))
             return pool.take(order[:n])

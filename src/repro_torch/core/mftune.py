@@ -23,9 +23,13 @@ warm-start phase grid (Table 3).
 Port of ``repro.core.mftune``: the controller is the reference's host
 loop; ``device`` (default the CUDA card) reaches every surrogate it builds,
 so surrogate descent (K1), rank aggregation (K2) and the Shapley chain
-walk (K3) run there. The reference's fused on-device propose step and its
-``acquisition_backend`` / ``acquisition_pool`` / ``surrogate_backend`` /
-``shapley_backend`` options are not carried: this is the staged path.
+walk (K3) run there. ``acquisition_backend="fused"`` routes each recommend
+call through the fused propose step (``core/propose.py``: one CUDA graph
+per pool bucket on the card, Q1/K1, Q2 and K2), with the pool from the
+host (``acquisition_pool="host"``, the staged path's selections bit for
+bit) or drawn on the device (``"device"``); the default ``"staged"`` is the
+staged path. The reference's ``surrogate_backend`` and ``shapley_backend``
+options are not carried.
 """
 
 from __future__ import annotations
@@ -74,6 +78,11 @@ class MFTuneOptions:
     sc_refresh_every: int = 1             # iterations between SC refreshes
     early_stop_factor: float = 1.0
     compressor: Optional[Callable[..., ConfigSpace]] = None  # SC strategy override (Fig. 6)
+    acquisition_backend: Optional[str] = None  # None = module default; "staged" = the
+                                               # staged path, "fused" = the fused step
+    acquisition_pool: Optional[str] = None     # the fused step's pool: "device" = drawn
+                                               # on the device, "host" = the staged
+                                               # pool uploaded (identical selections)
 
 
 @dataclass
@@ -339,6 +348,18 @@ class MFTune:
 
     # ------------------------------------------------------------------ main
     def run(self, budget: Budget) -> TuningResult:
+        from contextlib import ExitStack
+
+        from .acquisition import acquisition_backend, acquisition_pool
+
+        with ExitStack() as stack:
+            if self.opt.acquisition_backend is not None:
+                stack.enter_context(acquisition_backend(self.opt.acquisition_backend))
+            if self.opt.acquisition_pool is not None:
+                stack.enter_context(acquisition_pool(self.opt.acquisition_pool))
+            return self._run(budget)
+
+    def _run(self, budget: Budget) -> TuningResult:
         from .acquisition import plane_cache_stats
 
         opt = self.opt

@@ -26,6 +26,7 @@ arena and the pool go to the kernel as they are.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,8 +45,10 @@ __all__ = [
     "forest_eval",
     "forest_eval_cuda",
     "forest_eval_plain",
+    "forest_eval_records",
     "forest_plan",
     "pack_nodes",
+    "uniform_plan",
 ]
 
 ROUTES = ("tiled", "gather")
@@ -331,13 +334,51 @@ def forest_eval_cuda(feat, thr, child, mean, var, roots, X, depth: int,
     R = nodes.n_records
     check("nodes.nodes", nodes.nodes, torch.int64, (R, 2), dev)
     check("nodes.stats", nodes.stats, torch.float64, (R, 2), dev)
-    check("nodes.trees", nodes.trees, torch.int32, (T + 1, 2), dev)
+    return forest_eval_records(nodes.nodes, nodes.stats, nodes.trees, X, plan, depth,
+                               (m_out, v_out))
+
+
+def uniform_plan(T: int, N: int, D: int, records: int, sms: int = 132) -> ForestPlan:
+    """:func:`forest_plan`'s ``tiled`` plan for T trees of at most
+    ``records`` records each whose features lie in [0, D): it serves every
+    such forest, so a CUDA graph can bake it in and replay it for any of
+    them."""
+    start = np.arange(T + 1, dtype=np.int64) * int(records)
+    shape = SimpleNamespace(n_trees=T, feat_range=(0, D - 1), tree_start=start)
+    return forest_plan(T, N, D, shape, sms)
+
+
+def forest_eval_records(nodes: torch.Tensor, stats: torch.Tensor, trees: torch.Tensor,
+                        X: torch.Tensor, plan: ForestPlan, depth: int,
+                        out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's ``tiled`` route on a node table's tensors alone (``nodes`` (R,
+    2) int64, ``stats`` (R, 2) float64, ``trees`` (T + 1, 2) int32, T =
+    rows of ``out``) under ``plan``, which must hold every group of
+    ``plan.trees`` trees' records. No host work but the launch: a CUDA
+    graph captures it. A tree walks at most ``depth`` levels."""
+    dev = X.device
+    N, D = X.shape
+    T = trees.shape[0] - 1
+    if plan.route != "tiled":
+        raise ValueError(f"forest_eval: a records launch needs a tiled plan, got {plan.route}")
+    if out is None:
+        out = (torch.empty((T, N), dtype=torch.float64, device=dev),
+               torch.empty((T, N), dtype=torch.float64, device=dev))
+    check("nodes", nodes, torch.int64, (-1, 2), dev)
+    check("stats", stats, torch.float64, (nodes.shape[0], 2), dev)
+    check("trees", trees, torch.int32, (T + 1, 2), dev)
+    check("X", X, torch.float64, (N, D), dev)
+    for name, o in zip(("m_out", "v_out"), out):
+        check(name, o, torch.float64, (T, N), dev)
+    if T == 0 or N == 0:
+        return out
     launch("forest_eval", "forest_eval_tiled_launch", dev,
-           (nodes.nodes, nodes.stats, nodes.trees, X, m_out, v_out),
+           (nodes, stats, trees, X, out[0], out[1]),
            (T, N, D, int(depth), plan.rows, plan.xstride, plan.trees, plan.lanes, plan.threads,
             int(D % 2 == 0 and X.data_ptr() % 16 == 0), plan.smem),
            route="tiled")
-    return m_out, v_out
+    return out
 
 
 def forest_eval(feat, thr, child, mean, var, roots, X, depth: int,

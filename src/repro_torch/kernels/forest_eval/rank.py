@@ -47,6 +47,7 @@ __all__ = [
     "COUNT_N",
     "ROUTES",
     "SWEEP_TILE",
+    "ascending_keys",
     "monotone_keys",
     "radix_rank",
     "radix_rank_cuda",
@@ -69,19 +70,33 @@ _MSB = -(1 << 63)        # int64 with only bit 63 set
 _LOW63 = (1 << 63) - 1   # ~_MSB
 
 
+def _keys(bits: torch.Tensor) -> torch.Tensor:
+    """Ascending uint64 keys (held in int64) of float64 bit patterns: ±0
+    canonicalize to one key, negatives complement and positives set the
+    most significant bit."""
+    bits = torch.where((bits & _LOW63) == 0, torch.zeros_like(bits), bits)
+    return torch.where(bits < 0, ~bits, bits | _MSB)
+
+
 def monotone_keys(scores: torch.Tensor) -> torch.Tensor:
     """int64 tensors holding uint64 keys whose unsigned ascending order is
     the descending float order of ``scores`` (float64).
 
     All integer bit arithmetic, as in the reference: negation is a
-    sign-bit XOR, ±0 canonicalize to one key, negatives complement and
-    positives set the most significant bit.
+    sign-bit XOR, then :func:`_keys`.
     """
     if scores.dtype != torch.float64:
         raise TypeError(f"scores must be float64, got {scores.dtype}")
-    bits = scores.contiguous().view(torch.int64) ^ _MSB
-    bits = torch.where((bits & _LOW63) == 0, torch.zeros_like(bits), bits)
-    return torch.where(bits < 0, ~bits, bits | _MSB)
+    return _keys(scores.contiguous().view(torch.int64) ^ _MSB)
+
+
+def ascending_keys(v: torch.Tensor) -> torch.Tensor:
+    """int64 tensors holding uint64 keys whose unsigned ascending order is
+    the ascending float order of ``v`` (float64), ±0 as one key: the
+    reference's ``_sort_perm_asc1d`` remap."""
+    if v.dtype != torch.float64:
+        raise TypeError(f"v must be float64, got {v.dtype}")
+    return _keys(v.contiguous().view(torch.int64))
 
 
 def radix_rank_plain(keys: torch.Tensor) -> torch.Tensor:

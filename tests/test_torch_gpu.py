@@ -60,7 +60,14 @@ plain version in both its functions: the state within 2e-5 of its largest
 magnitude, y within one bf16 step (2e-5 in float32), and, with the
 model's bf16 intra-chunk operands, where ulp-level differences flip a
 rounding, 95 % of y within that and all within one more step; the reduced
-rwkv6 on the card is held to the CPU.
+rwkv6 on the card is held to the CPU. The fused propose step's Q1 (the
+merged QuickScorer descent) and Q2 (combine + EI) are held to their plain
+versions bit for bit at 12 sources x 10 trees over the tuner's 60 knobs,
+pools of 1 to 131072, a two-word forest and root-leaf trees (Q1 also to
+K1's leaf stats), Q2 with no host sync; the engine's graphs to the CPU
+engine and the staged path over pools, planes and source counts (no host
+sync before the result's copy, each replay's launches counted), and its
+device pool to fresh draws a replay and the same draws from one seed.
 """
 from __future__ import annotations
 
@@ -1837,3 +1844,148 @@ def test_reduced_zamba2_on_the_card_matches_the_cpu(cuda, dtype):
     for key in ("ssm", "conv", "attn_k"):
         torch.testing.assert_close(cache[key].cpu().float(), hc[key].float(),
                                    atol=tol * float(hc[key].float().abs().max()), rtol=0)
+
+
+# ------------------------------------------- the fused propose step (Q1, Q2)
+
+
+_HISTORIES: dict = {}
+
+
+def _spark_plane(device, n_sources=12):
+    """A plane of forests fitted to simulated Spark histories over the
+    tuner's 60-knob space (12 sources x 10 trees, the fused step's scale),
+    and the space. The histories are drawn once a process."""
+    from repro_torch.core import make_forest
+    from repro_torch.core.surrogate import ForestPlane
+    from repro_torch.sparksim import SparkWorkload, all_task_specs, generate_history
+
+    space = SparkWorkload("tpch", 100, "A").space
+    forests = []
+    for i, spec in enumerate(all_task_specs()[:n_sources]):
+        if i not in _HISTORIES:
+            obs = generate_history(spec.workload(), n_obs=50, seed=i, device=device).successful()
+            _HISTORIES[i] = (space.encode_many([o.config for o in obs]),
+                             np.array([o.performance for o in obs]))
+        forests.append(make_forest(seed=i, device=device).fit(*_HISTORIES[i]))
+    return space, forests, ForestPlane([f.pack() for f in forests])
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4097, 131072])
+def test_qs_descent_matches_plain(cuda, n):
+    from repro_torch.core.propose import _PlaneEntry
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import ops, propose
+
+    space, _, plane = _spark_plane(cuda)
+    qs = _PlaneEntry(plane, space.dim).qs()[0]
+    X = space.sample(np.random.default_rng(n), n).unit_tensor(cuda)
+    T = qs.n_trees
+    counts.reset()
+    got = propose.qs_leaf_stats_cuda(X, qs, T + 5)
+    assert counts.LAUNCHES["qs_descent"] == 1
+    want = propose.qs_leaf_stats_plain(X, qs)
+    k1 = ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean, plane.var,
+                              plane.roots, X, plane.depth, plane.node_table())
+    torch.cuda.synchronize()
+    for g, w, k in zip(got, want, k1):
+        assert torch.equal(_bits(g[:T]), _bits(w)) and torch.equal(_bits(w), _bits(k))
+
+
+def test_qs_descent_two_words_and_root_leaves(cuda):
+    from repro_torch.core.propose import _PlaneEntry
+    from repro_torch.core.surrogate import ForestPlane, make_forest
+    from repro_torch.kernels.forest_eval import propose
+
+    rng = np.random.default_rng(1)
+    X = rng.random((220, 5))
+    forests = [make_forest(seed=0, device=cuda).fit(X, rng.normal(size=220)),
+               make_forest(seed=1, device=cuda).fit(X, np.full(220, 2.0))]
+    qs = _PlaneEntry(ForestPlane([f.pack() for f in forests]), 5).qs()[0]
+    assert qs.n_words == 2
+    pool = torch.from_numpy(rng.random((3000, 5))).to(cuda)
+    got = propose.qs_leaf_stats_cuda(pool, qs)
+    want = propose.qs_leaf_stats_plain(pool, qs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [256, 131072])
+def test_combine_ei_matches_plain(cuda, n):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.forest_eval import ops, propose
+
+    space, forests, plane = _spark_plane(cuda)
+    X = space.sample(np.random.default_rng(n), n).unit_tensor(cuda)
+    m, v = ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean, plane.var,
+                                plane.roots, X, plane.depth, plane.node_table())
+    S = len(forests)
+    ystats = torch.zeros((3, S + 3), dtype=torch.float64, device=cuda)
+    ystats[:, :S] = torch.stack([plane.y_means, plane.y_stds, plane.y_std_sqs])
+    inc = torch.zeros(S + 3, dtype=torch.float64, device=cuda)
+    inc[:S] = torch.tensor([float(f.y_.min()) for f in forests], dtype=torch.float64)
+    meta = torch.tensor([S, 10, n - 7], dtype=torch.int32, device=cuda)
+    counts.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = propose.combine_ei_cuda(m, v, ystats, inc, meta)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert counts.LAUNCHES["combine_ei"] == 1
+    want = propose.combine_ei_plain(m, v, ystats, inc, meta)
+    host = propose.combine_ei_plain(m.cpu(), v.cpu(), ystats.cpu(), inc.cpu(), meta.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(got).cpu(), _bits(host))
+    assert bool((got[:S, : n - 7] >= 0).all()) and bool((got[:S, n - 7:] == -1).all())
+
+
+@pytest.mark.parametrize("descent", ["forest", "qs"])
+def test_propose_graph_replay_matches_the_eager_step(cuda, descent):
+    """Host-pool calls through the engine's graphs give the CPU engine's
+    indices (and the staged path's) at several pool sizes and planes, with
+    no host sync before the result's copy; each replay adds the captured
+    launches to the counts."""
+    from repro_torch.core import ProposeEngine, aggregate_ranks, score_sources
+    from repro_torch.kernels import counts
+
+    space, card, _ = _spark_plane(cuda, 6)
+    _, host, _ = _spark_plane("cpu", 6)
+    eng, ref = ProposeEngine(space, seed=0), ProposeEngine(space, seed=0)
+    eng.check_sync = True
+    rng = np.random.default_rng(0)
+    for i, (n_pool, S) in enumerate([(200, 6), (256, 4), (3000, 6), (257, 5), (180, 6)]):
+        X = space.sample(rng, n_pool).unit()
+        incs, ws = list(rng.random(S)), list(rng.random(S) + 0.1)
+        counts.reset()
+        got = eng.score_topk(card[:S], X, incs, ws, 9, descent=descent)
+        assert counts.LAUNCHES["combine_ei"] >= 1 and counts.LAUNCHES["radix_rank"] >= 2
+        want = ref.score_topk(host[:S], X, incs, ws, 9, descent=descent)
+        staged = np.argsort(aggregate_ranks(score_sources(host[:S], X, incs), ws).numpy(),
+                            kind="stable")[:9]
+        assert np.array_equal(got, want) and np.array_equal(got, staged), i
+    stats = eng.graph_stats()
+    assert stats["graphs"] == 3 and stats["replays"] == 5 and stats["captures"] == 3
+    counts.reset()
+    eng.score_topk(card[:4], X, incs[:4], ws[:4], 9, descent=descent)
+    slot = eng.graphs[("host", 256, descent)]
+    assert counts.LAUNCHES == {**dict.fromkeys(counts.KERNELS, 0), **slot.launches}
+
+
+def test_propose_device_pool_graph_draws_fresh_pools(cuda):
+    from repro_torch.core import ProposeEngine
+
+    space, card, _ = _spark_plane(cuda, 3)
+    a, b = ProposeEngine(space, seed=0, pool_size=4096), ProposeEngine(space, seed=0,
+                                                                        pool_size=4096)
+    outs_a = [a.propose(card, [1.0, 2.0, 3.0], [0.5, 0.3, 0.2], 5) for _ in range(2)]
+    outs_b = [b.propose(card, [1.0, 2.0, 3.0], [0.5, 0.3, 0.2], 5) for _ in range(2)]
+    for (ia, ua, ga), (ib, ub, gb) in zip(outs_a, outs_b):
+        assert np.array_equal(ua, ub) and np.array_equal(ia, ib)
+        assert ua.shape == (128, space.dim) and np.all((ua >= 0) & (ua <= 1))
+        assert np.all(np.isfinite(ga)) and np.all(np.diff(ga) >= 0)
+    assert not np.array_equal(outs_a[0][1], outs_a[1][1])
+    assert a.graph_stats() == {"graphs": 1, "captures": 1, "replays": 2}
+    steps = a.propose(card, [1.0, 2.0, 3.0], [0.5, 0.3, 0.2], 5, steps=3)
+    assert steps[1].shape == (3, 128, space.dim) and not np.array_equal(steps[1][0],
+                                                                          steps[1][1])
