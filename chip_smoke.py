@@ -65,7 +65,24 @@ Phases, in order:
    beside its bound and the launch floor, the step's device time a call by
    stage and its host clock, graph against eager; the device pool at
    131072 (fresh draws a replay, the same pools from one seed);
-6. ``serve``: the LM serving path at the full width of llama3-8b (32
+6. ``baselines``: the paper's seven baseline tuners (``repro_torch.baselines``:
+   random search, vanilla BO, LOCAT, TopTune, Rover, LOFTune, Tuneful) at the
+   tuner phase's setting (TPC-H 100 GB, hardware A, the 31-task knowledge
+   base, 24 virtual hours, seed 0), each on a knowledge base of the same
+   source records and no target record (Rover adds its own), the counts
+   reset just before each run and read just after: each must find a finite
+   best and reach no plain version, K1 must launch in bo, locat, loftune and
+   rover and K2 in rover; each tuner's evaluations, best, wall, host seconds
+   by stage and launches, and MFTune's best from the tuner phase beside
+   them; the largest K1 and K2 calls of these runs held against their plain
+   versions (exact) and timed; Rover's trace exported with the port's
+   ``export_perfetto`` and ``export_jsonl``, read back and validated
+   against the port's schema; then each tuner, and MFTune with each of the
+   four space-compression variants (Box, Decrease, Project, Vote), at 8 h
+   on the ``agree`` phase's 2-task knowledge base on ``cuda`` and then on
+   ``cpu``, whose observation streams and trajectories must be identical,
+   each compressor called;
+7. ``serve``: the LM serving path at the full width of llama3-8b (32
    layers, d_model 4096, 32/8 heads of 128, d_ff 14336, vocab 128256,
    bf16, 16 GB of weights drawn on the card from seed 0): a 2 x 4096-token
    prefill through ``repro_torch.models.forward`` with
@@ -90,7 +107,7 @@ Phases, in order:
    in turns (that, this, this, that) and beside ``scaled_dot_product_attention`` with KV expanded to all
    heads (timed only), its float32 route timed too, and K4 at small shapes
    in both dtypes for every mask variant, rows that see no key included;
-7. ``train``: the dense training path at llama3-8b's full width with its
+8. ``train``: the dense training path at llama3-8b's full width with its
    depth cut from 32 to 8 layers (the cut, with its reason, is printed): bf16
    weights drawn on the card from seed 0, float32 AdamW moments, a batch of
    2 x 4096 tokens from ``SyntheticTokenPipeline(seed=0)``, ``attn_impl=
@@ -113,7 +130,7 @@ Phases, in order:
    first call in ``Trainer.run`` as in every path below: against its
    plain version, then timed in turns with the CUDA-core design, beside SDPA
    and its bound;
-8. ``moe``: the MoE serving path at mixtral-8x22b's full width with its
+9. ``moe``: the MoE serving path at mixtral-8x22b's full width with its
    depth cut from 56 to 8 layers (the cut, with its reason, is printed):
    d_model 6144, 48/8 heads of 128, 8 experts top-2 of width 16384, vocab
    32768, window 4096, bf16 weights drawn on the card from seed 0 (40.9
@@ -141,7 +158,7 @@ Phases, in order:
    past C, NaN past each), the route taken asserted;
    K4 at its first call (window 4096 at 8192 tokens, SDPA with a boolean
    mask);
-9. ``ssm``: the SSM serving path at rwkv6-7b's full width and depth (32
+10. ``ssm``: the SSM serving path at rwkv6-7b's full width and depth (32
    layers, d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab 65536, chunk
    64, bf16 weights drawn on the card from seed 0, 16.1 GB; ``u_bonus`` and
    the token-shift mixes, zero by the init rules, drawn from seed 1). A
@@ -173,7 +190,7 @@ Phases, in order:
    (the backward of every norm), each with its route (K10 resident, K11
    cluster, and K7 ring in every decode step that counts it); a decode step here launches no K7 (no
    attention);
-10. ``hybrid``: the hybrid serving path at zamba2-2.7b's full width and depth
+11. ``hybrid``: the hybrid serving path at zamba2-2.7b's full width and depth
    (54 Mamba2 layers, d_model 2560, 80 SSD heads of P = N = 64, conv 4,
    chunk 128; one shared attention + FFN block after every 6 layers, 32
    heads of 80, d_ff 10240; vocab 32000; bf16 weights drawn on the card from
@@ -199,9 +216,9 @@ Phases, in order:
    ring route timed in turns with the first design (first, ring, ring,
    first), beside the plain version, SDPA and its bound (the bytes of the
    cache); K4 at its first call (head dim 80);
-11. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+12. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
-12. the seconds of each phase, one JSON line with the kernels' numbers, the
+13. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -1410,6 +1427,213 @@ def check_k3_sizes(device) -> None:
         if label == "trees_120" and staged.tiles < 2:
             fail("K3's staged route at 120 trees did not tile its trees")
         k3_turns(args, 20)
+
+
+# ---------------------------------------------------------------------------
+# the paper's baseline tuners (ROADMAP item 9) through K1 and K2
+# ---------------------------------------------------------------------------
+
+BASELINES = ("RandomSearch", "VanillaBO", "LOCAT", "TopTune", "Rover", "LOFTune", "Tuneful")
+BASELINE_K1 = ("VanillaBO", "LOCAT", "LOFTune", "Rover")  # must launch K1 in the grid run
+BASELINE_K2 = ("Rover",)                                  # must launch K2 in the grid run
+BASELINE_HOURS = 24.0          # the paper's §7.1 budget, every tuner
+AGREE_HOURS = 8.0              # the card-against-CPU runs (2-task knowledge base)
+COMPRESSORS = ("BoxCompressor", "DecreaseCompressor", "ProjectCompressor", "VoteCompressor")
+BASELINE_TRACED = "Rover"      # the tuner whose trace is exported and validated
+
+
+def fresh_kb(kb):
+    """A knowledge base of ``kb``'s source records without the target's:
+    the tuners read the sources and never write them, and Rover adds its
+    own target record to the knowledge base it is given."""
+    from repro_torch.core import KnowledgeBase
+    from repro_torch.sparksim import make_task_id
+
+    out = KnowledgeBase()
+    target = make_task_id(*TARGET)
+    for tid, rec in kb.tasks.items():
+        if tid != target:
+            out.add_task(rec, persist=False)
+    return out
+
+
+def run_baseline(name: str, kb, device, hours: float) -> dict:
+    """One baseline tuner's fixed-seed run on TPC-H 100 GB, hardware A, with
+    every kernel's count reset just before ``run`` and read just after."""
+    import torch
+
+    from repro_torch import baselines, obs
+    from repro_torch.kernels import counts
+    from repro_torch.sparksim import SparkWorkload
+    from repro_torch.tuneapi import Budget
+
+    tuner = getattr(baselines, name)(SparkWorkload(*TARGET), kb=kb, seed=0, device=device)
+    counts.reset()
+    t0 = time.perf_counter()
+    with obs.tracing(name=f"baseline:{name}") as tracer:
+        res = tuner.run(Budget(hours * 3600.0))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = counts.snapshot()
+    stream = [(o.performance, o.fidelity, o.failed, tuple(sorted(o.config.items())))
+              for o in tuner.obs]
+    traj = [(p.time, p.best, tuple(sorted(p.config.items()))) for p in res.trajectory]
+    return dict(res=res, stream=stream, traj=traj, wall=wall, tracer=tracer,
+                launches={k: v for k, v in snap["launches"].items() if v},
+                plain={k: v for k, v in snap["plain_calls"].items() if v})
+
+
+class CountedCompressor:
+    """An ``MFTuneOptions.compressor`` that counts its calls."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, 0
+
+    def __call__(self, space, weights, tasks, target=None):
+        self.calls += 1
+        return self.inner(space=space, weights=weights, tasks=tasks, target=target)
+
+
+def check_trace_export(tracer) -> dict:
+    """Export a tuner's trace with the port's exporters, read both files back
+    and validate every event against the port's schema."""
+    import tempfile
+
+    from repro_torch import obs
+
+    with tempfile.TemporaryDirectory() as td:
+        pf, jl = Path(td) / "trace.perfetto.json", Path(td) / "trace.jsonl"
+        obs.export_perfetto(tracer, str(pf))
+        obs.export_jsonl(tracer, str(jl))
+        back_pf, back_jl = obs.read_events(str(pf)), obs.read_events(str(jl))
+        out = dict(events=len(back_pf), perfetto_bytes=pf.stat().st_size,
+                   violations=len(obs.validate_events(back_pf))
+                   + len(obs.validate_events(back_jl)),
+                   spans=sum(e["type"] == "span" for e in back_pf))
+    print(f"[baselines] trace of {BASELINE_TRACED}: {out['events']} events, {out['spans']} "
+          f"spans, perfetto {out['perfetto_bytes']} bytes, schema violations "
+          f"{out['violations']}", flush=True)
+    if out["violations"] or len(back_pf) != len(back_jl) or not out["spans"]:
+        fail(f"the exported baseline trace does not validate: {out}")
+    return out
+
+
+def baselines_agree(specs) -> dict:
+    """Each tuner, and MFTune with each space-compression variant, at 8 h on
+    the 2-task knowledge base of :func:`run_agreement`, on the card and then
+    on the CPU: the observation streams and trajectories must be identical,
+    and each compressor called."""
+    from repro_torch import baselines
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        kb = build_kb(specs, 20, dev)
+        for name in BASELINES:
+            r = run_baseline(name, fresh_kb(kb), dev, AGREE_HOURS)
+            if dev == "cuda" and r["plain"]:
+                fail(f"{name} on the card reached a plain version: {r['plain']}")
+            out[(name, dev)] = (r["stream"], r["traj"], r["res"].best_performance)
+        for cname in COMPRESSORS:
+            inner = getattr(baselines, cname)
+            comp = CountedCompressor(inner(device=dev) if cname == "DecreaseCompressor"
+                                     else inner())
+            res, sig, traj, _ = tune(fresh_kb(kb), dev, AGREE_HOURS, compressor=comp)
+            if comp.calls == 0:
+                fail(f"MFTune on {dev} never called {cname}")
+            out[(cname, dev)] = (sig, traj, res.best_performance, comp.calls)
+        print(f"[baselines] agree: {dev} runs in {time.perf_counter() - t0:.3f} s", flush=True)
+    rows = {}
+    for name in BASELINES + COMPRESSORS:
+        a, b = out[(name, "cuda")], out[(name, "cpu")]
+        same = a[0] == b[0] and a[1] == b[1] and a[2] == b[2]
+        rows[name] = dict(evaluations=len(a[0]), identical=same, best=a[2],
+                          **({"compressor_calls": a[3]} if len(a) > 3 else {}))
+        print(f"[baselines] agree {name}: cuda and cpu identical={same} "
+              f"observations={len(a[0])} best_latency_s={a[2]}"
+              + (f" compressor_calls={a[3]}" if len(a) > 3 else ""), flush=True)
+    bad = [n for n, r in rows.items() if not (r["identical"] and r["evaluations"] > 0)]
+    if bad:
+        fail(f"card and CPU runs disagree: {bad}")
+    return rows
+
+
+def run_baselines(device, mftune_best=None, kb=None) -> tuple:
+    """The seven baseline tuners at the paper's §7.1 setting (TPC-H 100 GB on
+    hardware A, a knowledge base of the other 31 tasks x 50 observations,
+    24 virtual hours, seed 0) on the card, each on a fresh knowledge base;
+    the largest K1 and K2 calls of these runs held against their plain
+    versions; one tuner's trace exported and validated; then the card
+    against the CPU. Returns (K1 and K2's numbers for the kernels line, the
+    phase's numbers)."""
+    import math
+
+    from repro_torch.sparksim import TaskSpec
+
+    t_phase = time.perf_counter()
+    if kb is None:
+        t0 = time.perf_counter()
+        kb = grid_kb(KB_OBS, device)
+        print(f"[baselines] {len(kb.tasks)} histories x {KB_OBS} built in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    runs = {}
+    with capture_calls() as captured:
+        for name in BASELINES:
+            r = run_baseline(name, fresh_kb(kb), device, BASELINE_HOURS)
+            res = r["res"]
+            runs[name] = r
+            print(f"[baselines] {name}: hours={BASELINE_HOURS} evaluations={res.n_evaluations} "
+                  f"best_latency_s={res.best_performance} wall_s={r['wall']:.3f} "
+                  f"launches={r['launches']} plain_calls={r['plain']} overheads_s="
+                  + " ".join(f"{k}={v:.3f}" for k, v in res.overheads.items())
+                  + " spans_s=" + " ".join(f"{k}={v:.3f}"
+                                           for k, v in span_seconds(r["tracer"]).items()),
+                  flush=True)
+    if mftune_best is not None:
+        print(f"[baselines] MFTune (the tuner phase, same setting): best_latency_s={mftune_best}",
+              flush=True)
+    print("[baselines] table: " + "; ".join(
+        f"{n} {r['res'].n_evaluations} evals best {r['res'].best_performance:.3f} s "
+        f"wall {r['wall']:.3f} s K1 {r['launches'].get('forest_eval', 0)} "
+        f"K2 {r['launches'].get('radix_rank', 0)}" for n, r in runs.items())
+        + (f"; MFTune best {mftune_best:.3f} s" if mftune_best is not None else ""), flush=True)
+    for name, r in runs.items():
+        best = r["res"].best_performance
+        if not (math.isfinite(best) and best > 0):
+            fail(f"{name} found no finite best latency")
+        if r["plain"]:
+            fail(f"{name} on the card reached a plain version: {r['plain']}")
+    missing = ([f"{n}: forest_eval" for n in BASELINE_K1
+                if not runs[n]["launches"].get("forest_eval")]
+               + [f"{n}: radix_rank" for n in BASELINE_K2
+                  if not runs[n]["launches"].get("radix_rank")])
+    if missing:
+        fail(f"kernels never launched on the baselines' path: {missing}")
+    held = {}
+    for name in ("forest_eval", "radix_rank"):
+        rec = captured[name]
+        print(f"[baselines] {name}: calls by shape: {dict(rec['shapes'].most_common(6))}",
+              flush=True)
+        row = hold(name, rec["largest"], reps=50)
+        if not row["match"]:
+            fail(f"{name} disagrees with its plain version at the baselines' largest call")
+        held[name] = {k: row[k] for k in ("shape", "match", "max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
+    trace = check_trace_export(runs[BASELINE_TRACED]["tracer"])
+    agree = baselines_agree([TaskSpec("tpch", 600, "B"), TaskSpec("tpch", 100, "B")])
+    kernel_keys = {
+        name: dict(baselines_launches={n: r["launches"].get(name, 0) for n, r in runs.items()},
+                   baselines_largest=held[name])
+        for name in ("forest_eval", "radix_rank")}
+    phase = dict(
+        hours=BASELINE_HOURS, mftune_best=mftune_best, trace=trace, agree=agree,
+        tuners={n: dict(evaluations=r["res"].n_evaluations, best=r["res"].best_performance,
+                        wall_s=r["wall"], overheads=r["res"].overheads,
+                        launches=r["launches"]) for n, r in runs.items()},
+        seconds=time.perf_counter() - t_phase)
+    print(f"[baselines] phase seconds {phase['seconds']:.1f}", flush=True)
+    return kernel_keys, phase
 
 
 def run_agreement() -> None:
@@ -4001,6 +4225,11 @@ def main() -> int:
     phase_s["propose"] = time.perf_counter() - t0
     print(f"[propose] phase seconds {phase_s['propose']:.1f}", flush=True)
     t0 = time.perf_counter()
+    baseline_keys, baselines_phase = run_baselines(device, first[0].best_performance, kb)
+    for row in main_rows[:3]:
+        row.update(baseline_keys.get(row["name"], {}))
+    phase_s["baselines"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     k4_row, k4_launches, serve_k10, serve_k7, long_step = run_serve(device)
     phase_s["serve"] = time.perf_counter() - t0
     launches["flash_attn_fwd"] = k4_launches
@@ -4046,7 +4275,7 @@ def main() -> int:
                                      "w_down_", "with_dw_", "turns_", "split", "long_",
                                      "first_design", "step_", "tuner_", "traced_",
                                      "launch_floor", "design_floor", "staged_", "values_",
-                                     "eval_", "events_", "propose_"))
+                                     "eval_", "events_", "propose_", "baselines_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
@@ -4075,11 +4304,14 @@ def main() -> int:
     # prefill; K7 at the hybrid engine's decode step (and at caches of 4 x
     # 4096 keys) with its launches in the hybrid engine run (and per decode
     # step in each phase beside them);
+    # K1 and K2 also with their launches in each baseline tuner's 24 h run
+    # and their largest call there ("baselines_launches", "baselines_largest");
     # "at_scale": K1 and K2 at 131072 candidates, which the tuner run does
     # not reach (no launch count)
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],
                       "at_scale": [line(r, None) for r in scale_rows],
-                      "propose": {"tuner": fused, "step": step_numbers}}), flush=True)
+                      "propose": {"tuner": fused, "step": step_numbers},
+                      "baselines": baselines_phase}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

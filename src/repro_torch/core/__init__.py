@@ -3,6 +3,7 @@
 Public API (names as in ``repro.core``):
   ConfigSpace & knobs       — search-space definition with range unions
   ProbabilisticRandomForest — BO surrogate (paper §3.3), device inference
+  GaussianProcess           — the Tuneful baseline's GP, host numpy
   SimilarityEngine          — §4.2 transfer weights + transition mechanism
   SpaceCompressor           — §5 SHAP+KDE density-based compression
   greedy_query_subset       — §6.1 Alg. 2 fidelity partitioning
@@ -24,6 +25,7 @@ from .space import (
 )
 from .surrogate import (
     ForestPlane,
+    GaussianProcess,
     PackedForest,
     ProbabilisticRandomForest,
     make_forest,
@@ -79,7 +81,8 @@ from .mftune import MFTune, MFTuneOptions, TuningResult
 __all__ = [
     "BoolKnob", "CatKnob", "ConfigSpace", "FloatKnob", "IntKnob", "Intervals",
     "ConfigBatch", "SpacePlane",
-    "ProbabilisticRandomForest", "PackedForest", "ForestPlane", "make_forest",
+    "GaussianProcess", "ProbabilisticRandomForest", "PackedForest", "ForestPlane",
+    "make_forest",
     "expected_improvement", "aggregate_ranks", "normal_cdf", "score_sources",
     "EI_VAR_FLOOR", "set_plane_cache_size", "plane_cache_stats",
     "set_acquisition_backend", "get_acquisition_backend", "acquisition_backend",

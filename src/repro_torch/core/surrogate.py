@@ -36,6 +36,7 @@ __all__ = [
     "PackedForest",
     "ForestPlane",
     "Surrogate",
+    "GaussianProcess",
     "combine",
     "make_forest",
 ]
@@ -678,3 +679,75 @@ class ProbabilisticRandomForest(Surrogate):
 def make_forest(seed: int = 0, device: DeviceLike = None, **kwargs) -> ProbabilisticRandomForest:
     """Every surrogate stack in the port builds PRFs here."""
     return ProbabilisticRandomForest(seed=seed, device=device, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Gaussian process (for the Tuneful MTGP baseline)
+# ---------------------------------------------------------------------------
+
+
+class GaussianProcess(Surrogate):
+    """Exact GP with Matérn-5/2 kernel, constant mean, jitter + noise MLE-lite.
+
+    Hyperparameters are set by a small grid search over (lengthscale, noise)
+    maximizing the log marginal likelihood — adequate at these data sizes.
+
+    The fit and the prediction stay on the host in numpy, the reference's own
+    arithmetic: a Cholesky factor and triangular solves through torch round
+    differently, and the Tuneful baseline that uses this GP is held to the
+    reference's observation stream bit for bit. The GP takes no device.
+    """
+
+    def __init__(self, lengthscales=(0.1, 0.2, 0.5, 1.0, 2.0), noises=(1e-6, 1e-4, 1e-2)):
+        self.lengthscales = lengthscales
+        self.noises = noises
+        self.X_: Optional[np.ndarray] = None
+        self.alpha_: Optional[np.ndarray] = None
+        self.L_: Optional[np.ndarray] = None
+        self.ls_: float = 0.5
+        self.noise_: float = 1e-4
+        self._y_mean = 0.0
+        self._y_std = 1.0
+
+    @staticmethod
+    def _matern52(A: np.ndarray, B: np.ndarray, ls: float) -> np.ndarray:
+        d2 = np.maximum(
+            (A**2).sum(1)[:, None] + (B**2).sum(1)[None, :] - 2 * A @ B.T, 0.0
+        )
+        r = np.sqrt(d2) / ls
+        s5r = np.sqrt(5.0) * r
+        return (1 + s5r + 5 * d2 / (3 * ls**2)) * np.exp(-s5r)
+
+    def fit(self, X: np.ndarray, y: np.ndarray) -> "GaussianProcess":
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        y = np.asarray(y, dtype=float)
+        self._y_mean = float(y.mean()) if len(y) else 0.0
+        self._y_std = float(y.std()) or 1.0
+        yn = (y - self._y_mean) / self._y_std
+        best = (np.inf, None)
+        n = len(X)
+        for ls in self.lengthscales:
+            K0 = self._matern52(X, X, ls)
+            for noise in self.noises:
+                K = K0 + (noise + 1e-8) * np.eye(n)
+                try:
+                    L = np.linalg.cholesky(K)
+                except np.linalg.LinAlgError:
+                    continue
+                alpha = np.linalg.solve(L.T, np.linalg.solve(L, yn))
+                nll = 0.5 * yn @ alpha + np.log(np.diag(L)).sum()
+                if nll < best[0]:
+                    best = (nll, (ls, noise, L, alpha))
+        if best[1] is None:
+            raise RuntimeError("GP fit failed")
+        self.ls_, self.noise_, self.L_, self.alpha_ = best[1]
+        self.X_ = X
+        return self
+
+    def predict(self, X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        Ks = self._matern52(X, self.X_, self.ls_)
+        mean = Ks @ self.alpha_
+        v = np.linalg.solve(self.L_, Ks.T)
+        var = np.maximum(1.0 - (v**2).sum(axis=0), 1e-10)
+        return mean * self._y_std + self._y_mean, var * self._y_std**2

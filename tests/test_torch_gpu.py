@@ -1989,3 +1989,39 @@ def test_propose_device_pool_graph_draws_fresh_pools(cuda):
     steps = a.propose(card, [1.0, 2.0, 3.0], [0.5, 0.3, 0.2], 5, steps=3)
     assert steps[1].shape == (3, 128, space.dim) and not np.array_equal(steps[1][0],
                                                                           steps[1][1])
+
+
+def _baseline_run(name, device):
+    """One baseline tuner for 8 virtual hours on a fresh knowledge base of
+    {tpch-600-B, tpch-100-B} x 20, built on ``device``: its observation
+    stream, trajectory and launch counts."""
+    from repro_torch import baselines
+    from repro_torch.core import KnowledgeBase
+    from repro_torch.kernels import counts
+    from repro_torch.sparksim import SparkWorkload, TaskSpec, generate_history
+    from repro_torch.tuneapi import Budget
+
+    kb = KnowledgeBase()
+    for i, spec in enumerate([TaskSpec("tpch", 600, "B"), TaskSpec("tpch", 100, "B")]):
+        kb.add_task(generate_history(spec.workload(), n_obs=20, seed=i, device=device),
+                    persist=False)
+    tuner = getattr(baselines, name)(SparkWorkload("tpch", 100, "A"), kb=kb, seed=0,
+                                     device=device)
+    counts.reset()
+    res = tuner.run(Budget(8 * 3600.0))
+    snap = counts.snapshot()
+    stream = [(o.performance, o.fidelity, o.failed, tuple(sorted(o.config.items())))
+              for o in tuner.obs]
+    traj = [(p.time, p.best, tuple(sorted(p.config.items()))) for p in res.trajectory]
+    return stream, traj, snap
+
+
+@pytest.mark.parametrize("name,kernels", [("VanillaBO", ("forest_eval",)),
+                                          ("Rover", ("forest_eval", "radix_rank"))])
+def test_baseline_on_the_card_equals_its_cpu_run(cuda, name, kernels):
+    card = _baseline_run(name, cuda)
+    host = _baseline_run(name, "cpu")
+    assert card[0] == host[0] and len(card[0]) >= 8
+    assert card[1] == host[1]
+    assert all(card[2]["launches"][k] > 0 for k in kernels), card[2]
+    assert not any(card[2]["plain_calls"].values()), card[2]
