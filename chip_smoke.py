@@ -216,9 +216,29 @@ Phases, in order:
    ring route timed in turns with the first design (first, ring, ring,
    first), beside the plain version, SDPA and its bound (the bytes of the
    cache); K4 at its first call (head dim 80);
-12. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+12. ``train_ssm`` and ``train_hybrid``: training of rwkv6-7b with its depth
+    cut from 32 to 8 layers and of zamba2-2.7b cut from 54 to 18 (three
+    whole groups of 6, so the shared attention block fires), both at full
+    width, vocab and sequence (the memory reckoning that sets each cut is
+    printed: 2 bf16 weight + 2 bf16 gradient + 8 float32 AdamW moment bytes
+    a parameter, before the activations of 2 x 4096 tokens), bf16 weights
+    from seed 0 (the zero-initialised u_bonus and mixes, or D and dt_bias,
+    drawn from seed 1), ``attn_impl="flash"``. ``Trainer.run(3)`` on 2 x
+    4096 tokens, counts reset just before it and read just after: a K12 or
+    K8 and a K12b or K8b launch a layer a step, K10 and K11 at every norm,
+    the hybrid's K4-K6 once a group a step, no plain call of any kernel; the
+    first loss within 1 of ln(vocab); three steps on one repeated batch,
+    the loss falling; the kernels' route against the plain route (K12/K8,
+    K12b/K8b, K10/K11 plain, ``xla``) from the same weights on one 2048-token
+    sequence in float32 activations, losses within 1e-2 and every gradient
+    leaf within 5e-2 relative in L2; K12b or K8b on its first layer's
+    training inputs against its plain version, in the model's function
+    (within two bf16 steps of each gradient's largest magnitude) and upcast
+    to float32 in the Pallas kernel's (2e-5), timed by CUDA events beside
+    its plain version and its bound; then at small and ragged shapes;
+13. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
-13. the seconds of each phase, one JSON line with the kernels' numbers, the
+14. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -4167,6 +4187,355 @@ def run_hybrid(device, per_step: dict, long_step: dict = None) -> tuple:
     return rows, k8, e7, k4, k10, k4_row
 
 
+# ---------------------------------------------------------------------------
+# SSM and hybrid training (rwkv6-7b with 8 of 32 layers, zamba2-2.7b with 18
+# of 54 layers, both at full width), through K12b and K8b
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept, the reason printed with the reckoning)
+FAMILY_TRAIN = {
+    "ssm": (SSM_ARCH, 8, "as llama3-8b and mixtral-8x22b were cut"),
+    "hybrid": (HYB_ARCH, 18, "three whole groups of attn_every = 6, so the shared attention "
+                             "block fires 3 times (K4-K6 at head dim 80)"),
+}
+FAMILY_STEPS = 3
+K12B_SOURCE = ("src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
+               "none: no Pallas original; the reference's backward is jax.vjp of wkv_ref "
+               "(src/repro/kernels/rwkv6_wkv/ops.py:30)")
+K8B_SOURCE = ("src/repro_torch/csrc/mamba2_ssd_bwd.cu",
+              "none: no Pallas original; the reference's backward is jax.vjp of ssd_ref "
+              "(src/repro/kernels/mamba2_ssd/ops.py:31)")
+# the route comparison runs in float32 activations (the bf16 weights
+# upcast) on one sequence of this many tokens, where bf16 roundings do not
+# compound through the layers (the ssm and hybrid phases' account)
+FAMILY_ROUTE_TOKENS = 2048
+
+
+def family_reckoning(cfg, n_full: int, n_cut: int, tag: str, why: str) -> None:
+    """Print the memory reckoning that sets the cut: 2 bf16 weight, 2 bf16
+    gradient and 8 float32 AdamW moment bytes a parameter."""
+    print(f"[{tag}] {cfg.name} cut to {cfg.n_layers} layers ({why}): at full depth "
+          f"{n_full / 1e9:.2f} B params x (2 bf16 weight + 2 bf16 grad + 8 float32 AdamW "
+          f"moment) bytes = {n_full * 12 / 1e9:.1f} GB before the activations of 2 x 4096 "
+          f"tokens; at {cfg.n_layers} layers {n_cut / 1e9:.2f} B x 12 = {n_cut * 12 / 1e9:.1f} "
+          f"GB. Widths, vocab and sequence as published: d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}", flush=True)
+
+
+def grad_close(got, want, exact: bool) -> tuple:
+    """(within bounds, max abs error, largest magnitude) of a backward
+    kernel's outputs against its plain version's: each within 2e-5 of its
+    largest magnitude where the function rounds nothing to bf16 (``exact``),
+    else within two bf16 steps of it."""
+    import torch
+
+    ok, err, scale = True, 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        s = max(float(w.abs().max()), 1e-30)
+        e = float((g - w).abs().max())
+        ok = ok and bool(torch.isfinite(g).all()) and e <= (2e-5 if exact else 2 * BF16_STEP) * s
+        err, scale = max(err, e), max(scale, s)
+    return ok, err, scale
+
+
+def wkv_bwd_op_counts(B: int, S: int, H: int, K: int, c: int, bf16_intra: bool) -> tuple:
+    """(float32 operations, bf16-operand operations) of K12b's function: per
+    (b, h) and chunk the state recomputed and the four state products (c K^2
+    multiply-adds each), the five intra-chunk products over the strict lower
+    triangle (K c(c-1)/2 each; bf16 operands in the model's function), about
+    40 operations an element for the exps and the gradients' sums, and dS's
+    decay and row sums (4 K^2)."""
+    intra = 2 * 5 * (c * (c - 1) // 2) * K
+    return scan_ops(B * H * (S // c), 2 * 5 * c * K * K + 40 * c * K + 4 * K * K, intra,
+                    bf16_intra)
+
+
+def ssd_bwd_op_counts(B: int, S: int, H: int, P: int, N: int, c: int, model_bf16: bool) -> tuple:
+    """(float32 operations, bf16-operand operations) of K8b's function: per
+    (b, h) and chunk the state recomputed and the four state products (c P N
+    multiply-adds each), the five intra-chunk products over the lower
+    triangle (c(c+1)/2 times N, P, N, N, P), about 10 operations a (q, s)
+    pair for the decay mask and its gradients, 20 an element of x, B, C."""
+    tri = c * (c + 1) // 2
+    intra = 2 * tri * (3 * N + 2 * P)
+    return scan_ops(B * H * (S // c), 2 * 5 * c * P * N + 10 * tri + 20 * c * (P + 2 * N), intra,
+                    model_bf16)
+
+
+def hold_scan_bwd(family: str, call, launches: int) -> dict:
+    """K12b or K8b on its first layer's training inputs (``call``, the args
+    of the layer's backward launch) against its plain version, in the
+    model's function and upcast to float32 in the Pallas kernel's (every
+    product float32), timed by CUDA events beside the plain version and the
+    bound; no PyTorch call computes it (``library_ms`` None)."""
+    import torch
+
+    if family == "ssm":
+        from repro_torch.kernels.rwkv6_wkv import ops
+
+        r, k, v, w, u, dy, dstate, chunk, bf16_intra = call[0]
+        fn, plain, name, src = ops.wkv_bwd_cuda, ops.wkv_bwd_plain, "rwkv6_wkv_bwd", K12B_SOURCE
+        model = (r, k, v, w, u, dy, dstate, chunk, bf16_intra)
+        f32 = tuple(t.float() for t in (r, k, v, w)) + (u, dy.float(), dstate, chunk, False)
+        B, S, H, K = r.shape
+        n_in = 5
+        ops_model = wkv_bwd_op_counts(B, S, H, K, chunk, True)
+        ops_f32 = sum(wkv_bwd_op_counts(B, S, H, K, chunk, False))
+        shape = (f"r/k/v/dy={tuple(r.shape)} {str(r.dtype)[6:]} w {str(w.dtype)[6:]} "
+                 f"chunk={chunk} bf16 intra-chunk operands")
+    else:
+        from repro_torch.kernels.mamba2_ssd import ops
+
+        x, Bm, Cm, a, dy, dstate, chunk, mdl = call[0]
+        fn, plain, name, src = ops.ssd_bwd_cuda, ops.ssd_bwd_plain, "mamba2_ssd_bwd", K8B_SOURCE
+        model = (x, Bm, Cm, a, dy, dstate, chunk, mdl)
+        f32 = tuple(t.float() for t in (x, Bm, Cm)) + (a, dy.float(), dstate, chunk, False)
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        n_in = 4
+        ops_model = ssd_bwd_op_counts(B, S, H, P, N, chunk, x.dtype == torch.bfloat16)
+        ops_f32 = sum(ssd_bwd_op_counts(B, S, H, P, N, chunk, False))
+        shape = (f"x/dy={tuple(x.shape)} B/C={tuple(Bm.shape)} (views of one row) "
+                 f"{str(x.dtype)[6:]} chunk={chunk} the model's function")
+    tag = "train_" + family
+    checks = {}
+    for label, args, exact in (("the model's function", model, False),
+                               ("upcast to float32, float32 products", f32, True)):
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        checks[label] = grad_close(got, want, exact)
+        ok, err, scale = checks[label]
+        print(f"[{tag}] {name} vs plain at the first layer's inputs, {label}: largest "
+              f"|plain| {scale} max err {err} match={ok}", flush=True)
+        del got, want
+    def moved(args):   # every input read once, each input's gradient written once
+        return (nbytes(*(t for t in args if torch.is_tensor(t)))
+                + nbytes(*(t for t in args[:n_in] if torch.is_tensor(t))))
+
+    n_bytes = moved(model)
+    b_ms, b_by = bound(n_bytes, ops_model[0], bf16_ops=ops_model[1])
+    f32_b_ms, f32_b_by = bound(moved(f32), ops_f32)
+    ms = cuda_time_ms(lambda: fn(*model), 5)
+    f32_ms = cuda_time_ms(lambda: fn(*f32), 3)
+    row = dict(name=name, source=src[0], replaces=src[1], shape=shape,
+               match=all(c[0] for c in checks.values()),
+               max_abs_err=max(c[1] for c in checks.values()), ms=ms,
+               plain_ms=cuda_time_ms(lambda: plain(*model), 2), bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, library="none: no PyTorch call computes it",
+               float32_products_ms=f32_ms, float32_products_bound_ms=f32_b_ms,
+               float32_products_bound_by=f32_b_by)
+    print(f"[{tag}] {name} at the first layer's inputs: {shape} match={row['match']} "
+          f"max_abs_err={row['max_abs_err']} ms={ms:.6f} plain_ms={row['plain_ms']:.6f} "
+          f"bound_ms={b_ms:.6f} ({b_by}: {n_bytes} bytes, {ops_model[0]:.6g} "
+          f"float32 and {ops_model[1]:.6g} bf16-operand operations); float32 products "
+          f"ms={f32_ms:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); launches in "
+          f"Trainer.run={launches}", flush=True)
+    return row
+
+
+def check_scan_bwd_small(family: str) -> list:
+    """K12b or K8b against its plain version at small and ragged shapes, in
+    both functions and dtypes, with the final state's gradient; returns the
+    cases that disagree."""
+    import torch
+
+    bad = []
+    g = torch.Generator(device="cpu").manual_seed(3)
+    if family == "ssm":
+        from repro_torch.kernels.rwkv6_wkv import ops
+
+        for B, S, H, K, chunk in [(2, 128, 2, 64, 64), (1, 48, 3, 32, 32), (2, 33, 2, 16, 16),
+                                  (1, 96, 3, 24, 64)]:
+            for dt in (torch.float32, torch.bfloat16):
+                for bf16_intra in (False, True):
+                    r, k, v, dy = (torch.randn((B, S, H, K), generator=g).to("cuda", dt) * 0.5
+                                   for _ in range(4))
+                    w = (-torch.nn.functional.softplus(torch.randn((B, S, H, K), generator=g))
+                         - 0.1).clamp_min(-2.0).to("cuda")
+                    u = (torch.randn((1, H, K), generator=g) * 0.3).to("cuda")
+                    ds = torch.randn((B, H, K, K), generator=g).to("cuda")
+                    c = ops.cut_chunk(chunk, S)
+                    a = (r, k, v, w, u, dy, ds, c, bf16_intra)
+                    ok = grad_close(ops.wkv_bwd_cuda(*a), ops.wkv_bwd_plain(*a),
+                                    dt == torch.float32 and not bf16_intra)[0]
+                    if not ok:
+                        bad.append(f"{(B, S, H, K, chunk)} {dt} bf16_intra={bf16_intra}")
+    else:
+        from repro_torch.kernels.mamba2_ssd import ops
+
+        for B, S, H, P, N, chunk in [(2, 256, 2, 64, 64, 128), (1, 64, 3, 32, 16, 32),
+                                     (2, 200, 2, 24, 40, 128), (1, 100, 2, 32, 16, 128)]:
+            for dt in (torch.float32, torch.bfloat16):
+                for mdl in (False, True):
+                    x, dy = (torch.randn((B, S, H, P), generator=g).to("cuda", dt) * 0.5
+                             for _ in range(2))
+                    Bm, Cm = (torch.randn((B, S, H, N), generator=g).to("cuda", dt) * 0.5
+                              for _ in range(2))
+                    a = -torch.nn.functional.softplus(torch.randn((B, S, H), generator=g)).to(
+                        "cuda")
+                    ds = torch.randn((B, H, P, N), generator=g).to("cuda")
+                    c = ops.cut_chunk(chunk, S)
+                    args = (x, Bm, Cm, a, dy, ds, c, mdl)
+                    ok = grad_close(ops.ssd_bwd_cuda(*args), ops.ssd_bwd_plain(*args),
+                                    dt == torch.float32)[0]
+                    if not ok:
+                        bad.append(f"{(B, S, H, P, N, chunk)} {dt} model={mdl}")
+    torch.cuda.synchronize()
+    print(f"[train_{family}] {'K12b' if family == 'ssm' else 'K8b'} small and ragged shapes x "
+          f"dtypes x functions: disagree={bad}", flush=True)
+    return bad
+
+
+def run_train_family(device, family: str) -> tuple:
+    """The ``train_ssm`` or ``train_hybrid`` phase; returns (the backward
+    kernel's row, launches by kernel in ``Trainer.run``)."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import counts
+    from repro_torch.models import Runtime, build_param_specs
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    tag = "train_" + family
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, layers, why = FAMILY_TRAIN[family]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    rt = Runtime(attn_impl="flash", remat="none")
+    B, S = TRAIN_BATCH
+    L = cfg.n_layers
+    n_full, n_cut = (sum(math.prod(s.shape) for s in tree_leaves(build_param_specs(c, rt)))
+                     for c in (full, cfg))
+    family_reckoning(cfg, n_full, n_cut, tag, why)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, rt, seq_len=S, global_batch=B, lr=TRAIN_LR, seed=0, device=device)
+    # the leaves the init rules set to zero, drawn so that every term takes
+    # part (the serving phases' draws)
+    g = torch.Generator(device=device).manual_seed(1)
+    blocks = trainer.params["blocks"]
+    drawn = ((blocks["tmix"]["u_bonus"], blocks["tmix"]["mix"], blocks["cmix"]["mix"])
+             if family == "ssm" else (blocks["mamba"]["D"], blocks["mamba"]["dt_bias"]))
+    for leaf in drawn:
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=device) * 0.5)
+    torch.cuda.synchronize()
+    print(f"[{tag}] weights and AdamW moments on {device} in {time.perf_counter() - t0:.1f}s "
+          f"(weights from seed 0, {'u_bonus and the mixes' if family == 'ssm' else 'D and dt_bias'}"
+          f" drawn N(0, 0.5^2) from seed 1); batch {B} x {S} from SyntheticTokenPipeline(seed=0)"
+          f", lr {trainer.lr}", flush=True)
+
+    if family == "ssm":
+        from repro_torch.kernels.rwkv6_wkv import ops as scan_ops_mod
+        scan, bwd = "rwkv6_wkv", "rwkv6_wkv_bwd"
+        kernels = (scan, bwd, "rmsnorm_fwd", "rmsnorm_bwd")
+        norms = 3 * L + 1
+        want = {scan: L, bwd: L, "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}
+        plain_kernels = SSM_PLAIN + (("rmsnorm", "rmsnorm_bwd"), ("rwkv6_wkv", "wkv_bwd"))
+        wrapper = "wkv_bwd_cuda"
+    else:
+        from repro_torch.kernels.mamba2_ssd import ops as scan_ops_mod
+        scan, bwd = "mamba2_ssd", "mamba2_ssd_bwd"
+        groups = L // cfg.attn_every
+        kernels = (scan, bwd, "flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv",
+                   "rmsnorm_fwd", "rmsnorm_bwd")
+        norms = 2 * L + 2 * groups + 1
+        want = {scan: L, bwd: L, "flash_attn_fwd": groups, "flash_attn_dq": groups,
+                "flash_attn_dkv": groups, "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}
+        plain_kernels = HYB_PLAIN + (("rmsnorm", "rmsnorm_bwd"), ("mamba2_ssd", "ssd_bwd"))
+        wrapper = "ssd_bwd_cuda"
+
+    step_s: list = []
+    # the backward runs the layers in reverse: the last launch is layer 0's
+    with keep_calls(scan_ops_mod, wrapper, (L - 1,)) as kept:
+        counts.reset()
+        t0 = time.perf_counter()
+        losses = trainer.run(FAMILY_STEPS, log_every=1,
+                             on_metrics=lambda step, m: step_s.append(m["s_per_step"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(counts.LAUNCHES)
+        plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    print(f"[{tag}] Trainer.run({FAMILY_STEPS}): losses {losses}; wall_s={wall:.6f}; step_s "
+          f"{step_s} (the first includes warm-up); steady step_ms={steady * 1e3:.3f} "
+          f"tokens_per_s={B * S / steady:.1f}; max_memory_allocated={peak}; launches "
+          f"{ {k: launches[k] for k in kernels} } plain_calls {plain}", flush=True)
+    for name in kernels:
+        if launches[name] != FAMILY_STEPS * want[name]:
+            fail(f"{tag}: Trainer.run launched {name} {launches[name]} times (want "
+                 f"{FAMILY_STEPS * want[name]})")
+    if plain:
+        fail(f"{tag}: Trainer.run called plain versions {plain} (want none)")
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - ln_v) > LOSS_MARGIN:
+        fail(f"{tag}: losses {losses} are not finite or the first is not within {LOSS_MARGIN} "
+             f"of ln({cfg.vocab}) = {ln_v}")
+
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in trainer.pipeline.batch_at(FAMILY_STEPS).items()}
+    step = make_train_step(cfg, rt, lr=trainer.lr)
+    rep = []
+    for _ in range(3):
+        trainer.params, trainer.opt, m = step(trainer.params, trainer.opt, batch)
+        rep.append(float(m["loss"]))
+    print(f"[{tag}] make_train_step x 3 on one repeated batch: losses {rep}", flush=True)
+    if not rep[-1] < rep[0]:
+        fail(f"{tag}: the loss does not fall on a repeated batch: {rep}")
+
+    # the kernels' route against the plain route (K12/K8, K12b/K8b, K10/K11
+    # plain and xla attention) from the same weights and batch, in float32
+    # activations on one sequence (the account at FAMILY_ROUTE_TOKENS)
+    del trainer.opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    params32 = tree_map(lambda t: t.float(), trainer.params)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt32 = dataclasses.replace(rt, param_dtype="float32", compute_dtype="float32")
+    one = {k: t[:1, :FAMILY_ROUTE_TOKENS] for k, t in batch.items()}
+    counts.reset()
+    loss_k, g_k = grads_of(params32, cfg, rt32, one)
+    k_launches = {k: v for k, v in counts.LAUNCHES.items() if v}
+    with plain_route(*plain_kernels):
+        loss_p, g_p = grads_of(params32, cfg, dataclasses.replace(rt32, attn_impl="xla"), one)
+    names = [".".join(p) for p in _leaf_paths(params32)]
+    route = [rel_l2(a, b) for a, b in zip(g_k, g_p)]
+    del g_k, g_p, params32
+    print(f"[{tag}] loss_fn, kernels' route (launches {k_launches}) vs plain route, float32 "
+          f"activations on 1 x {FAMILY_ROUTE_TOKENS}: losses {loss_k} / {loss_p} (diff "
+          f"{abs(loss_k - loss_p)}, bound {ROUTE_LOSS_TOL}); largest |g_kernels - g_plain| / "
+          f"|g_plain| over the leaves {max(route):.6g} (bound {ROUTE_GRAD_TOL})", flush=True)
+    for n, r in zip(names, route):
+        print(f"[{tag}]   grad {n}: {r:.6g}", flush=True)
+    bad = [n for n, r in zip(names, route) if not r <= ROUTE_GRAD_TOL]
+    if abs(loss_k - loss_p) > ROUTE_LOSS_TOL or bad:
+        fail(f"{tag}: the kernels' and plain routes disagree: loss diff "
+             f"{abs(loss_k - loss_p)}, leaves {bad}")
+    del batch, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    row = hold_scan_bwd(family, kept[L - 1], launches[bwd])
+    del kept
+    small = check_scan_bwd_small(family)
+    if not row["match"] or small:
+        fail(f"{tag}: {bwd} disagrees with its plain version: match={row['match']} "
+             f"small={small}")
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
@@ -4257,6 +4626,14 @@ def main() -> int:
     phase_s["hybrid"] = time.perf_counter() - t0
     print(f"[hybrid] phase seconds {phase_s['hybrid']:.1f}", flush=True)
     main_rows.extend(hyb_rows)
+    family_launches = {}
+    for family in ("ssm", "hybrid"):
+        t0 = time.perf_counter()
+        bwd_row, family_launches[family] = run_train_family(device, family)
+        phase_s["train_" + family] = time.perf_counter() - t0
+        print(f"[train_{family}] phase seconds {phase_s['train_' + family]:.1f}", flush=True)
+        launches[bwd_row["name"]] = family_launches[family][bwd_row["name"]]
+        main_rows.append(bwd_row)
     t0 = time.perf_counter()
     run_agreement()
     phase_s["agree"] = time.perf_counter() - t0
@@ -4301,7 +4678,8 @@ def main() -> int:
     # that prefill (and in each phase's counted run beside them), K11 with
     # its launches in the train phase's Trainer.run, the path that runs it;
     # K8 at the hybrid phase's first layer with its launches in that
-    # prefill; K7 at the hybrid engine's decode step (and at caches of 4 x
+    # prefill; K12b and K8b at the train_ssm and train_hybrid phases' first
+    # layers with their launches in that phase's Trainer.run; K7 at the hybrid engine's decode step (and at caches of 4 x
     # 4096 keys) with its launches in the hybrid engine run (and per decode
     # step in each phase beside them);
     # K1 and K2 also with their launches in each baseline tuner's 24 h run

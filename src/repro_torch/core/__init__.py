@@ -11,6 +11,11 @@ Public API (names as in ``repro.core``):
   ProposeEngine             — the fused propose step (one CUDA graph a pool bucket)
   HyperbandRunner           — §3.4 HB/SHA scheduling with median early stop
   MFTune                    — §4.1/§6.3 end-to-end controller
+
+Every name of ``repro.core`` is here but the two JAX-named ones:
+``expected_improvement_jax``'s counterpart is :func:`expected_improvement`
+on a tensor on the card (the device EI), and ``aggregate_ranks_jax``'s is
+:func:`aggregate_ranks`, whose ranks are kernel K2's on the card.
 """
 
 from .space import (
@@ -22,13 +27,22 @@ from .space import (
     IntKnob,
     Intervals,
     SpacePlane,
+    get_space_backend,
+    log_sampling,
+    set_log_sampling,
+    set_space_backend,
+    space_backend,
 )
 from .surrogate import (
     ForestPlane,
     GaussianProcess,
     PackedForest,
     ProbabilisticRandomForest,
+    forest_backend,
+    get_forest_backend,
     make_forest,
+    packed_descend,
+    set_forest_backend,
 )
 from .acquisition import (
     EI_VAR_FLOOR,
@@ -40,6 +54,7 @@ from .acquisition import (
     get_acquisition_pool,
     normal_cdf,
     plane_cache_stats,
+    rank_aggregate,
     score_sources,
     set_acquisition_backend,
     set_acquisition_pool,
@@ -48,7 +63,12 @@ from .acquisition import (
 from .propose import ProposeEngine
 from .gbm import GradientBoostedTrees
 from .kde import WeightedKDE, alpha_mass_categories, alpha_mass_region, silverman_bandwidth
-from .shapley import draw_permutations, shapley_values_batch
+from .shapley import (
+    draw_permutations,
+    shapley_values,
+    shapley_values_batch,
+    shapley_values_exact,
+)
 from .knowledge import KnowledgeBase, Observation, TaskRecord
 from .similarity import SimilarityEngine, TaskWeights, kendall_tau, surrogate_for_task
 from .compression import SpaceCompressor, compress_space, extract_promising_regions
@@ -73,23 +93,28 @@ from .hyperband import (
     HyperbandRunner,
     Rung,
     RungTable,
+    get_hyperband_backend,
     hb_schedule,
+    hyperband_backend,
+    set_hyperband_backend,
     sh_schedule,
 )
 from .mftune import MFTune, MFTuneOptions, TuningResult
 
 __all__ = [
     "BoolKnob", "CatKnob", "ConfigSpace", "FloatKnob", "IntKnob", "Intervals",
-    "ConfigBatch", "SpacePlane",
+    "ConfigBatch", "SpacePlane", "get_space_backend", "set_space_backend",
+    "space_backend", "set_log_sampling", "log_sampling",
     "GaussianProcess", "ProbabilisticRandomForest", "PackedForest", "ForestPlane",
-    "make_forest",
-    "expected_improvement", "aggregate_ranks", "normal_cdf", "score_sources",
+    "make_forest", "set_forest_backend", "get_forest_backend", "forest_backend",
+    "packed_descend",
+    "expected_improvement", "aggregate_ranks", "rank_aggregate", "normal_cdf", "score_sources",
     "EI_VAR_FLOOR", "set_plane_cache_size", "plane_cache_stats",
     "set_acquisition_backend", "get_acquisition_backend", "acquisition_backend",
     "set_acquisition_pool", "get_acquisition_pool", "acquisition_pool", "ProposeEngine",
     "GradientBoostedTrees",
     "WeightedKDE", "alpha_mass_categories", "alpha_mass_region", "silverman_bandwidth",
-    "draw_permutations", "shapley_values_batch",
+    "draw_permutations", "shapley_values", "shapley_values_batch", "shapley_values_exact",
     "KnowledgeBase", "Observation", "TaskRecord",
     "SimilarityEngine", "TaskWeights", "kendall_tau", "surrogate_for_task",
     "SpaceCompressor", "compress_space", "extract_promising_regions",
@@ -99,5 +124,6 @@ __all__ = [
     "phase1_config",
     "Bracket", "HyperbandRunner", "Rung", "RungTable", "CostColumns",
     "hb_schedule", "sh_schedule",
+    "get_hyperband_backend", "set_hyperband_backend", "hyperband_backend",
     "MFTune", "MFTuneOptions", "TuningResult",
 ]

@@ -38,6 +38,7 @@ __all__ = [
     "predict_sources",
     "score_sources",
     "aggregate_ranks",
+    "rank_aggregate",
     "make_portable_kernels",
     "set_plane_cache_size",
     "plane_cache_stats",
@@ -322,26 +323,32 @@ def _plane_for(packs: list) -> ForestPlane:
 
 
 def predict_sources(
-    models: Sequence[ProbabilisticRandomForest], X
+    models: Sequence[ProbabilisticRandomForest], X, delta=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(means, vars), each (S, N) tensors, for all source forests on one
-    pool. When several sources are fitted their arenas fuse into one
-    :class:`ForestPlane` descent; otherwise each model predicts in turn.
-    (The reference's chain-delta ``delta`` argument is not carried: the
-    device descent scores every candidate in full.)"""
-    fusable = len(models) > 1 and all(m.trees for m in models)
+    pool. When several sources are fitted forests off the ``loop`` backend
+    their arenas fuse into one :class:`ForestPlane` descent, on the device
+    (K1) unless every source is on the host route (``"numpy"``); otherwise
+    each model predicts in turn. ``delta`` is the pool's mutation
+    provenance (``(bases, base_of)``): the host route scores through the
+    chain-delta plan with it (bit-identical leaf stats); the device route
+    ignores it, as the reference's accelerated backends do."""
+    fusable = len(models) > 1 and all(m.trees and m.backend != "loop" for m in models)
     if fusable:
-        return _plane_for([m.pack() for m in models]).predict(X)
+        # an ensemble with any source on the device descends there
+        backend = "device" if any(m.backend == "device" for m in models) else "numpy"
+        return _plane_for([m.pack() for m in models]).predict(X, backend, delta=delta)
     outs = [m.predict_tensor(X) for m in models]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
 def score_sources(
     models: Sequence[ProbabilisticRandomForest], X, incumbents: Sequence[float],
+    delta=None,
 ) -> torch.Tensor:
     """Fused acquisition: EI of every source on every candidate, (S, N)."""
     with obs.span("surrogate_eval", pool=int(X.shape[0]), sources=len(models)):
-        means, vars_ = predict_sources(models, X)
+        means, vars_ = predict_sources(models, X, delta=delta)
         return ei_matrix(means, vars_, np.asarray(incumbents, dtype=float))
 
 
@@ -363,3 +370,10 @@ def aggregate_ranks(scores: torch.Tensor, weights: Sequence[float]) -> torch.Ten
     ranks = rank_rows(scores.to(torch.float64).contiguous())
     w = torch.as_tensor(np.asarray(weights, dtype=float), device=ranks.device)
     return reduce_sum(w[:, None] * ranks, 0)
+
+
+def rank_aggregate(score_lists: Sequence, weights: Sequence[float]) -> torch.Tensor:
+    """Back-compat wrapper over :func:`aggregate_ranks` for a list of rows."""
+    if len(score_lists) == 0:
+        raise ValueError("no scores to aggregate")
+    return aggregate_ranks(np.asarray(score_lists, dtype=float), weights)

@@ -66,12 +66,15 @@ def extract_promising_regions(
     n_permutations: int = 16,
     max_configs: int = 32,
     device: DeviceLike = None,
+    backend: str = "batched",
 ) -> Optional[PromisingRegion]:
     """§5.1 for one source task (or the target acting as its own source).
 
     All promising configs are explained in one batched masked-evaluation
-    pass (``shapley_values_batch``). The source surrogate is fitted for ``device``, where its Shapley
-    chains are walked (kernel K3).
+    pass (``shapley_values_batch``); ``backend="loop"`` pins the legacy
+    per-chain path, bit-identical under the shared permutation draws. The
+    source surrogate is fitted for ``device``, where its Shapley chains are
+    walked (kernel K3).
     """
     obs = task.full_fidelity()
     if len(obs) < 4:
@@ -102,16 +105,16 @@ def extract_promising_regions(
     rng = np.random.default_rng(perm_seed)
     X_good = space.encode_many([o.config for o in good])  # one columnar pass
     with _obs.span("shapley_attribution", task=task.task_id,
-                   n_configs=len(good), perms=n_permutations):
+                   n_configs=len(good), perms=n_permutations, backend=backend):
         phis = shapley_values_batch(
             f, X_good, background, n_permutations=n_permutations, rng=rng,
-            model=model,
+            backend=backend, model=model,
         )
     # Eq. 3 keeps values with negative SHAP. We additionally require the
     # attribution to clear a noise floor (5% of the config's largest
     # |phi|): irrelevant knobs fluctuate around +-eps and would otherwise
     # never be dropped by the majority-empty rule (DESIGN.md §9). Note the
-    # proportional residual correction in `shapley_values_batch` keeps a knob the
+    # proportional residual correction in `shapley_values` keeps a knob the
     # surrogate ignores at phi == 0.0 exactly (the old uniform resid/d
     # spread pushed such knobs past this floor and let them dodge the
     # majority-empty drop rule).
@@ -231,11 +234,13 @@ class SpaceCompressor:
         alpha: float = 0.65,
         seed: int = 0,
         device: DeviceLike = None,
+        backend: str = "batched",
     ):
         self.space = space
         self.alpha = alpha
         self.seed = seed
         self.device = resolve_device(device)
+        self.backend = backend
         self._cache: Dict[str, PromisingRegion] = {}
         self._range_cache: "OrderedDict" = OrderedDict()
 
@@ -253,6 +258,7 @@ class SpaceCompressor:
             self._cache.pop(task.task_id, None)
             r = extract_promising_regions(
                 self.space, task, 1.0, seed=self.seed, device=self.device,
+                backend=self.backend,
             )
             if r is None:
                 return None

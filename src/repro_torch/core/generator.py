@@ -203,12 +203,14 @@ class CandidateGenerator:
         pool_size: int = 256,
         cache_entries: int = 64,
         device: DeviceLike = None,
+        backend: Optional[str] = None,
     ):
         self.space = space                # full space: defines the surrogate encoding
         self.sample_space = space         # possibly compressed: defines the sampling region
         self.seed = seed
         self.pool_size = pool_size
         self.device = resolve_device(device)  # where fitted surrogates score
+        self.backend = backend            # forest backend for fitted surrogates
         self._rng = np.random.default_rng(seed)
         self._store = SurrogateStore(max_entries=cache_entries)
         # encoded-exclusion cache: recommend is called once per bracket with
@@ -248,7 +250,8 @@ class CandidateGenerator:
                 with _obs.span("surrogate_fit", source=f"task:{tid}",
                                n_obs=len(task.observations)):
                     m = surrogate_for_task(
-                        self.space, task, seed=self.seed, device=self.device
+                        self.space, task, seed=self.seed, device=self.device,
+                        backend=self.backend,
                     )
                     if m is None:
                         return None
@@ -284,7 +287,8 @@ class CandidateGenerator:
                     y = np.array(
                         [penalty if o.failed else o.performance for o in all_obs]
                     )
-                    m = make_forest(seed=self.seed, device=self.device).fit(X, y)
+                    m = make_forest(seed=self.seed, device=self.device,
+                                    backend=self.backend).fit(X, y)
                     return m, float(min(o.performance for o in ok_obs))
 
             got = self._store.get(f"fid:{d:.6f}:{target.task_id}", len(all_obs), build_fid)
@@ -326,6 +330,18 @@ class CandidateGenerator:
                 muts = ss.mutate_many(proj, self._rng)
                 pool = ConfigBatch.concat([pool, muts])
             full = self.space.complete_batch(pool)
+            if proj is not None and n_mut:
+                # mutation provenance: candidate i of the mutation block
+                # derives from incumbent i % B — the projected-and-completed
+                # base rows are the exact unmutated-coordinate reference, so
+                # pool scoring can reuse each base's word ANDs (chain-delta)
+                B = min(len(incumbents), n_mut)
+                base_full = self.space.complete_batch(proj.take(np.arange(B)))
+                base_of = np.concatenate([
+                    np.full(len(full) - n_mut, -1, dtype=np.int64),
+                    np.arange(n_mut, dtype=np.int64) % B,
+                ])
+                full.set_delta(base_full.unit(), base_of)
             return full
 
     def _config_keys(self, cfgs: Sequence[Config]) -> List[bytes]:
@@ -456,7 +472,8 @@ class CandidateGenerator:
         with _obs.span("acquisition", pool=len(pool), sources=len(active), k=n):
             X = pool.unit_tensor(self.device)
             scores = score_sources([s.model for s in active], X,
-                                   [s.incumbent for s in active])
+                                   [s.incumbent for s in active],
+                                   delta=pool.delta)
             agg = aggregate_ranks(scores, [s.weight for s in active]).cpu().numpy()
             order = np.argsort(agg, kind="stable")
             return pool.take(order[:n])

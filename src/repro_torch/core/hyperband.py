@@ -18,17 +18,30 @@ Spark simulator, the JAX objective and the unit tests. The §6.3 median
 early-stop is applied here: an evaluation is capped at the median cost of
 historical evaluations at the same fidelity (factor configurable).
 
-Bracket bookkeeping is array-native (the reference's ``"table"``
-backend; its scalar ``"loop"`` reference is not carried): one
-:class:`RungTable` row per evaluation with config-index / score / failed /
-elapsed / rung-id columns, rung promotion as one masked stable top-k over
-the score column (``np.argsort(kind="stable")``), and per-fidelity cost
-history in growable :class:`CostColumns` buffers. Finished tables are kept
-on ``runner.tables``. NaN scores on successful rows are rejected.
+Bracket bookkeeping comes in two backends (same pattern as the space /
+surrogate / acquisition planes), both host numpy as in the reference
+(port of ``repro.core.hyperband``):
+
+``backend="table"`` (default) — array-native :class:`RungTable` state:
+    one row per evaluation with config-index / score / failed / elapsed /
+    rung-id columns, rung promotion as one masked stable top-k over the
+    score column, and per-fidelity cost history in growable
+    :class:`CostColumns` buffers (vectorized running medians).
+    ``run_bracket`` is a thin loop over ``table.record(...)`` /
+    ``table.promote(...)`` steps, and the finished tables are kept on
+    ``runner.tables`` so callers (benchmarks, an async-ASHA service layer)
+    can read promotion state without re-deriving it.
+``backend="loop"`` — the original list-of-dataclass scalar reference.
+
+Both backends replay the same float comparisons (Python's stable
+``list.sort`` vs ``np.argsort(kind="stable")`` over float64 scores), so
+survivor sets are bit-identical; NaN scores on successful rows are
+rejected by the table (they would silently poison either sort order).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +57,9 @@ __all__ = [
     "RungTable",
     "CostColumns",
     "HyperbandRunner",
+    "get_hyperband_backend",
+    "set_hyperband_backend",
+    "hyperband_backend",
 ]
 
 
@@ -82,6 +98,38 @@ def hb_schedule(R: float, eta: int) -> List[Bracket]:
         r1 = R * (eta ** (-s))
         brackets.append(Bracket(s=s, rungs=sh_schedule(n1, r1, R, eta)))
     return brackets
+
+
+# ---------------------------------------------------------------------------
+# backend selection (module default + context override, like the space /
+# forest / acquisition planes)
+# ---------------------------------------------------------------------------
+
+_HB_BACKENDS = ("table", "loop")
+_HB_BACKEND = "table"
+
+
+def get_hyperband_backend() -> str:
+    return _HB_BACKEND
+
+
+def set_hyperband_backend(backend: str) -> str:
+    """Set the module-default bracket-bookkeeping backend; returns previous."""
+    global _HB_BACKEND
+    if backend not in _HB_BACKENDS:
+        raise ValueError(f"unknown hyperband backend {backend!r}; pick from {_HB_BACKENDS}")
+    prev = _HB_BACKEND
+    _HB_BACKEND = backend
+    return prev
+
+
+@contextmanager
+def hyperband_backend(backend: str):
+    prev = set_hyperband_backend(backend)
+    try:
+        yield
+    finally:
+        set_hyperband_backend(prev)
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +281,8 @@ class RungTable:
 
         Non-finite scores on successful rows are rejected: a NaN (or inf)
         ``performance`` that is not marked ``failed`` would silently poison
-        the promotion sort (and downstream best-tracking) — callers must
-        coerce such results to failures first.
+        the promotion sort (and downstream best-tracking) on either
+        backend — callers must coerce such results to failures first.
         """
         idx = np.asarray(config_idx, dtype=np.int64).ravel()
         sc = np.asarray(score, dtype=np.float64).ravel()
@@ -305,8 +353,8 @@ class HyperbandRunner:
     """Drives one SH inner loop at a time.
 
     provide_candidates(n, rungs) -> sequence of configs for a new bracket
-        (the controller injects warm starts + BO candidates here; any
-        indexable sequence is accepted — e.g. a columnar
+        (the controller injects warm starts + BO candidates here; the
+        table backend accepts any indexable sequence — e.g. a columnar
         ``ConfigBatch`` / ``CandidateColumns`` — and materializes rows
         only when an evaluation needs the dict).
     evaluate(config, delta, cost_cap) -> (performance, failed, elapsed)
@@ -326,8 +374,11 @@ class HyperbandRunner:
     caller's budget runs out mid-rung, mirroring the scalar path's
     between-config should_stop checks.
 
-    Bracket state lives in an array-native :class:`RungTable`
-    (finished/in-flight tables exposed on ``self.tables``).
+    ``backend="table"`` (module default) keeps bracket state in an
+    array-native :class:`RungTable` (finished/in-flight tables exposed on
+    ``self.tables``); ``backend="loop"`` is the pinned scalar reference.
+    Survivor sets, outcome order and cost caps are bit-identical across
+    backends.
     """
 
     def __init__(
@@ -336,13 +387,17 @@ class HyperbandRunner:
         eta: int = 3,
         early_stop_factor: float = 1.0,
         seed: int = 0,
+        backend: Optional[str] = None,
     ):
         self.R = R
         self.eta = eta
         self.early_stop_factor = early_stop_factor
         self.brackets = hb_schedule(R, eta)
+        self.backend = backend if backend is not None else get_hyperband_backend()
+        if self.backend not in _HB_BACKENDS:
+            raise ValueError(f"unknown hyperband backend {self.backend!r}")
         self._bracket_idx = 0
-        self._cost_history = CostColumns()
+        self._cost_history = CostColumns() if self.backend == "table" else {}
         self.tables: List[RungTable] = []
         self.rng = np.random.default_rng(seed)
 
@@ -352,13 +407,23 @@ class HyperbandRunner:
         return b
 
     def _record_cost(self, delta: float, elapsed: float) -> None:
-        self._cost_history.append(round(delta, 6), elapsed)
+        key = round(delta, 6)
+        if isinstance(self._cost_history, CostColumns):
+            self._cost_history.append(key, elapsed)
+        else:
+            self._cost_history.setdefault(key, []).append(elapsed)
 
     def _cost_cap(self, delta: float) -> Optional[float]:
         key = round(delta, 6)
-        if self._cost_history.count(key) < 3:
+        hist = self._cost_history
+        if isinstance(hist, CostColumns):
+            if hist.count(key) < 3:
+                return None
+            return self.early_stop_factor * hist.median(key)
+        h = hist.get(key, [])
+        if len(h) < 3:
             return None
-        return self.early_stop_factor * self._cost_history.median(key)
+        return self.early_stop_factor * float(np.median(h))
 
     def run_bracket(
         self,
@@ -372,6 +437,68 @@ class HyperbandRunner:
         ] = None,
     ) -> List[EvalOutcome]:
         """Run one SH inner loop; returns outcomes of the final rung."""
+        args = (bracket, provide_candidates, evaluate, on_result, should_stop, evaluate_batch)
+        if self.backend == "table":
+            return self._run_bracket_table(*args)
+        return self._run_bracket_loop(*args)
+
+    # ------------------------------------------------------- scalar reference
+    def _run_bracket_loop(
+        self, bracket, provide_candidates, evaluate, on_result, should_stop, evaluate_batch
+    ) -> List[EvalOutcome]:
+        rungs = bracket.rungs
+        configs = provide_candidates(rungs[0].n, rungs)
+        outcomes: List[EvalOutcome] = []
+        survivors = list(configs)
+        for rung_i, rung in enumerate(rungs):
+            if should_stop():
+                break
+            with obs.span(
+                "rung_eval", s=bracket.s, rung=rung_i, delta=rung.delta,
+                n=min(rung.n, len(survivors)),
+            ) as sp:
+                results: List[EvalOutcome] = []
+                if evaluate_batch is not None:
+                    batch = survivors[: rung.n]
+                    cap = self._cost_cap(rung.delta)
+                    for cfg, (perf, failed, elapsed) in zip(
+                        batch, evaluate_batch(batch, rung.delta, cap)
+                    ):
+                        self._record_cost(rung.delta, elapsed)
+                        on_result(cfg, rung.delta, perf, failed, elapsed)
+                        results.append(EvalOutcome(cfg, perf, failed, elapsed))
+                else:
+                    for cfg in survivors[: rung.n]:
+                        if should_stop():
+                            break
+                        cap = self._cost_cap(rung.delta)
+                        perf, failed, elapsed = evaluate(cfg, rung.delta, cap)
+                        self._record_cost(rung.delta, elapsed)
+                        on_result(cfg, rung.delta, perf, failed, elapsed)
+                        results.append(EvalOutcome(cfg, perf, failed, elapsed))
+                ok = [r for r in results if not r.failed]
+                ok.sort(key=lambda r: r.performance)
+                sp.set(
+                    evaluated=len(results), ok=len(ok),
+                    cost=float(sum(r.elapsed for r in results)),
+                )
+                if rung_i + 1 < len(rungs):
+                    # promotion quota over *successful* evaluations: counting
+                    # failed rows (the old len(results)) promoted more than the
+                    # top n_i/eta of the configs that actually have a score
+                    keep = max(len(ok) // self.eta, 1)
+                    survivors = [r.config for r in ok[:keep]]
+                    sp.set(survivors=len(survivors))
+                    if not survivors:
+                        break
+                else:
+                    outcomes = results
+        return outcomes
+
+    # ----------------------------------------------------- array-native table
+    def _run_bracket_table(
+        self, bracket, provide_candidates, evaluate, on_result, should_stop, evaluate_batch
+    ) -> List[EvalOutcome]:
         rungs = bracket.rungs
         configs = provide_candidates(rungs[0].n, rungs)
         table = RungTable(bracket, configs)
@@ -393,7 +520,11 @@ class HyperbandRunner:
                     perf = np.fromiter((r[0] for r in res), dtype=np.float64, count=len(res))
                     fail = np.fromiter((r[1] for r in res), dtype=bool, count=len(res))
                     elap = np.fromiter((r[2] for r in res), dtype=np.float64, count=len(res))
-                    self._cost_history.extend(round(rung.delta, 6), elap)
+                    if isinstance(self._cost_history, CostColumns):
+                        self._cost_history.extend(round(rung.delta, 6), elap)
+                    else:
+                        for e in elap:
+                            self._record_cost(rung.delta, float(e))
                     for i, (p, f, e) in zip(idxs, res):
                         on_result(configs[int(i)], rung.delta, p, f, e)
                 else:

@@ -28,8 +28,13 @@ call through the fused propose step (``core/propose.py``: one CUDA graph
 per pool bucket on the card, Q1/K1, Q2 and K2), with the pool from the
 host (``acquisition_pool="host"``, the staged path's selections bit for
 bit) or drawn on the device (``"device"``); the default ``"staged"`` is the
-staged path. The reference's ``surrogate_backend`` and ``shapley_backend``
-options are not carried.
+staged path. The reference's host-reference switches are carried:
+``surrogate_backend`` (the forest backend of the generator's surrogates:
+``"numpy"`` the host gather descent, ``"loop"`` the per-tree reference),
+``space_backend`` (``"scalar"`` the per-element space reference),
+``shapley_backend`` (``"loop"`` the per-chain attribution reference) and
+``hyperband_backend`` (``"loop"`` the scalar bracket reference); each gives
+the default's stream bit for bit.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from .generator import CandidateColumns, CandidateGenerator, WarmStartQueue, pha
 from .hyperband import HyperbandRunner, Rung, RungTable
 from .knowledge import KnowledgeBase, Observation, TaskRecord
 from .similarity import SimilarityEngine, TaskWeights
-from .space import ConfigSpace
+from .space import ConfigSpace, space_backend
 
 Config = Dict[str, Any]
 
@@ -83,6 +88,17 @@ class MFTuneOptions:
     acquisition_pool: Optional[str] = None     # the fused step's pool: "device" = drawn
                                                # on the device, "host" = the staged
                                                # pool uploaded (identical selections)
+    surrogate_backend: Optional[str] = None    # forest backend of the generator's
+                                               # surrogates; None = module default
+                                               # (see set_forest_backend)
+    space_backend: Optional[str] = None        # config-space backend; None = module
+                                               # default, "scalar" = per-element
+                                               # reference
+    shapley_backend: str = "batched"           # §5.1 attribution; "loop" = per-chain
+                                               # reference (identical attributions)
+    hyperband_backend: Optional[str] = None    # bracket bookkeeping; None = module
+                                               # default ("table"), "loop" = scalar
+                                               # reference (identical survivor sets)
 
 
 @dataclass
@@ -142,13 +158,14 @@ class MFTune:
         self.sim = SimilarityEngine(self.space, self.kb, seed=self.opt.seed, device=self.device)
         self.compressor = SpaceCompressor(
             self.space, alpha=self.opt.alpha, seed=self.opt.seed,
-            device=self.device,
+            device=self.device, backend=self.opt.shapley_backend,
         )
-        self.gen = CandidateGenerator(self.space, seed=self.opt.seed, device=self.device)
+        self.gen = CandidateGenerator(self.space, seed=self.opt.seed, device=self.device,
+                                      backend=self.opt.surrogate_backend)
         self.ws_queue = WarmStartQueue()
         self.hb = HyperbandRunner(
             R=self.opt.R, eta=self.opt.eta, early_stop_factor=self.opt.early_stop_factor,
-            seed=self.opt.seed,
+            seed=self.opt.seed, backend=self.opt.hyperband_backend,
         )
         self.partition: Optional[FidelityPartition] = None
         self._mfo_activation_time: Optional[float] = None
@@ -353,6 +370,8 @@ class MFTune:
         from .acquisition import acquisition_backend, acquisition_pool
 
         with ExitStack() as stack:
+            if self.opt.space_backend is not None:
+                stack.enter_context(space_backend(self.opt.space_backend))
             if self.opt.acquisition_backend is not None:
                 stack.enter_context(acquisition_backend(self.opt.acquisition_backend))
             if self.opt.acquisition_pool is not None:
@@ -486,14 +505,21 @@ class MFTune:
                 incumbents = [incumbent_cfg] if incumbent_cfg is not None else []
                 evaluated = [o.config for o in self.target.observations]
                 sp.set(warm_starts=len(ws), sources=len(sources))
-                # rung-table provisioning: BO candidates stay one columnar
-                # batch; the table indexes (ws rows + batch rows) by column
-                # and materializes dicts only when an evaluation needs them
-                bo_batch = self.gen.recommend_batch(
+                if self.hb.backend == "table":
+                    # rung-table provisioning: BO candidates stay one columnar
+                    # batch; the table indexes (ws rows + batch rows) by column
+                    # and materializes dicts only when an evaluation needs them
+                    bo_batch = self.gen.recommend_batch(
+                        max(n - len(ws), 0), sources, incumbents=incumbents,
+                        exclude=evaluated + ws
+                    )
+                    self._charge_overhead("bo_recommend", t0)
+                    return CandidateColumns(ws, bo_batch, limit=n)
+                bo = self.gen.recommend(
                     max(n - len(ws), 0), sources, incumbents=incumbents, exclude=evaluated + ws
                 )
                 self._charge_overhead("bo_recommend", t0)
-                return CandidateColumns(ws, bo_batch, limit=n)
+                return (ws + bo)[:n]
 
         def evaluate(cfg: Config, delta: float, cap: Optional[float]):
             return self._evaluate(budget, cfg, delta, cap)

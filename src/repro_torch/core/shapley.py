@@ -12,16 +12,24 @@ background dataset B:
 estimated with antithetic permutation sampling (each sampled permutation is
 paired with its reverse, which cuts variance substantially; an odd
 ``n_permutations`` runs (n-1)//2 pairs plus one unpaired forward draw, so
-exactly n permutation chains are evaluated either way).
+exactly n permutation chains are evaluated either way). For small
+dimensionality an exact enumeration over all permutations is available and
+used by the tests to bound the Monte-Carlo error.
 
-:func:`shapley_values_batch` evaluates whole (permutations x (d+1) prefix
-masks x background) blocks for many explained configs at once: through
-the bitvector chain kernel (``kernels.forest_eval.chain``, kernel K3) when
-the surrogate behind f is supplied via ``model=`` and admits a chain plan,
-else by materializing the composite tensor and pushing it through f in a
-few large chunked calls. Both paths consume the same pre-drawn permutation
-matrix and replay the reference's accumulation order, so their
-attributions are bit-identical.
+Two equivalent evaluation paths:
+
+``backend="batched"`` (default) evaluates whole
+(permutations x (d+1) prefix masks x background) blocks at once: through
+the bitvector chain kernel (``kernels.forest_eval.chain``, kernel K3 on the
+surrogate's device) when the surrogate behind f is supplied via ``model=``
+and admits a chain plan, else by materializing the
+composite tensor and pushing it through f in a few large chunked calls.
+``backend="loop"`` is the legacy per-chain reference (host numpy, one call
+of f per chain, as in the reference). All paths consume
+the same pre-drawn permutation matrix and replay the identical
+accumulation order, so their attributions are bit-identical; the batch
+explainer :func:`shapley_values_batch` extends the same contract across
+many explained configs (one fused pass instead of one call per config).
 
 Additivity (sum_j phi_j = f(x) - E_B[f]) holds exactly in expectation and
 is enforced by a final residual correction distributed *proportionally* to
@@ -32,6 +40,7 @@ and near-zero-phi knobs are not polluted with spurious residual mass.
 
 from __future__ import annotations
 
+from itertools import permutations
 from typing import Callable, Optional
 
 import numpy as np
@@ -40,7 +49,9 @@ from .. import obs as _obs
 
 __all__ = [
     "draw_permutations",
+    "shapley_values",
     "shapley_values_batch",
+    "shapley_values_exact",
 ]
 
 # rows-per-model-call bound for the batched plane: whole permutation chains
@@ -54,8 +65,10 @@ def draw_permutations(
 ) -> np.ndarray:
     """Antithetic permutation matrix, shape (n_permutations, d).
 
-    Rows 2i / 2i+1 hold the i-th draw and its reverse; an odd count
-    appends one unpaired forward draw.
+    Rows 2i / 2i+1 hold the i-th draw and its reverse (the order the legacy
+    per-chain loop consumed them in); an odd count appends one unpaired
+    forward draw. Both backends consume this matrix, which is what makes
+    them bit-comparable.
     """
     if n_permutations < 1:
         raise ValueError("n_permutations must be >= 1")
@@ -67,6 +80,16 @@ def draw_permutations(
     if n_permutations % 2:
         rows.append(rng.permutation(d))
     return np.stack(rows)
+
+
+def _prefix_masks(perm: np.ndarray) -> np.ndarray:
+    """(d+1, d) boolean prefix-mask chain S_0 = {} ... S_d = all, along perm."""
+    d = len(perm)
+    masks = np.zeros((d + 1, d), dtype=bool)
+    for k in range(1, d + 1):
+        masks[k] = masks[k - 1]
+        masks[k, perm[k - 1]] = True
+    return masks
 
 
 def _prefix_masks_batch(perms: np.ndarray) -> np.ndarray:
@@ -81,6 +104,45 @@ def _prefix_masks_batch(perms: np.ndarray) -> np.ndarray:
     return rank[:, None, :] < np.arange(d + 1)[None, :, None]
 
 
+def _eval_masked(
+    f: Callable[[np.ndarray], np.ndarray],
+    x: np.ndarray,
+    background: np.ndarray,
+    masks: np.ndarray,
+) -> np.ndarray:
+    """E_b[f(z)] where z takes x on mask==True and background rows elsewhere.
+
+    masks: (m, d) boolean. Returns (m,) averaging over all background rows.
+    """
+    nb, d = background.shape
+    m = len(masks)
+    # build (m*nb, d) matrix
+    Z = np.broadcast_to(background[None, :, :], (m, nb, d)).copy()
+    Xb = np.broadcast_to(x[None, None, :], (m, nb, d))
+    M = np.broadcast_to(masks[:, None, :], (m, nb, d))
+    Z[M] = Xb[M]
+    vals = f(Z.reshape(m * nb, d))
+    return vals.reshape(m, nb).mean(axis=1)
+
+
+def _chain_deltas_loop(
+    f: Callable[[np.ndarray], np.ndarray],
+    x: np.ndarray,
+    background: np.ndarray,
+    perms: np.ndarray,
+) -> np.ndarray:
+    """Per-permutation marginal contributions, one model call per chain.
+
+    The pinned reference: returns (P, d) deltas in *permutation order*
+    (row i, column k = contribution of feature perms[i, k]).
+    """
+    out = np.empty(perms.shape, dtype=float)
+    for i, perm in enumerate(perms):
+        vals = _eval_masked(f, x, background, _prefix_masks(perm))
+        out[i] = vals[1:] - vals[:-1]
+    return out
+
+
 def _chain_deltas_batched(
     f: Callable[[np.ndarray], np.ndarray],
     X: np.ndarray,
@@ -92,7 +154,8 @@ def _chain_deltas_batched(
     """Marginal contributions for many (config, permutation) chains at once.
 
     X: (n, d) configs to explain; perms: (n, P, d) per-config permutation
-    matrices. Returns (n, P, d) deltas in permutation order.
+    matrices. Returns (n, P, d) deltas in permutation order, bit-identical
+    to the per-chain loop.
 
     When ``model`` is a packed-forest surrogate the chains are evaluated by
     the bitvector chain kernel (``kernels.forest_eval.chain``, kernel K3 on
@@ -104,7 +167,7 @@ def _chain_deltas_batched(
     ``max_eval_rows`` rows (never splitting a chain), so one forest pass
     covers many chains while peak memory stays bounded. Per-row model
     outputs and the per-chain background means are independent of how
-    chains are grouped into calls, so both paths agree bit-for-bit.
+    chains are grouped into calls, so all three paths agree bit-for-bit.
     """
     n, P, d = perms.shape
     nb = background.shape[0]
@@ -139,32 +202,45 @@ def _chain_deltas_batched(
         )
         Z[M] = Xb[M]
         out = f(Z.reshape(C * (d + 1) * nb, d))
-        # mean over the background rows of each (chain, prefix) block
+        # same per-chain reduction as _eval_masked: mean over the background
+        # rows of each (chain, prefix) block
         vals[a:b] = np.asarray(out).reshape(C, d + 1, nb).mean(axis=2)
     deltas = vals[:, 1:] - vals[:, :-1]
     return deltas.reshape(n, P, d)
 
 
 def _reduce_chains(perms: np.ndarray, deltas: np.ndarray) -> np.ndarray:
-    """phi from (P, d) permutation-order deltas, in the reference's float
-    order: chains are added feature-wise in draw order, then divided by
-    the chain count."""
+    """phi from (P, d) permutation-order deltas, replaying the legacy
+    accumulation: chains are added feature-wise in draw order, then divided
+    by the chain count — the exact op sequence of the old per-chain
+    ``phi[p] += vals[1:] - vals[:-1]`` loop."""
     P, d = perms.shape
     contrib = np.empty((P, d), dtype=float)
     rows = np.arange(P)[:, None]
     contrib[rows, perms] = deltas
     phi = np.zeros(d)
-    for i in range(P):  # sequential adds, not a pairwise sum
+    for i in range(P):  # sequential adds preserve the loop's float order
         phi += contrib[i]
     phi /= P
     return phi
 
 
-def _residual_correct(phi: np.ndarray, fx: float, f0: float) -> np.ndarray:
+def _residual_correct(
+    phi: np.ndarray,
+    f: Callable[[np.ndarray], np.ndarray],
+    x: np.ndarray,
+    background: np.ndarray,
+    fx: Optional[float] = None,
+    f0: Optional[float] = None,
+) -> np.ndarray:
     """Exact-additivity correction: distribute the (small) MC residual
     proportionally to |phi| so near-zero attributions stay near zero (a
     knob the model ignores keeps phi exactly 0.0); uniform fallback only
     when every phi is exactly zero."""
+    if fx is None:
+        fx = float(f(x[None, :])[0])
+    if f0 is None:
+        f0 = float(np.asarray(f(background)).mean())
     resid = (fx - f0) - phi.sum()
     mag = np.abs(phi)
     total = mag.sum()
@@ -175,12 +251,56 @@ def _residual_correct(phi: np.ndarray, fx: float, f0: float) -> np.ndarray:
     return phi
 
 
+def shapley_values(
+    f: Callable[[np.ndarray], np.ndarray],
+    x: np.ndarray,
+    background: np.ndarray,
+    n_permutations: int = 32,
+    rng: Optional[np.random.Generator] = None,
+    backend: str = "batched",
+    perms: Optional[np.ndarray] = None,
+    max_eval_rows: int = _MAX_EVAL_ROWS,
+    model=None,
+) -> np.ndarray:
+    """Antithetic-permutation-sampled interventional Shapley values.
+
+    f: vectorized model, maps (n, d) -> (n,).
+    x: (d,) the point to explain. background: (nb, d).
+    perms: optional pre-drawn (P, d) permutation matrix (overrides
+    n_permutations/rng) — sharing it across backends makes them
+    bit-comparable.
+    model: optional forest object behind ``f``; lets the batched backend
+    evaluate chains through the bitvector kernel (bit-identical, much
+    faster) instead of the composite tensor. Ignored by ``backend="loop"``.
+    """
+    x = np.asarray(x, dtype=float)
+    background = np.atleast_2d(np.asarray(background, dtype=float))
+    d = len(x)
+    if perms is None:
+        rng = rng or np.random.default_rng(0)
+        perms = draw_permutations(d, n_permutations, rng)
+    else:
+        perms = np.asarray(perms)
+    if backend == "loop":
+        deltas = _chain_deltas_loop(f, x, background, perms)
+    elif backend == "batched":
+        deltas = _chain_deltas_batched(
+            f, x[None, :], background, perms[None, :, :], max_eval_rows,
+            model=model,
+        )[0]
+    else:
+        raise ValueError(f"unknown shapley backend {backend!r}")
+    phi = _reduce_chains(perms, deltas)
+    return _residual_correct(phi, f, x, background)
+
+
 def shapley_values_batch(
     f: Callable[[np.ndarray], np.ndarray],
     X: np.ndarray,
     background: np.ndarray,
     n_permutations: int = 32,
     rng: Optional[np.random.Generator] = None,
+    backend: str = "batched",
     perms: Optional[np.ndarray] = None,
     max_eval_rows: int = _MAX_EVAL_ROWS,
     model=None,
@@ -188,9 +308,11 @@ def shapley_values_batch(
     """Explain many configs in one masked-evaluation pass. Returns (n, d).
 
     Permutation matrices are drawn per config *sequentially* from ``rng``
-    (config i's draws happen after config i-1's), the reference's draw
-    order. ``model`` (the forest behind ``f``) opts the chains into the
-    bitvector chain kernel.
+    (config i's draws happen after config i-1's), replaying the draw order
+    of one :func:`shapley_values` call per row — so the batch is
+    bit-identical to the sequential per-config loop with a shared rng, on
+    either backend. ``model`` (the forest behind ``f``) opts the batched
+    backend into the bitvector chain kernel.
     """
     X = np.atleast_2d(np.asarray(X, dtype=float))
     background = np.atleast_2d(np.asarray(background, dtype=float))
@@ -204,7 +326,16 @@ def shapley_values_batch(
         perms = np.asarray(perms)
         if perms.ndim == 2:  # one shared matrix for every config
             perms = np.broadcast_to(perms[None, :, :], (n, *perms.shape))
-    deltas = _chain_deltas_batched(f, X, background, perms, max_eval_rows, model=model)
+    if backend == "loop":
+        deltas = np.stack(
+            [_chain_deltas_loop(f, X[i], background, perms[i]) for i in range(n)]
+        )
+    elif backend == "batched":
+        deltas = _chain_deltas_batched(
+            f, X, background, perms, max_eval_rows, model=model
+        )
+    else:
+        raise ValueError(f"unknown shapley backend {backend!r}")
     # residual anchors: f(x_i) is evaluated per config in single-row calls —
     # numpy picks a different (pairwise vs sequential) tree-mean reduction
     # for 1-row vs n-row batches, so one f(X) call would drift 1 ULP from
@@ -214,5 +345,35 @@ def shapley_values_batch(
     out = np.empty((n, d), dtype=float)
     for i in range(n):
         phi = _reduce_chains(perms[i], deltas[i])
-        out[i] = _residual_correct(phi, float(fxs[i]), f0)
+        out[i] = _residual_correct(phi, f, X[i], background, fx=float(fxs[i]), f0=f0)
     return out
+
+
+def shapley_values_exact(
+    f: Callable[[np.ndarray], np.ndarray],
+    x: np.ndarray,
+    background: np.ndarray,
+) -> np.ndarray:
+    """Exact enumeration (d <= 8 or so) — used to validate the sampler."""
+    x = np.asarray(x, dtype=float)
+    background = np.atleast_2d(np.asarray(background, dtype=float))
+    d = len(x)
+    # value function over all 2^d subsets
+    n_sub = 1 << d
+    masks = np.zeros((n_sub, d), dtype=bool)
+    for s in range(n_sub):
+        for j in range(d):
+            masks[s, j] = bool(s >> j & 1)
+    vals = _eval_masked(f, x, background, masks)
+    phi = np.zeros(d)
+    count = 0
+    for p in permutations(range(d)):
+        s = 0
+        prev = vals[0]
+        for j in p:
+            s |= 1 << j
+            cur = vals[s]
+            phi[j] += cur - prev
+            prev = cur
+        count += 1
+    return phi / count

@@ -55,8 +55,10 @@ def surrogate_for_task(
     fidelity: Optional[float] = None,
     seed: int = 0,
     device: DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> Optional[Surrogate]:
-    """Fit a PRF on a task's observations in the given space encoding."""
+    """Fit a PRF on a task's observations in the given space encoding
+    (``backend``: the forest backend, None = the module default)."""
     if fidelity is None:
         obs = task.successful()
     else:
@@ -65,7 +67,7 @@ def surrogate_for_task(
         return None
     X = space.encode_many([o.config for o in obs])
     y = np.array([o.performance for o in obs])
-    return make_forest(seed=seed, device=device).fit(X, y)
+    return make_forest(seed=seed, device=device, backend=backend).fit(X, y)
 
 
 def eq2_similarity(

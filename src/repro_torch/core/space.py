@@ -1,4 +1,5 @@
-"""Configuration search space: the columnar plane.
+"""Configuration search space: columnar plane + scalar reference (port of
+``repro.core.space``).
 
 The space is a flat, named collection of knobs. Four knob kinds are
 supported (float / int / categorical / bool), with optional log scaling for
@@ -29,18 +30,35 @@ per-config, per-knob Python loop. Results are wrapped in a lazy
 generator/acquisition path never round-trips through Config dicts; dicts
 are materialized only at the evaluation boundary.
 
+Backend contract
+----------------
+``set_space_backend("columnar" | "scalar")`` switches every batched entry
+point. The default ``"columnar"`` path is the plane described above. The
+``"scalar"`` path is the per-element reference: it maps one (config, knob)
+cell at a time with numpy-scalar arithmetic over the *same* compiled tables
+and the knob objects' own ``to_unit`` / ``from_unit`` methods, consuming
+the *same* pre-drawn uniform/normal matrices. The two backends are
+bit-equivalence-tested against each other; a fixed seed therefore yields
+identical pools, mutations and MFTune trajectories on either backend.
+
+Log-knob sampling geometry: the plane samples log knobs uniformly in
+transformed (log) space; this is the default only on the ``"columnar"``
+backend, while the ``"scalar"`` reference keeps the legacy raw-unit
+geometry. ``set_log_sampling(True | False | None)`` overrides the geometry
+explicitly for either backend (the equivalence tests pin both backends to
+one geometry).
+
 Host draws
 ----------
-Carried from the reference as numpy: every draw is the reference's
-``numpy.random.Generator`` call, so a fixed seed gives the reference's
-pools. Log knobs sample uniformly in log space (the reference's columnar
-default geometry). The reference's per-element ``"scalar"`` space backend
-and its geometry override are not carried. ``ConfigBatch.unit_tensor``
-uploads a pool's unit matrix to a device once.
+Carried from the reference as numpy, both backends: every draw is the
+reference's ``numpy.random.Generator`` call, so a fixed seed gives the
+reference's pools. ``ConfigBatch.unit_tensor`` uploads a pool's unit
+matrix to a device once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -60,10 +78,72 @@ __all__ = [
     "ConfigBatch",
     "SpacePlane",
     "Intervals",
+    "get_space_backend",
+    "set_space_backend",
+    "space_backend",
+    "set_log_sampling",
+    "log_sampling",
 ]
 
 
 Interval = Tuple[float, float]
+
+
+# ---------------------------------------------------------------------------
+# Backend switch (columnar plane vs per-element scalar reference)
+# ---------------------------------------------------------------------------
+
+_SPACE_BACKENDS = ("columnar", "scalar")
+_SPACE_BACKEND = "columnar"
+# None = backend default: columnar samples log knobs in log space (the fix),
+# scalar keeps the legacy raw-unit geometry. True/False force a geometry.
+_LOG_SAMPLING: Optional[bool] = None
+
+
+def get_space_backend() -> str:
+    return _SPACE_BACKEND
+
+
+def set_space_backend(backend: str) -> None:
+    """Set the module-default batched-space backend ("scalar" forces the
+    per-element reference everywhere — used by equivalence tests)."""
+    if backend not in _SPACE_BACKENDS:
+        raise ValueError(f"unknown space backend {backend!r}; use one of {_SPACE_BACKENDS}")
+    global _SPACE_BACKEND
+    _SPACE_BACKEND = backend
+
+
+@contextlib.contextmanager
+def space_backend(backend: str):
+    prev = get_space_backend()
+    set_space_backend(backend)
+    try:
+        yield
+    finally:
+        set_space_backend(prev)
+
+
+def set_log_sampling(flag: Optional[bool]) -> None:
+    """Override the log-knob sampling geometry (None = backend default)."""
+    global _LOG_SAMPLING
+    _LOG_SAMPLING = flag
+
+
+@contextlib.contextmanager
+def log_sampling(flag: Optional[bool]):
+    global _LOG_SAMPLING
+    prev = _LOG_SAMPLING
+    _LOG_SAMPLING = flag
+    try:
+        yield
+    finally:
+        _LOG_SAMPLING = prev
+
+
+def _effective_log_sampling(backend: Optional[str] = None) -> bool:
+    if _LOG_SAMPLING is not None:
+        return _LOG_SAMPLING
+    return (backend or _SPACE_BACKEND) == "columnar"
 
 
 # ---------------------------------------------------------------------------
@@ -623,16 +703,133 @@ class SpacePlane:
         return out
 
 
+# ---------------------------------------------------------------------------
+# Scalar reference kernels (per-element, numpy-scalar arithmetic)
+# ---------------------------------------------------------------------------
+
+
+def _scalar_quantile(plane: SpacePlane, j: int, u: float) -> float:
+    kj = plane.kind[j]
+    if kj in (_KIND_FLOAT, _KIND_INT):
+        tab = plane.num_tables[j]
+        P = len(tab.ga)
+        if tab.degenerate:
+            v = tab.mid[min(int(u * P), P - 1)]
+        else:
+            i = min(max(int(np.searchsorted(tab.cum, u, side="right")) - 1, 0), P - 1)
+            span = tab.cum[i + 1] - tab.cum[i]
+            frac = (u - tab.cum[i]) / span if span > 0 else 0.0
+            g = tab.ga[i] + frac * (tab.gb[i] - tab.ga[i])
+            v = np.exp(g) if tab.transformed else g
+        if kj == _KIND_INT:
+            v = np.clip(np.rint(v), plane.lo[j], plane.hi[j])
+        return float(v)
+    tab = plane.cat_tables[j]
+    m = len(tab.act)
+    return float(tab.act[min(int(u * m), m - 1)])
+
+
+def _scalar_project(plane: SpacePlane, j: int, v: float) -> float:
+    kj = plane.kind[j]
+    if kj in (_KIND_FLOAT, _KIND_INT):
+        k = plane.space.knobs[j]
+        w = k.active_intervals().clip(float(v))
+        if kj == _KIND_INT:
+            w = np.rint(w)
+        return float(np.clip(w, plane.lo[j], plane.hi[j]))
+    tab = plane.cat_tables[j]
+    return float(v) if int(v) in tab.act_set else float(tab.act[0])
+
+
+def _scalar_sample_values(plane: SpacePlane, U: np.ndarray) -> np.ndarray:
+    V = np.empty_like(U)
+    for i in range(U.shape[0]):
+        for j in range(U.shape[1]):
+            V[i, j] = _scalar_quantile(plane, j, U[i, j])
+    return V
+
+
+def _scalar_encode_values(plane: SpacePlane, V: np.ndarray) -> np.ndarray:
+    knobs = plane.space.knobs
+    U = np.empty_like(V)
+    for i in range(V.shape[0]):
+        for j, k in enumerate(knobs):
+            kj = plane.kind[j]
+            if kj in (_KIND_FLOAT, _KIND_INT):
+                u = k.to_unit(V[i, j])
+            elif kj == _KIND_CAT:
+                u = (V[i, j] + 0.5) / plane.n_choices[j]
+            else:
+                u = 0.75 if V[i, j] != 0 else 0.25
+            U[i, j] = np.clip(u, 0.0, 1.0)
+    return U
+
+
+def _scalar_decode_units(plane: SpacePlane, U: np.ndarray) -> np.ndarray:
+    knobs = plane.space.knobs
+    V = np.empty_like(U)
+    for i in range(U.shape[0]):
+        for j, k in enumerate(knobs):
+            kj = plane.kind[j]
+            if kj in (_KIND_FLOAT, _KIND_INT):
+                v = float(k.from_unit(float(U[i, j])))
+            elif kj == _KIND_CAT:
+                n = plane.n_choices[j]
+                v = float(min(int(np.clip(U[i, j], 0.0, 1.0 - 1e-9) * n), n - 1))
+            else:
+                v = 1.0 if U[i, j] >= 0.5 else 0.0
+            V[i, j] = _scalar_project(plane, j, v)
+    return V
+
+
+def _scalar_mutate_values(
+    plane: SpacePlane, V: np.ndarray, G: np.ndarray, Z: np.ndarray, C: np.ndarray,
+    scale: float, p: float,
+) -> np.ndarray:
+    knobs = plane.space.knobs
+    out = V.copy()
+    for i in range(V.shape[0]):
+        for j, k in enumerate(knobs):
+            if G[i, j] > p:
+                continue
+            kj = plane.kind[j]
+            if kj in (_KIND_FLOAT, _KIND_INT):
+                u = float(np.clip(k.to_unit(V[i, j]), 0.0, 1.0))
+                u = float(np.clip(u + scale * Z[i, j], 0.0, 1.0))
+                w = float(k.from_unit(u))
+                w = k.active_intervals().clip(w)
+                if kj == _KIND_INT:
+                    w = float(np.clip(np.rint(w), plane.lo[j], plane.hi[j]))
+                out[i, j] = w
+            else:
+                out[i, j] = _scalar_quantile(plane, j, C[i, j])
+    return out
+
+
+def _scalar_project_values(plane: SpacePlane, V: np.ndarray) -> np.ndarray:
+    out = np.empty_like(V)
+    for i in range(V.shape[0]):
+        for j in range(V.shape[1]):
+            out[i, j] = _scalar_project(plane, j, V[i, j])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ConfigBatch: lazy columnar view over a pool of configurations
+# ---------------------------------------------------------------------------
+
+
 class ConfigBatch(Sequence):
     """A pool of configurations as a canonical value matrix.
 
     Behaves as a ``Sequence[Config]`` — indexing/iteration materialize dicts
     one row at a time — while the generator/acquisition path reads
     ``values`` (canonical matrix) and ``unit()`` (cached unit-cube encoding)
-    without ever building dicts.
+    without ever building dicts. ``unit()`` dispatches through the active
+    space backend so scalar/columnar runs stay bit-comparable end-to-end.
     """
 
-    __slots__ = ("space", "values", "_unit")
+    __slots__ = ("space", "values", "_unit", "_delta")
 
     def __init__(self, space: "ConfigSpace", values: np.ndarray):
         self.space = space
@@ -642,6 +839,9 @@ class ConfigBatch(Sequence):
         if self.values.shape[1] != space.dim:
             raise ValueError(f"value matrix has {self.values.shape[1]} columns, space has {space.dim}")
         self._unit: Optional[np.ndarray] = None
+        # mutation provenance: (bases_unit, base_of) when rows derive from
+        # incumbent mutations — lets pool scoring reuse per-base word ANDs
+        self._delta = None
 
     @classmethod
     def from_configs(cls, space: "ConfigSpace", cfgs: Sequence[Config]) -> "ConfigBatch":
@@ -685,7 +885,25 @@ class ConfigBatch(Sequence):
         out = ConfigBatch(self.space, self.values[idx])
         if self._unit is not None:
             out._unit = self._unit[idx]
+        if self._delta is not None:
+            bases, base_of = self._delta
+            out._delta = (bases, base_of[idx])
         return out
+
+    @property
+    def delta(self):
+        """Mutation provenance ``(bases_unit, base_of)`` or None (see
+        :meth:`set_delta`); survives :meth:`take` with remapped rows."""
+        return self._delta
+
+    def set_delta(self, bases_unit: np.ndarray, base_of: np.ndarray) -> None:
+        """Attach mutation provenance: ``base_of[i]`` is the row of
+        ``bases_unit`` candidate i was mutated from (-1 = fresh sample).
+        ``bases_unit`` must be in the same unit encoding ``unit()`` yields."""
+        base_of = np.asarray(base_of, dtype=np.int64)
+        if base_of.shape != (len(self),):
+            raise ValueError(f"base_of has shape {base_of.shape}, batch has {len(self)} rows")
+        self._delta = (np.asarray(bases_unit, dtype=float), base_of)
 
     def row_keys(self) -> List[bytes]:
         """Exact-match dedup keys (canonical rows as bytes)."""
@@ -711,9 +929,11 @@ class ConfigSpace:
     """Ordered collection of knobs with encode/decode/sample/mutate.
 
     Batched entry points (``sample`` / ``lhs_sample`` / ``mutate_many`` /
-    ``encode_many`` / ``decode_many`` / ``project_many``) run through the
-    columnar :class:`SpacePlane` and share one unit-draw protocol: uniforms
-    are drawn as whole (n, dim) matrices up front, as in the reference.
+    ``encode_many`` / ``decode_many`` / ``project_many``) dispatch through
+    the module space backend (columnar plane vs scalar reference) and share
+    one unit-draw protocol: uniforms are drawn as whole (n, dim) matrices up
+    front, so both backends consume the RNG identically and a fixed seed
+    yields bit-identical pools on either backend.
     """
 
     def __init__(self, knobs: Sequence[Knob]):
@@ -742,12 +962,13 @@ class ConfigSpace:
     def default(self) -> Config:
         return {k.name: k.default_value() for k in self.knobs}
 
-    def plane(self) -> SpacePlane:
-        """The compiled plane (log knobs sampled in log space)."""
-        plane = self._planes.get(True)
+    def plane(self, log_sampling_: Optional[bool] = None) -> SpacePlane:
+        """The compiled plane for the requested (or effective) geometry."""
+        flag = _effective_log_sampling() if log_sampling_ is None else bool(log_sampling_)
+        plane = self._planes.get(flag)
         if plane is None:
-            plane = SpacePlane(self, True)
-            self._planes[True] = plane
+            plane = SpacePlane(self, flag)
+            self._planes[flag] = plane
         return plane
 
     # ------------------------------------------------------------- en/decoding
@@ -760,14 +981,19 @@ class ConfigSpace:
         return out
 
     def _encode_values(self, V: np.ndarray) -> np.ndarray:
-        return self.plane().encode_values(V)
+        plane = self.plane()
+        if get_space_backend() == "columnar":
+            return plane.encode_values(V)
+        return _scalar_encode_values(plane, V)
 
     def encode_many(self, cfgs: Sequence[Config]) -> np.ndarray:
         if isinstance(cfgs, ConfigBatch) and cfgs.space is self:
             return cfgs.unit()
         if len(cfgs) == 0:
             return np.zeros((0, self.dim))
-        return self.plane().encode_values(self.plane().gather(list(cfgs)))
+        if get_space_backend() == "columnar":
+            return self.plane().encode_values(self.plane().gather(list(cfgs)))
+        return np.stack([self.encode(c) for c in cfgs])
 
     def decode(self, u: np.ndarray) -> Config:
         """Unit vector -> config, projected onto the active restriction.
@@ -779,14 +1005,20 @@ class ConfigSpace:
 
     def decode_many(self, U: np.ndarray) -> ConfigBatch:
         U = np.atleast_2d(np.asarray(U, dtype=float))
-        return ConfigBatch(self, self.plane().decode_units(U))
+        plane = self.plane()
+        if get_space_backend() == "columnar":
+            V = plane.decode_units(U)
+        else:
+            V = _scalar_decode_units(plane, U)
+        return ConfigBatch(self, V)
 
     # ---------------------------------------------------------------- sampling
     def sample(self, rng: np.random.Generator, n: int = 1) -> ConfigBatch:
         """n uniform samples over the active (restricted) space.
 
         Draws one (n, dim) U(0,1) matrix and maps each knob column through
-        its restriction CDF table (log knobs in log space).
+        its restriction CDF table (log knobs in log space on the columnar
+        default — see module docstring).
         """
         with _obs.span("space_sample", kind="uniform", n=n, dim=self.dim):
             U = rng.random((n, self.dim))
@@ -807,7 +1039,12 @@ class ConfigSpace:
             return self._map_unit_draws(U)
 
     def _map_unit_draws(self, U: np.ndarray) -> ConfigBatch:
-        return ConfigBatch(self, self.plane().sample_values(U))
+        plane = self.plane()
+        if get_space_backend() == "columnar":
+            V = plane.sample_values(U)
+        else:
+            V = _scalar_sample_values(plane, U)
+        return ConfigBatch(self, V)
 
     # ---------------------------------------------------------------- mutation
     def mutate_many(
@@ -820,7 +1057,7 @@ class ConfigSpace:
         """Gaussian-in-unit-space perturbation of a random knob subset,
         vectorized over the whole batch.
 
-        Draw protocol: a (n, dim) uniform gate
+        Draw protocol (shared by both backends): a (n, dim) uniform gate
         matrix, a (n, dim) standard-normal step matrix, and a (n, dim)
         uniform resample matrix for categorical/bool knobs.
         """
@@ -830,9 +1067,12 @@ class ConfigSpace:
             G = rng.random((n, self.dim))
             Z = rng.standard_normal((n, self.dim))
             C = rng.random((n, self.dim))
-            return ConfigBatch(
-                self, self.plane().mutate_values(batch.values, G, Z, C, scale, p)
-            )
+            plane = self.plane()
+            if get_space_backend() == "columnar":
+                V = plane.mutate_values(batch.values, G, Z, C, scale, p)
+            else:
+                V = _scalar_mutate_values(plane, batch.values, G, Z, C, scale, p)
+            return ConfigBatch(self, V)
 
     def mutate(self, cfg: Config, rng: np.random.Generator, scale: float = 0.2, p: float = 0.3) -> Config:
         """Single-config convenience wrapper over :meth:`mutate_many`."""
@@ -858,7 +1098,12 @@ class ConfigSpace:
 
     def project_many(self, cfgs: Sequence[Config]) -> ConfigBatch:
         batch = ConfigBatch.from_configs(self, cfgs)
-        return ConfigBatch(self, self.plane().project_values(batch.values))
+        plane = self.plane()
+        if get_space_backend() == "columnar":
+            V = plane.project_values(batch.values)
+        else:
+            V = _scalar_project_values(plane, batch.values)
+        return ConfigBatch(self, V)
 
     def restrict(
         self,

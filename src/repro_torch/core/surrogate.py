@@ -7,14 +7,28 @@ predictive variance combines across-tree disagreement with within-leaf
 empirical variance (law of total variance).
 
 Fitting stays on the host in numpy: the level-synchronous frontier builder
-is carried from the reference, so trees are bit-identical. Inference runs
-on a device: ``pack()`` stacks all trees into one :class:`PackedForest`
-node arena held as tensors, and :class:`ForestPlane` fuses several arenas
-so every source of the combined surrogate (§6.2) is scored in one descent.
-The descent is kernel K1 (``kernels/forest_eval/ops.py``): CUDA on the
-card, its plain torch version on the CPU. The ensemble combine is float64
-torch in numpy's reduction order (``repro_torch.numerics``), so (mean,
-var) match the reference bit for bit.
+and the recursive reference builder are carried from the reference, so
+trees are bit-identical. Inference runs on a device: ``pack()`` stacks all
+trees into one :class:`PackedForest` node arena held as tensors, and
+:class:`ForestPlane` fuses several arenas so every source of the combined
+surrogate (§6.2) is scored in one descent. The descent is kernel K1
+(``kernels/forest_eval/ops.py``): CUDA on the card, its plain torch version
+on the CPU. The ensemble combine is float64 torch in numpy's reduction
+order (``repro_torch.numerics``), so (mean, var) match the reference bit
+for bit.
+
+Forest backends (``set_forest_backend`` / ``forest_backend``, or a
+forest's ``backend=``), as the reference's switch:
+
+- ``"device"`` (the default): K1 on the forest's device;
+- ``"numpy"``: the host route, the reference's gather descent
+  (:func:`packed_descend`) on the arena's host arrays, which also takes
+  the chain-delta pool scoring (``ForestPlane.predict(..., delta=...)``);
+- ``"loop"``: the reference's recursive builder and per-tree prediction,
+  the equivalence reference.
+
+The host routes are explicit opt-ins, mostly for equivalence tests: nothing
+picks them on a card unless asked by name.
 """
 
 from __future__ import annotations
@@ -22,15 +36,19 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import contextlib
+
 import numpy as np
 import torch
 
 from .. import obs as _obs
 from ..device import DeviceLike, resolve_device
+from ..kernels.forest_eval.chain import build_pool_plan_ex
 from ..kernels.forest_eval.ops import NodeTable, forest_eval, pack_nodes
 from ..numerics import div_scalar, reduce_sum
 
 __all__ = [
+    "FOREST_BACKENDS",
     "RegressionTree",
     "ProbabilisticRandomForest",
     "PackedForest",
@@ -38,7 +56,11 @@ __all__ = [
     "Surrogate",
     "GaussianProcess",
     "combine",
+    "forest_backend",
+    "get_forest_backend",
     "make_forest",
+    "packed_descend",
+    "set_forest_backend",
 ]
 
 
@@ -87,12 +109,17 @@ def _child_seeds(seeds: np.ndarray, right: int) -> np.ndarray:
     """Traversal-order-independent per-node seed chain (splitmix64-style),
     derived for a whole frontier of parent seeds in one array pass.
 
-    The reference's recursive and frontier builders both derive each
-    node's feature-subset stream from this chain; the port carries the
-    frontier builder.
+    Both tree builders derive each node's feature-subset stream from this
+    chain, so the recursive (depth-first) and frontier (level-synchronous)
+    builders draw identical subsets regardless of node processing order.
     """
     z = np.asarray(seeds, dtype=np.uint64) + np.uint64((_GOLDEN * (right + 1)) & _MASK64)
     return _splitmix64(z) & np.uint64((1 << 63) - 1)
+
+
+def _child_seed(seed: int, right: int) -> int:
+    """Scalar view of the chain for the recursive reference builder."""
+    return int(_child_seeds(np.asarray([seed], dtype=np.uint64), right)[0])
 
 
 def _feature_subsets(seeds: np.ndarray, d: int, k: int) -> np.ndarray:
@@ -122,10 +149,13 @@ def _feature_subsets(seeds: np.ndarray, d: int, k: int) -> np.ndarray:
 class RegressionTree:
     """CART regression tree with random feature subsetting at each split.
 
-    Host numpy, carried from the reference: the ``"frontier"`` builder
-    grows the tree one *level* at a time — a vectorized best-split scan over
-    all active nodes per depth against a shared presorted feature order —
-    with the reference's op sequence, so fitted trees are bit-identical to
+    Host numpy, carried from the reference, with its two equivalent
+    builders: ``"frontier"`` (default) grows the tree one *level* at a time
+    — a vectorized best-split scan over all active nodes per depth against
+    a shared presorted feature order — while ``"recursive"`` is the legacy
+    node-by-node Python recursion kept as the equivalence reference. Both
+    consume the per-node seed chain and compute split SSEs with the
+    identical op sequence, so they produce bit-identical trees, and so do
     the reference's.
     """
 
@@ -137,12 +167,16 @@ class RegressionTree:
         max_features: Optional[int] = None,
         rng: Optional[np.random.Generator] = None,
         root_seed: Optional[int] = None,
+        builder: str = "frontier",
     ):
         self.max_depth = max_depth
         self.min_samples_split = min_samples_split
         self.min_samples_leaf = min_samples_leaf
         self.max_features = max_features
         self.rng = rng or np.random.default_rng()
+        if builder not in ("frontier", "recursive"):
+            raise ValueError(f"unknown tree builder {builder!r}")
+        self.builder = builder
         # explicit root of the per-node seed chain (forest fits derive all
         # tree roots in one array pass); None = draw from self.rng
         self.root_seed = root_seed
@@ -157,7 +191,10 @@ class RegressionTree:
         y = np.asarray(y, dtype=float)
         self.nodes = []
         root_seed = self.root_seed if self.root_seed is not None else int(self.rng.integers(2**63))
-        self._build_frontier(X, y, root_seed)
+        if self.builder == "recursive":
+            self._build(X, y, np.arange(len(y)), 0, root_seed)
+        else:
+            self._build_frontier(X, y, root_seed)
         self._freeze()
         return self
 
@@ -175,6 +212,54 @@ class RegressionTree:
         node.n = n
         self.nodes.append(node)
         return len(self.nodes) - 1
+
+    def _build(self, X: np.ndarray, y: np.ndarray, idx: np.ndarray, depth: int, seed: int) -> int:
+        nid = self._new_node(y[idx])
+        node = self.nodes[nid]
+        ysub = y[idx]
+        if depth >= self.max_depth or len(idx) < self.min_samples_split or np.ptp(ysub) == 0:
+            return nid
+        d = X.shape[1]
+        feats = _feature_subsets(np.asarray([seed], np.uint64), d, self._n_features(d))[0]
+        best = None  # (score, feat, thr)
+        for f in feats:
+            xs = X[idx, f]
+            order = np.argsort(xs, kind="stable")
+            xs_sorted = xs[order]
+            ys_sorted = ysub[order]
+            # candidate split positions between distinct values
+            csum = np.cumsum(ys_sorted)
+            csum2 = np.cumsum(ys_sorted**2)
+            n = len(idx)
+            pos = np.arange(self.min_samples_leaf, n - self.min_samples_leaf + 1)
+            pos = pos[(pos >= 1) & (pos <= n - 1)]  # both sides non-empty
+            if len(pos) == 0:
+                continue
+            valid = xs_sorted[pos - 1] < xs_sorted[pos]  # split between distinct values
+            pos = pos[valid]
+            if len(pos) == 0:
+                continue
+            nl = pos.astype(float)
+            nr = n - nl
+            sl, sr = csum[pos - 1], csum[-1] - csum[pos - 1]
+            s2l, s2r = csum2[pos - 1], csum2[-1] - csum2[pos - 1]
+            sse = (s2l - sl**2 / nl) + (s2r - sr**2 / nr)
+            j = int(np.argmin(sse))
+            if best is None or sse[j] < best[0]:
+                thr = 0.5 * (xs_sorted[pos[j] - 1] + xs_sorted[pos[j]])
+                best = (float(sse[j]), int(f), float(thr))
+        if best is None:
+            return nid
+        _, f, thr = best
+        mask = X[idx, f] <= thr
+        li, ri = idx[mask], idx[~mask]
+        if len(li) < self.min_samples_leaf or len(ri) < self.min_samples_leaf:
+            return nid
+        node.feature = f
+        node.threshold = thr
+        node.left = self._build(X, y, li, depth + 1, _child_seed(seed, 0))
+        node.right = self._build(X, y, ri, depth + 1, _child_seed(seed, 1))
+        return nid
 
     def _build_frontier(self, X: np.ndarray, y: np.ndarray, root_seed: int) -> None:
         """Level-synchronous builder: one vectorized split scan per depth.
@@ -354,6 +439,43 @@ class RegressionTree:
 # ---------------------------------------------------------------------------
 
 
+def packed_descend(
+    feat: np.ndarray,
+    thr: np.ndarray,
+    child: np.ndarray,
+    roots: np.ndarray,
+    X: np.ndarray,
+    depth: int,
+) -> np.ndarray:
+    """Level-synchronous descent over a packed node arena (numpy backend).
+
+    Node encoding: leaves carry ``thr = +inf`` and self-loop children, so
+    every lane takes the "left" branch into itself once it lands on a leaf
+    and the loop needs no active-lane bookkeeping. ``child`` interleaves the
+    two children of node ``i`` at ``[2i, 2i+1]`` so the post-comparison
+    branch is a single gather. Returns leaf node ids, shape (T, N).
+    """
+    X = np.ascontiguousarray(X, dtype=float)
+    N, D = X.shape
+    T = len(roots)
+    xflat = X.reshape(-1)
+    col = np.broadcast_to((np.arange(N, dtype=np.intp) * D)[None, :], (T, N))
+    nid = np.repeat(roots[:, None], N, axis=1)
+    buf_i = np.empty((T, N), dtype=np.intp)
+    buf_x = np.empty((T, N))
+    buf_t = np.empty((T, N))
+    for _ in range(depth):
+        np.take(feat, nid, out=buf_i)
+        buf_i += col
+        np.take(xflat, buf_i, out=buf_x)
+        np.take(thr, nid, out=buf_t)
+        go_right = buf_x > buf_t
+        nid += nid
+        nid += go_right
+        np.take(child, nid, out=nid)
+    return nid
+
+
 def combine(m_t: torch.Tensor, v_t: torch.Tensor, y_mean, y_std, y_std_sq
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ensemble (mean, var) from per-tree stats over axis -2.
@@ -404,6 +526,8 @@ class PackedForest:
     _host_nodes: Optional[Tuple[Optional[NodeTable]]] = field(
         default=None, init=False, repr=False, compare=False)
     _nodes: Optional[NodeTable] = field(default=None, init=False, repr=False, compare=False)
+    _host: Optional[Dict[str, np.ndarray]] = field(default=None, init=False, repr=False,
+                                                  compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -433,9 +557,11 @@ class PackedForest:
         return int(self.feat.shape[0])
 
     def host_arrays(self) -> Dict[str, np.ndarray]:
-        """The arena as numpy arrays (for host-side plan building)."""
-        return {k: getattr(self, k).cpu().numpy()
-                for k in ("feat", "thr", "child", "mean", "var", "roots")}
+        """The arena as numpy arrays (for host-side plans and the host
+        route), read back once."""
+        if self._host is None:
+            self._host = _host_arrays(self)
+        return self._host
 
     @staticmethod
     def from_arrays(feat, thr, child, mean, var, roots, depth: int,
@@ -483,8 +609,14 @@ class PackedForest:
         )
 
     # ------------------------------------------------------------- inference
-    def predict_trees(self, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-tree leaf stats through K1, each (n_trees, n_points)."""
+    def predict_trees(self, X, backend: str = "device") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-tree leaf stats, each (n_trees, n_points): through K1 on the
+        arena's device, or on the host route (``"numpy"``), the gather
+        descent on the host arrays, as CPU tensors."""
+        if backend == "numpy":
+            return _host_leaf_stats(self.host_arrays(), X, self.depth)
+        _check_backend(backend, ("device",))
+        X = as_points(X, self.device)
         nodes = self.node_table() if X.device.type == "cuda" else None
         return forest_eval(self.feat, self.thr, self.child, self.mean, self.var,
                            self.roots, X, self.depth, nodes)
@@ -492,8 +624,31 @@ class PackedForest:
     def combine(self, m_t: torch.Tensor, v_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return combine(m_t, v_t, self.y_mean, self.y_std, self.y_std**2)
 
-    def predict(self, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.combine(*self.predict_trees(X))
+    def predict(self, X, backend: str = "device") -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.combine(*self.predict_trees(X, backend))
+
+
+_ARENA_KEYS = ("feat", "thr", "child", "mean", "var", "roots")
+
+
+def _host_arrays(arena) -> Dict[str, np.ndarray]:
+    return {k: getattr(arena, k).cpu().numpy() for k in _ARENA_KEYS}
+
+
+def _host_points(X) -> np.ndarray:
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    return np.atleast_2d(np.asarray(X, dtype=float))
+
+
+def _host_leaf_stats(host: Dict[str, np.ndarray], X, depth: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's numpy route: :func:`packed_descend`, then the leaf
+    stats gathered, as float64 CPU tensors (T, N)."""
+    nid = packed_descend(host["feat"], host["thr"], host["child"], host["roots"],
+                         _host_points(X), depth)
+    return (torch.from_numpy(np.take(host["mean"], nid)),
+            torch.from_numpy(np.take(host["var"], nid)))
 
 
 def as_points(X, device: torch.device) -> torch.Tensor:
@@ -541,6 +696,7 @@ class ForestPlane:
             for v in zip(*[(f.y_mean, f.y_std, f.y_std**2) for f in forests])
         )
         self._nodes: Optional[Tuple[Optional[NodeTable]]] = None
+        self._host: Optional[Dict[str, np.ndarray]] = None
 
     def node_table(self) -> Optional[NodeTable]:
         """K1's node table of the fused arena on its device: the forests'
@@ -558,19 +714,50 @@ class ForestPlane:
         counts = {f.n_trees for f in self.forests}
         return next(iter(counts)) if len(counts) == 1 else None
 
-    def predict(self, X) -> Tuple[torch.Tensor, torch.Tensor]:
+    def predict(self, X, backend: str = "device", delta=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fused multi-source predict: (means, vars), each (S, N) on the
-        plane's device."""
+        plane's device.
+
+        ``backend="device"`` (the default) descends through K1 on the
+        plane's device and ignores ``delta``, as the reference ignores it on
+        its accelerated backends. ``backend="numpy"`` is the host route: the
+        gather descent on the host arrays, or, given ``delta`` (a pool's
+        mutation provenance ``(bases, base_of)``, see
+        ``chain.PoolPlan.leaf_stats``), the chain-delta scoring, whose leaf
+        stats are the descent's bit for bit; the combine then runs on the
+        host too, and the result moves to the plane's device.
+        """
+        if backend == "numpy":
+            Xh = _host_points(X)
+            m_t = None
+            if delta is not None and Xh.shape[0]:
+                plan, _reason = build_pool_plan_ex(self, Xh.shape[1])
+                if plan is not None:
+                    _obs.count("forest_plane/chain_delta")
+                    m_t, v_t = (torch.from_numpy(a) for a in plan.leaf_stats(Xh, *delta))
+            if m_t is None:
+                _obs.count("forest_plane/numpy")
+                if self._host is None:
+                    self._host = _host_arrays(self)
+                m_t, v_t = _host_leaf_stats(self._host, Xh, self.depth)
+            means, vars_ = self._combine(m_t, v_t, self.y_means.cpu(), self.y_stds.cpu(),
+                                         self.y_std_sqs.cpu())
+            return means.to(self.device), vars_.to(self.device)
+        _check_backend(backend, ("device",))
         X = as_points(X, self.device)
         _obs.count("forest_plane/device")
         nodes = self.node_table() if X.device.type == "cuda" else None
         m_t, v_t = forest_eval(self.feat, self.thr, self.child, self.mean, self.var,
                                self.roots, X, self.depth, nodes)
+        return self._combine(m_t, v_t, self.y_means, self.y_stds, self.y_std_sqs)
+
+    def _combine(self, m_t, v_t, y_means, y_stds, y_std_sqs):
         tps = self.uniform_tree_count
         if tps is not None:
-            S, N = len(self.forests), X.shape[0]
+            S, N = len(self.forests), m_t.shape[1]
             return combine(m_t.reshape(S, tps, N), v_t.reshape(S, tps, N),
-                           self.y_means, self.y_stds, self.y_std_sqs)
+                           y_means, y_stds, y_std_sqs)
         parts = [f.combine(m_t[a:b], v_t[a:b])
                  for (a, b), f in zip(self.tree_slices, self.forests)]
         return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
@@ -582,7 +769,10 @@ class ProbabilisticRandomForest(Surrogate):
     ``device=None`` means the CUDA card (raises without one); pass
     ``device="cpu"`` for the plain versions. ``predict`` takes and returns
     numpy arrays, the surrogate interface the host-side tuner uses;
-    ``pack()`` gives the device arena for tensor callers.
+    ``pack()`` gives the device arena for tensor callers. ``backend`` (None
+    = the module default, ``"device"``) picks the inference route:
+    ``"numpy"`` the host gather descent, ``"loop"`` the recursive builder
+    and the per-tree prediction loop (the reference's legacy path).
     """
 
     def __init__(
@@ -594,6 +784,7 @@ class ProbabilisticRandomForest(Surrogate):
         bootstrap: bool = True,
         seed: int = 0,
         device: DeviceLike = None,
+        backend: Optional[str] = None,
     ):
         self.n_trees = n_trees
         self.max_depth = max_depth
@@ -602,6 +793,8 @@ class ProbabilisticRandomForest(Surrogate):
         self.bootstrap = bootstrap
         self.seed = seed
         self.device = resolve_device(device)
+        self.backend = backend or get_forest_backend()
+        _check_backend(self.backend, FOREST_BACKENDS)
         self.trees: List[RegressionTree] = []
         self._packed: Optional[PackedForest] = None
         self._y_mean = 0.0
@@ -622,6 +815,10 @@ class ProbabilisticRandomForest(Surrogate):
         self.trees = []
         self._packed = None
         n = len(y)
+        # "loop" pins the legacy recursive builder along with the per-tree
+        # predict loop; the other backends fit via the frontier builder
+        # (bit-identical trees either way)
+        builder = "recursive" if self.backend == "loop" else "frontier"
         # one PCG64 array draw seeds a splitmix64 counter stream per tree,
         # which yields every tree's bootstrap rows and the root of its
         # per-node seed chain (the reference's draws, call for call)
@@ -642,6 +839,7 @@ class ProbabilisticRandomForest(Surrogate):
                 min_samples_split=self.min_samples_split,
                 min_samples_leaf=self.min_samples_leaf,
                 root_seed=int(root_seeds[t]),
+                builder=builder,
             )
             tree.fit(X[boot[t]], yn[boot[t]])
             self.trees.append(tree)
@@ -659,6 +857,10 @@ class ProbabilisticRandomForest(Surrogate):
 
     def predict_tensor(self, X) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, var) tensors on the forest's device."""
+        if self.backend == "loop":
+            return tuple(torch.from_numpy(a).to(self.device) for a in self.predict_loop(X))
+        if self.backend == "numpy" and self.trees:
+            return tuple(t.to(self.device) for t in self.pack().predict(X, "numpy"))
         X = as_points(X, self.device)
         if not self.trees:
             n = X.shape[0]
@@ -667,8 +869,26 @@ class ProbabilisticRandomForest(Surrogate):
         return self.pack().predict(X)
 
     def predict(self, X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        if self.backend == "loop":
+            return self.predict_loop(X)
         mean, var = self.predict_tensor(X)
         return mean.cpu().numpy(), var.cpu().numpy()
+
+    def predict_loop(self, X: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Legacy per-tree loop on the host — kept, as in the reference, as
+        the reference the packed plane is equivalence-tested against."""
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        if not self.trees:
+            return np.zeros(len(X)), np.ones(len(X))
+        ms = np.empty((self.n_trees, len(X)))
+        vs = np.empty((self.n_trees, len(X)))
+        for i, tree in enumerate(self.trees):
+            ms[i], vs[i] = tree.predict(X)
+        mean = ms.mean(axis=0)
+        # law of total variance across trees
+        var = vs.mean(axis=0) + ms.var(axis=0)
+        var = np.maximum(var, 1e-10)
+        return mean * self._y_std + self._y_mean, var * self._y_std**2
 
 
 # ---------------------------------------------------------------------------
@@ -676,9 +896,42 @@ class ProbabilisticRandomForest(Surrogate):
 # ---------------------------------------------------------------------------
 
 
-def make_forest(seed: int = 0, device: DeviceLike = None, **kwargs) -> ProbabilisticRandomForest:
+FOREST_BACKENDS = ("device", "numpy", "loop")
+_DEFAULT_BACKEND = "device"
+
+
+def _check_backend(backend: str, allowed: Sequence[str]) -> None:
+    if backend not in allowed:
+        raise ValueError(f"unknown forest backend {backend!r}; use one of {tuple(allowed)}")
+
+
+def get_forest_backend() -> str:
+    return _DEFAULT_BACKEND
+
+
+def set_forest_backend(backend: str) -> None:
+    """Set the module-default forest backend: ``"device"`` (K1), ``"numpy"``
+    (the host gather descent) or ``"loop"`` (the legacy per-tree reference
+    everywhere — used by equivalence tests)."""
+    global _DEFAULT_BACKEND
+    _check_backend(backend, FOREST_BACKENDS)
+    _DEFAULT_BACKEND = backend
+
+
+@contextlib.contextmanager
+def forest_backend(backend: str):
+    prev = get_forest_backend()
+    set_forest_backend(backend)
+    try:
+        yield
+    finally:
+        set_forest_backend(prev)
+
+
+def make_forest(seed: int = 0, device: DeviceLike = None, *, backend: Optional[str] = None,
+                **kwargs) -> ProbabilisticRandomForest:
     """Every surrogate stack in the port builds PRFs here."""
-    return ProbabilisticRandomForest(seed=seed, device=device, **kwargs)
+    return ProbabilisticRandomForest(seed=seed, device=device, backend=backend, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ _BUILD = _PKG / "_build"
 KERNEL_SOURCES = (
     "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_bwd", "moe_gmm",
     "rmsnorm", "rwkv6_wkv", "mamba2_ssd", "flash_decode", "launch_floor", "qs_descent",
-    "combine_ei",
+    "combine_ei", "rwkv6_wkv_bwd", "mamba2_ssd_bwd",
 )
 
 NVCC_FLAGS = (

@@ -18,7 +18,7 @@ __all__ = ["KERNELS", "LAUNCHES", "PLAIN_CALLS", "ROUTE_LAUNCHES", "reset", "sna
 KERNELS = (
     "forest_eval", "radix_rank", "chain_ordinals", "flash_attn_fwd", "flash_attn_dq",
     "flash_attn_dkv", "moe_gmm", "rmsnorm_fwd", "rmsnorm_bwd", "rwkv6_wkv", "mamba2_ssd",
-    "flash_decode", "qs_descent", "combine_ei",
+    "flash_decode", "qs_descent", "combine_ei", "rwkv6_wkv_bwd", "mamba2_ssd_bwd",
 )
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -40,6 +40,13 @@ sync, and a CUDA tensor never reaches a plain version.
 the encoding does not apply (a tree with more than 128 leaves, or more
 than 64 features); callers fall back to the composite-tensor path.
 Values must be NaN-free (threshold ranks come from ``np.searchsorted``).
+
+:class:`PoolPlan` (``build_pool_plan_ex``) is the reference's chain-delta
+pool scoring, host numpy as in the reference and with no kernel: the same
+false-word tables over a fused arena route a mutation pool's candidates to
+their leaves, re-ANDing only the coordinates that differ from each
+candidate's base incumbent. ``ForestPlane.predict(X, "numpy", delta=...)``
+takes it on the host route.
 """
 
 from __future__ import annotations
@@ -57,10 +64,12 @@ __all__ = [
     "ROUTES",
     "VALUE_ROUTES",
     "ChainPlan",
+    "PoolPlan",
     "WalkPlan",
     "pack_leaf_spans",
     "build_false_tables",
     "build_chain_plan_ex",
+    "build_pool_plan_ex",
     "chain_ordinals",
     "chain_ordinals_cuda",
     "chain_ordinals_plain",
@@ -76,6 +85,7 @@ __all__ = [
 
 _ONES = np.uint64(0xFFFFFFFFFFFFFFFF)
 _PLAN_ATTR = "_chain_plan_cache"
+_POOL_PLAN_ATTR = "_pool_plan_cache"
 
 # the widest supported leaf word vector: 2 x uint64 = 128 leaves per tree
 MAX_LEAF_WORDS = 2
@@ -565,3 +575,158 @@ def build_chain_plan_ex(model, d: int) -> Tuple[Optional[ChainPlan], str]:
     plan = ChainPlan(pf, d, thrs, tables, leaf_mean, leaf_offs, n_words)
     setattr(pf, _PLAN_ATTR, (d, plan))
     return plan, ""
+
+
+# ---------------------------------------------------------------------------
+# delta pool scoring: per-base shared-coordinate AND reuse (host numpy)
+# ---------------------------------------------------------------------------
+
+
+def _lowbit_ordinal_np(acc: np.ndarray) -> np.ndarray:
+    """Ordinal of the lowest set bit of each uint64 (via the float64
+    exponent of the isolated bit — exact for powers of two); an all-zero
+    word yields a negative garbage value the caller must mask."""
+    low = acc & (np.uint64(0) - acc)
+    return (
+        (low.astype(np.float64).view(np.uint64) >> np.uint64(52))
+        - np.uint64(1023)
+    ).astype(np.intp)
+
+
+class PoolPlan:
+    """False-word tables over a (possibly fused multi-forest) arena for
+    whole-pool leaf routing with per-base delta reuse.
+
+    Mutation pools share most coordinates with their base incumbent: a
+    candidate's QuickScorer word is the AND of its d per-feature false
+    words, and every unmutated coordinate contributes the *base's* word.
+    Per base this plan precomputes a doubling (sparse) range-AND table
+    over the feature axis — AND is idempotent, so any feature segment is
+    two overlapping power-of-two lookups — and per candidate re-ANDs only
+    the mutated coordinates plus one segment per gap between them. Leaf
+    routing is bit-identical to the gather descent (the rank compare
+    replays ``v > thr`` exactly), so ``predict`` through this plan returns
+    the descent's exact leaf stats.
+    """
+
+    def __init__(self, d: int,
+                 thrs: List[np.ndarray], tables: List[np.ndarray],
+                 leaf_mean: np.ndarray, leaf_var: np.ndarray,
+                 leaf_offs: np.ndarray, n_words: int = 1):
+        self.d = d
+        self.thrs = thrs
+        self.tables = tables
+        self.leaf_mean = leaf_mean
+        self.leaf_var = leaf_var
+        self.leaf_offs = leaf_offs
+        self.n_words = n_words
+
+    @property
+    def n_trees(self) -> int:
+        return len(self.leaf_offs)
+
+    # same per-row false-word gather as the chain plan
+    row_words = ChainPlan.row_words
+
+    def _ordinals(self, acc: np.ndarray) -> np.ndarray:
+        """Exit-leaf ordinals from ANDed word vectors (word 0 first)."""
+        if self.n_words == 1:
+            return _lowbit_ordinal_np(acc)
+        o0 = _lowbit_ordinal_np(acc[..., 0])
+        o1 = _lowbit_ordinal_np(acc[..., 1])
+        return np.where(acc[..., 0] != 0, o0, 64 + o1)
+
+    def leaf_stats(self, X: np.ndarray, bases: np.ndarray,
+                   base_of: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(m_t, v_t), each (T, N) — the descent's exact per-tree leaf stats.
+
+        ``bases`` is the (B, d) matrix of base rows; ``base_of[i]`` names
+        candidate i's base (-1 = no base: a fresh random sample, evaluated
+        by the vectorized full-row AND instead). Which coordinates mutated
+        is recovered by exact value comparison against the base row — a
+        mutation that lands back on the base value is simply shared.
+        """
+        X = np.asarray(X, dtype=float)
+        N = len(X)
+        T = self.n_trees
+        base_of = np.asarray(base_of)
+        m_t = np.empty((T, N))
+        v_t = np.empty((T, N))
+
+        free = np.flatnonzero(base_of < 0)
+        if free.size:
+            acc = np.bitwise_and.reduce(self.row_words(X[free]), axis=1)
+            flat = self._ordinals(acc) + self.leaf_offs  # (nf, T)
+            m_t[:, free] = self.leaf_mean.take(flat).T
+            v_t[:, free] = self.leaf_var.take(flat).T
+
+        mut = np.flatnonzero(base_of >= 0)
+        if mut.size:
+            bases = np.asarray(bases, dtype=float)
+            bw = self.row_words(bases)                   # (B, d, T[, W])
+            # doubling range-AND table: lvl[l][:, j] = AND of the words of
+            # features [j, j + 2^l); idempotence lets two overlapping
+            # power-of-two segments cover any [a, b)
+            lvls = [bw]
+            span = 1
+            while span < self.d:
+                prev = lvls[-1]
+                nxt = prev.copy()
+                nxt[:, : self.d - span] &= prev[:, span:]
+                lvls.append(nxt)
+                span *= 2
+
+            def seg(b: int, a: int, e: int) -> np.ndarray:
+                lv = (e - a).bit_length() - 1
+                return lvls[lv][b, a] & lvls[lv][b, e - (1 << lv)]
+
+            for i in mut:
+                b = int(base_of[i])
+                changed = np.flatnonzero(X[i] != bases[b])
+                acc = np.broadcast_to(_ONES, self.tables[0].shape[1:]).copy()
+                prev_j = 0
+                for j in changed:
+                    j = int(j)
+                    if j > prev_j:
+                        acc &= seg(b, prev_j, j)
+                    acc &= self.tables[j][
+                        int(np.searchsorted(self.thrs[j], X[i, j], side="left"))
+                    ]
+                    prev_j = j + 1
+                if prev_j < self.d:
+                    acc &= seg(b, prev_j, self.d)
+                flat = self._ordinals(acc) + self.leaf_offs
+                m_t[:, i] = self.leaf_mean[flat]
+                v_t[:, i] = self.leaf_var[flat]
+        return m_t, v_t
+
+
+def build_pool_plan_ex(arena, d: int) -> Tuple[Optional[PoolPlan], str]:
+    """Build (and cache on the arena object) a PoolPlan.
+
+    ``arena`` is anything carrying the packed node tensors (a PackedForest
+    or a fused ForestPlane), read back to the host. Returns ``(plan, "")``
+    or ``(None, reason)`` under the same decline conditions as
+    :func:`build_chain_plan_ex`.
+    """
+    keys = ("feat", "thr", "child", "mean", "var", "roots")
+    if not all(hasattr(arena, k) for k in keys):
+        return None, "not a packed arena"
+    if d > 64:
+        return None, f"d={d} > 64 prefix-mask bits"
+    cached = getattr(arena, _POOL_PLAN_ATTR, None)
+    if cached is not None and cached[0] == d:
+        return cached[1], cached[2]
+
+    host = {k: np.asarray(getattr(arena, k).cpu()) for k in keys}
+    packed, reason = pack_leaf_spans(*(host[k] for k in keys), d)
+    if packed is None:
+        plan = None
+    else:
+        nodes_by_feat, leaf_mean, leaf_var, leaf_offs, n_words = packed
+        thrs, tables = build_false_tables(nodes_by_feat, len(host["roots"]), n_words)
+        plan = PoolPlan(d, thrs, tables, leaf_mean, leaf_var,
+                        leaf_offs.astype(np.intp), n_words)
+        reason = ""
+    setattr(arena, _POOL_PLAN_ATTR, (d, plan, reason))
+    return plan, reason

@@ -32,9 +32,15 @@ card launch ``csrc/mamba2_ssd.cu`` by one of two routes, which
   0): the first design, one block per (b, h) walking its chunks.
 
 There is no other route: a CUDA tensor never reaches the plain version, and
-a build or launch failure raises. K8 has no backward yet (it comes with
-training of the hybrid family, ROADMAP.md item 10(c)), so inputs that need
-a gradient are refused rather than given none.
+a build or launch failure raises.
+
+Gradients: where an input needs one, both entry points go through
+``_SSDFunction``, K8 forward and its backward K8b
+(``csrc/mamba2_ssd_bwd.cu``, :func:`ssd_bwd_cuda`) on the card, the plain
+backward ``ref.ssd_bwd_plain`` (autograd of ``ssd_plain``, as the
+reference's backward is ``jax.vjp`` of its oracle) on the CPU. It returns
+dx, dB, dC and da, contiguous; where B and C are views of one projection,
+autograd adds dB and dC into that projection's gradient at their columns.
 """
 
 from __future__ import annotations
@@ -45,10 +51,11 @@ import torch
 
 from ..counts import PLAIN_CALLS
 from ..launch import check, launch, n_sms
-from .ref import ssd_plain
+from .ref import ssd_bwd_plain, ssd_plain
 
-__all__ = ["CHUNK_ROWS", "MAX_CHUNK", "MAX_PN", "ROUTES", "cut_chunk", "ssd_cuda", "ssd_fwd",
-           "ssd_heads", "ssd_plain", "ssd_route", "ssd_scan", "ssd_split"]
+__all__ = ["CHUNK_ROWS", "MAX_CHUNK", "MAX_PN", "ROUTES", "cut_chunk", "ssd_bwd", "ssd_bwd_cuda",
+           "ssd_bwd_plain", "ssd_cuda", "ssd_fwd", "ssd_heads", "ssd_plain", "ssd_route",
+           "ssd_scan", "ssd_split"]
 
 MAX_PN = 64      # head width P and state width N the kernel holds
 MAX_CHUNK = 128  # chunk rows the kernel holds in shared memory
@@ -136,10 +143,6 @@ def _check(x, Bm, Cm, a, chunk: int) -> Tuple[int, int, int, int, int, Tuple[int
                _row_stride("B", Bm, (Bt, S, H, N), x.dtype, dev),
                _row_stride("C", Cm, (Bt, S, H, N), x.dtype, dev))
     check("a", a, torch.float32, (Bt, S, H), dev)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, a)):
-        raise NotImplementedError(
-            "mamba2_ssd: K8 has no backward yet (ROADMAP.md item 10(c), training the hybrid "
-            "family); call it under torch.no_grad()")
     return Bt, S, H, P, N, strides
 
 
@@ -179,12 +182,46 @@ def ssd_cuda(x, Bm, Cm, a, chunk: int, model: bool,
     return y, state
 
 
-def _ssd(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Model layout; the chunk is cut, and a bfloat16 ``a`` cast to float32
-    as ``ssd_fwd_pallas`` casts it, here for both routes."""
-    chunk = cut_chunk(chunk, x.shape[1])
-    if a.dtype == torch.bfloat16:
-        a = a.float()
+def ssd_bwd_cuda(x, Bm, Cm, a, dy, dstate: Optional[torch.Tensor], chunk: int,
+                 model: bool) -> Tuple[torch.Tensor, ...]:
+    """Launch K8b on the card: the arguments of ``ref.ssd_bwd_plain``, with
+    ``chunk`` already cut to divide S, ``dy`` (Bt, S, H, P) contiguous in
+    x's dtype and ``dstate`` (Bt, H, P, N) float32 or None -> (dx, dB, dC,
+    da), contiguous."""
+    Bt, S, H, P, N, (ldx, ldb, ldc) = _check(x, Bm, Cm, a, chunk)
+    check("dy", dy, x.dtype, (Bt, S, H, P), x.device)
+    if dstate is not None:
+        check("dstate", dstate, torch.float32, (Bt, H, P, N), x.device)
+    dx = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
+    dB = torch.empty((Bt, S, H, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    da = torch.empty_like(a)
+    nc = S // chunk if S else 0
+    # every chunk's starting state, recomputed by the kernel's forward walk
+    ws = torch.empty((Bt, H, nc, P, N), dtype=torch.float32, device=x.device)
+    fn = f"{_DTYPES[x.dtype]}_{'model' if model else 'f32'}"
+    launch("mamba2_ssd_bwd", f"mamba2_ssd_bwd_{fn}", x.device,
+           (x, Bm, Cm, a, dy, dstate, dx, dB, dC, da, ws),
+           (Bt, S, H, P, N, chunk, ldx, ldb, ldc))
+    return dx, dB, dC, da
+
+
+def ssd_bwd(x, Bm, Cm, a, dy, dstate: Optional[torch.Tensor], chunk: int,
+            model: bool) -> Tuple[torch.Tensor, ...]:
+    """K8b on the card, its plain version on the CPU; ``chunk`` already
+    cut."""
+    dy = dy.contiguous()
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    if x.device.type == "cuda":
+        return ssd_bwd_cuda(x, Bm, Cm, a, dy, dstate, chunk, model)
+    if x.device.type != "cpu":
+        raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
+    PLAIN_CALLS["mamba2_ssd_bwd"] += 1
+    return ssd_bwd_plain(x, Bm, Cm, a, dy, dstate, chunk, model)
+
+
+def _ssd_forward(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cuda":
         return ssd_cuda(x, Bm, Cm, a, chunk, model)
     if x.device.type != "cpu":
@@ -192,6 +229,35 @@ def _ssd(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Ten
     _check(x, Bm, Cm, a, chunk)
     PLAIN_CALLS["mamba2_ssd"] += 1
     return ssd_plain(x, Bm, Cm, a, chunk, model)
+
+
+class _SSDFunction(torch.autograd.Function):
+    """K8 forward, K8b backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, Bm, Cm, a, chunk: int, model: bool):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, Bm, Cm, a)
+        ctx.chunk, ctx.model = chunk, model
+        return _ssd_forward(x, Bm, Cm, a, chunk, model)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, Bm, Cm, a = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        return (*ssd_bwd(x, Bm, Cm, a, dy, dstate, ctx.chunk, ctx.model), None, None)
+
+
+def _ssd(x, Bm, Cm, a, chunk: int, model: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout; the chunk is cut, and a bfloat16 ``a`` cast to float32
+    as ``ssd_fwd_pallas`` casts it, here for both routes."""
+    chunk = cut_chunk(chunk, x.shape[1])
+    if a.dtype == torch.bfloat16:
+        a = a.float()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, Bm, Cm, a)):
+        return _SSDFunction.apply(x, Bm, Cm, a, chunk, model)
+    return _ssd_forward(x, Bm, Cm, a, chunk, model)
 
 
 def ssd_fwd(x, Bm, Cm, a, *, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,7 +273,7 @@ def ssd_fwd(x, Bm, Cm, a, *, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tenso
 
 def ssd_scan(x, Bm, Cm, a, *, chunk: int = 64) -> torch.Tensor:
     """x (BH, S, P), B/C (BH, S, N), a (BH, S) -> y (BH, S, P): the
-    reference's ``ssd_scan`` (forward only)."""
+    reference's ``ssd_scan``, differentiable through K8b."""
     return ssd_fwd(x, Bm, Cm, a, chunk=chunk)[0]
 
 

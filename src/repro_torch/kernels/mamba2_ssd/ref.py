@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ssd_chunk_outputs", "ssd_chunk_states", "ssd_chunked", "ssd_plain", "ssd_ref",
+__all__ = ["ssd_bwd_chunks", "ssd_bwd_plain", "ssd_chunk_outputs", "ssd_chunk_states", "ssd_chunked", "ssd_plain", "ssd_ref",
            "ssd_state_pass"]
 
 
@@ -78,6 +78,78 @@ def ssd_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tens
         state = torch.exp(total)[:, 0, :, None, None] * state + torch.einsum(
             "bkhn,bkhp->bhpn", bk * w[..., None], xk)
     return y, state
+
+
+def ssd_bwd_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                  dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int, model: bool
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K8's backward (K8b): autograd of ``ssd_plain``
+    recomputed from the saved inputs, as the reference's backward is
+    ``jax.vjp`` of its oracle. ``dy`` is y's gradient, ``dstate`` the final
+    state's (or None) -> (dx, dB, dC, da) of the inputs' shapes and dtypes.
+    Each model-form rounding to x's dtype rounds the gradient that crosses
+    it, as JAX's transpose of a cast does."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, Bm, Cm, a)]
+        y, state = ssd_plain(*leaves, chunk, model)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+def ssd_bwd_chunks(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                   dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int, model: bool
+                   ) -> Tuple[torch.Tensor, ...]:
+    """K8b's algorithm in plain PyTorch (the CPU model of
+    ``csrc/mamba2_ssd_bwd.cu``, used by the tests): the arguments and results
+    of ``ssd_bwd_plain``, computed as the kernel computes them: a forward
+    walk keeping each chunk's starting state, then the chunks backward with
+    the closed-form gradients of the source's header, dh carried."""
+    Bt, S, H, P = x.shape
+    N = Bm.shape[-1]
+    c = chunk
+    dt = x.dtype
+    rnd = (lambda t: t.to(dt).float()) if model else (lambda t: t)
+    tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()[None, :, :, None]
+    f = [t.float() for t in (x, Bm, Cm, dy)]
+    af = a.float()
+    starts, h = [], torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    for t0 in range(0, S, c):
+        cs = torch.cumsum(af[:, t0:t0 + c], dim=1)
+        starts.append(h)
+        h = torch.exp(cs[:, -1])[:, :, None, None] * h + torch.einsum(
+            "bkhn,bkhp->bhpn", f[1][:, t0:t0 + c] * torch.exp(cs[:, -1:] - cs)[..., None],
+            f[0][:, t0:t0 + c])
+    dh = torch.zeros_like(h) if dstate is None else dstate.float()
+    grads = [torch.empty_like(t) for t in f[:3]]
+    da = torch.empty_like(af)
+    for j, t0 in reversed(list(enumerate(range(0, S, c)))):
+        xk, bk, ck, g = (t[:, t0:t0 + c] for t in f)
+        h0 = starts[j]
+        cs = torch.cumsum(af[:, t0:t0 + c], dim=1)                     # (Bt, c, H)
+        tot = cs[:, -1]
+        e, wg = torch.exp(cs), torch.exp(tot[:, None] - cs)
+        L = torch.where(tri, torch.exp(torch.where(tri, cs[:, :, None] - cs[:, None], 0.0)), 0.0)
+        SC = torch.where(tri, rnd(torch.einsum("bqhn,bshn->bqsh", ck, bk)), 0.0)
+        gs = torch.where(tri, rnd(torch.einsum("bqhp,bshp->bqsh", g, xk)), 0.0)
+        grel = gs * SC * L
+        rs, gSC = rnd(SC * L), rnd(gs * L)
+        dCE = torch.einsum("bqhp,bhpn->bqhn", g, h0)
+        dBw = torch.einsum("bshp,bhpn->bshn", xk, dh)
+        grads[2][:, t0:t0 + c] = torch.einsum("bqsh,bshn->bqhn", gSC, bk) + dCE * e[..., None]
+        grads[1][:, t0:t0 + c] = torch.einsum("bqsh,bqhn->bshn", gSC, ck) + dBw * wg[..., None]
+        grads[0][:, t0:t0 + c] = (torch.einsum("bqsh,bqhp->bshp", rs, g)
+                                  + torch.einsum("bshn,bhpn->bshp", bk * wg[..., None], dh))
+        ex1 = (dCE * ck).sum(-1) * e
+        ex2 = (dBw * bk).sum(-1)
+        gcs = grel.sum(2) - grel.sum(1) + ex1 - ex2 * wg
+        gcs[:, -1] += torch.exp(tot) * (dh * h0).sum((-2, -1)) + (ex2 * wg).sum(1)
+        da[:, t0:t0 + c] = gcs.flip(1).cumsum(1).flip(1)
+        dh = torch.exp(tot)[:, :, None, None] * dh + torch.einsum(
+            "bqhp,bqhn->bhpn", g, ck * e[..., None])
+    return (*(gr.to(t.dtype) for gr, t in zip(grads, (x, Bm, Cm))), da.to(a.dtype))
 
 
 def _chunks(t: torch.Tensor, c: int) -> torch.Tensor:

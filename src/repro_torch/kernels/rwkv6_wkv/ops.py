@@ -31,9 +31,17 @@ of two routes, which :func:`wkv_route` picks by shape:
   design, one block per (b, h) walking its chunks.
 
 There is no other route: a CUDA tensor never reaches the plain version, and
-a build or launch failure raises. K12 has no backward yet (it comes with
-training of the SSM family, ROADMAP.md item 10(c)), so inputs that need a
-gradient are refused rather than given none.
+a build or launch failure raises.
+
+Gradients: where an input needs one, both entry points go through
+``_WKVFunction``, K12 forward and its backward K12b
+(``csrc/rwkv6_wkv_bwd.cu``, :func:`wkv_bwd_cuda`) on the card, the plain
+backward ``ref.wkv_bwd_plain`` (autograd of ``wkv_plain``, as the
+reference's backward is ``jax.vjp`` of its oracle) on the CPU. It returns
+dr, dk, dv, dw and du; du is summed over the batch where u is shared (the
+model's (H, K)) and stays per row where u is (BH, K). The backward
+recomputes each chunk's starting state in its own forward walk rather than
+keep the forward's workspace as a residual (see the source).
 """
 
 from __future__ import annotations
@@ -44,10 +52,11 @@ import torch
 
 from ..counts import PLAIN_CALLS
 from ..launch import check, launch, n_sms
-from .ref import wkv_plain
+from .ref import wkv_bwd_plain, wkv_plain
 
-__all__ = ["CHUNK_ROWS", "MAX_CHUNK", "MAX_K", "ROUTES", "cut_chunk", "wkv_cuda", "wkv_fwd",
-           "wkv_heads", "wkv_plain", "wkv_route", "wkv_scan", "wkv_split"]
+__all__ = ["CHUNK_ROWS", "MAX_CHUNK", "MAX_K", "ROUTES", "cut_chunk", "wkv_bwd", "wkv_bwd_cuda",
+           "wkv_bwd_plain", "wkv_cuda", "wkv_fwd", "wkv_heads", "wkv_plain", "wkv_route",
+           "wkv_scan", "wkv_split"]
 
 MAX_K = 64       # head width the kernel holds: a (K, K) float32 state in 256 threads' registers
 MAX_CHUNK = 64   # chunk rows the kernel holds in shared memory
@@ -112,10 +121,6 @@ def _check(r, k, v, w, u, chunk: int) -> Tuple[int, int, int, int]:
     if u.dim() != 3 or u.shape[0] not in (1, B):
         raise ValueError(f"rwkv6_wkv: u must be (1 or B, H, K), got {tuple(u.shape)}")
     check("u", u, torch.float32, (-1, H, K), r.device)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
-        raise NotImplementedError(
-            "rwkv6_wkv: K12 has no backward yet (ROADMAP.md item 10(c), training the SSM "
-            "family); call it under torch.no_grad()")
     return B, S, H, K
 
 
@@ -154,10 +159,45 @@ def wkv_cuda(r, k, v, w, u, chunk: int, bf16_intra: bool,
     return y, state
 
 
-def _wkv(r, k, v, w, u, chunk: int, bf16_intra: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Model layout, u (1 or B, H, K); the chunk is cut here for both routes."""
-    chunk = cut_chunk(chunk, r.shape[1])
-    u = u.float().contiguous()
+def wkv_bwd_cuda(r, k, v, w, u, dy, dstate: Optional[torch.Tensor], chunk: int,
+                 bf16_intra: bool) -> Tuple[torch.Tensor, ...]:
+    """Launch K12b on the card: the arguments of ``ref.wkv_bwd_plain``,
+    with ``chunk`` already cut to divide S, ``dy`` (B, S, H, K) in r's dtype
+    and ``dstate`` (B, H, K, K) float32 or None -> (dr, dk, dv, dw, du)."""
+    B, S, H, K = _check(r, k, v, w, u, chunk)
+    check("dy", dy, r.dtype, (B, S, H, K), r.device)
+    if dstate is not None:
+        check("dstate", dstate, torch.float32, (B, H, K, K), r.device)
+    grads = [torch.empty_like(t) for t in (r, k, v, w)]
+    du_rows = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+    nc = S // chunk if S else 0
+    # every chunk's starting state, recomputed by the kernel's forward walk
+    ws = torch.empty((B, H, nc, K, K), dtype=torch.float32, device=r.device)
+    fn = f"{_DTYPES[r.dtype]}_{_DTYPES[w.dtype]}_{'bf16' if bf16_intra else 'f32'}"
+    u_per_row = int(u.shape[0] == B and B > 1)
+    launch("rwkv6_wkv_bwd", f"rwkv6_wkv_bwd_{fn}", r.device,
+           (r, k, v, w, u, dy, dstate, *grads, du_rows, ws), (B, S, H, K, chunk, u_per_row))
+    du = du_rows if u.shape[0] == B and B > 1 else du_rows.sum(0, keepdim=True)
+    return (*grads, du)
+
+
+def wkv_bwd(r, k, v, w, u, dy, dstate: Optional[torch.Tensor], chunk: int,
+            bf16_intra: bool) -> Tuple[torch.Tensor, ...]:
+    """K12b on the card, its plain version on the CPU; ``chunk`` already
+    cut."""
+    dy = dy.contiguous()
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    if r.device.type == "cuda":
+        return wkv_bwd_cuda(r, k, v, w, u, dy, dstate, chunk, bf16_intra)
+    if r.device.type != "cpu":
+        raise ValueError(f"rwkv6_wkv: unsupported device {r.device}")
+    PLAIN_CALLS["rwkv6_wkv_bwd"] += 1
+    return wkv_bwd_plain(r, k, v, w, u, dy, dstate, chunk, bf16_intra)
+
+
+def _wkv_forward(r, k, v, w, u, chunk: int, bf16_intra: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if r.device.type == "cuda":
         return wkv_cuda(r, k, v, w, u, chunk, bf16_intra)
     if r.device.type != "cpu":
@@ -165,6 +205,33 @@ def _wkv(r, k, v, w, u, chunk: int, bf16_intra: bool) -> Tuple[torch.Tensor, tor
     _check(r, k, v, w, u, chunk)
     PLAIN_CALLS["rwkv6_wkv"] += 1
     return wkv_plain(r, k, v, w, u, chunk, bf16_intra)
+
+
+class _WKVFunction(torch.autograd.Function):
+    """K12 forward, K12b backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk: int, bf16_intra: bool):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk, ctx.bf16_intra = chunk, bf16_intra
+        return _wkv_forward(r, k, v, w, u, chunk, bf16_intra)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        return (*wkv_bwd(r, k, v, w, u, dy, dstate, ctx.chunk, ctx.bf16_intra), None, None)
+
+
+def _wkv(r, k, v, w, u, chunk: int, bf16_intra: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout, u (1 or B, H, K); the chunk is cut here for both routes."""
+    chunk = cut_chunk(chunk, r.shape[1])
+    u = u.float().contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
+        return _WKVFunction.apply(r, k, v, w, u, chunk, bf16_intra)
+    return _wkv_forward(r, k, v, w, u, chunk, bf16_intra)
 
 
 def wkv_fwd(r, k, v, w, u, *, chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -180,7 +247,7 @@ def wkv_fwd(r, k, v, w, u, *, chunk: int = 32) -> Tuple[torch.Tensor, torch.Tens
 
 def wkv_scan(r, k, v, w, u, *, chunk: int = 32) -> torch.Tensor:
     """r, k, v, w (BH, S, K), u (BH, K) -> y (BH, S, K): the reference's
-    ``wkv_scan`` (forward only)."""
+    ``wkv_scan``, differentiable through K12b."""
     return wkv_fwd(r, k, v, w, u, chunk=chunk)[0]
 
 

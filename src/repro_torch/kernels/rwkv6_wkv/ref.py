@@ -30,12 +30,12 @@ what ``wkv_plain``'s loop computes, one multiply and one add a chunk.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["wkv_chunk_outputs", "wkv_chunk_states", "wkv_chunked", "wkv_plain",
-           "wkv_state_pass"]
+__all__ = ["wkv_bwd_chunks", "wkv_bwd_plain", "wkv_chunk_outputs", "wkv_chunk_states", "wkv_chunked",
+           "wkv_plain", "wkv_state_pass"]
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -80,6 +80,86 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
             "bshk,bshv->bhkv", kk * wts, vk)
     return y, state
 
+
+def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int,
+                  bf16_intra: bool) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K12's backward (K12b): autograd of ``wkv_plain``
+    recomputed from the saved inputs, as the reference's backward is
+    ``jax.vjp`` of its oracle. ``dy`` is y's gradient, ``dstate`` the final
+    state's (or None) -> (dr, dk, dv, dw, du) of the inputs' shapes and
+    dtypes. A bf16 rounding inside the forward (``bf16_intra``) rounds the
+    gradient that crosses it to bf16, as JAX's transpose of a cast does."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+        y, state = wkv_plain(*leaves, chunk, bf16_intra)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+def wkv_bwd_chunks(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor],
+                   chunk: int, bf16_intra: bool) -> Tuple[torch.Tensor, ...]:
+    """K12b's algorithm in plain PyTorch (the CPU model of
+    ``csrc/rwkv6_wkv_bwd.cu``, used by the tests): the arguments and results
+    of ``wkv_bwd_plain``, computed as the kernel computes them: a forward
+    walk keeping each chunk's starting state, then the chunks backward with
+    the closed-form gradients of the source's header, dS carried."""
+    B, S, H, K = r.shape
+    c = chunk
+    rnd = _bf16 if bf16_intra else (lambda t: t)
+    lower = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)[None, :, :, None]
+    f = [t.float() for t in (r, k, v, w, dy)]
+    uu = u.float()[:, None]                                          # (Bu, 1, H, K)
+    starts, st = [], torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+    for t0 in range(0, S, c):
+        kk, vk, wk = (t[:, t0:t0 + c] for t in f[1:4])
+        cs = torch.cumsum(wk, dim=1)
+        starts.append(st)
+        st = torch.exp(cs[:, -1])[..., None] * st + torch.einsum(
+            "bshk,bshv->bhkv", kk * torch.exp(cs[:, -1:] - cs), vk)
+    dS = torch.zeros_like(st) if dstate is None else dstate.float()
+    grads = [torch.empty_like(t) for t in f[:4]]
+    du = torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for j, t0 in reversed(list(enumerate(range(0, S, c)))):
+        rk, kk, vk, wk, g = (t[:, t0:t0 + c] for t in f)
+        S0 = starts[j]
+        cs = torch.cumsum(wk, dim=1)
+        tot = cs[:, -1]
+        d = cs - wk
+        m = 0.5 * (tot - wk[:, 0])[:, None]
+        RD, RFu = rk * torch.exp(d), rk * torch.exp(d - m)
+        KFu, KW = kk * torch.exp(m - cs), kk * torch.exp(tot[:, None] - cs)
+        RF, KF = rnd(RFu), rnd(KFu)
+        A = rnd(torch.where(lower, torch.einsum("bqhk,bshk->bqsh", RF, KF), 0.0))
+        dA = torch.where(lower, rnd(torch.einsum("bqhv,bshv->bqsh", g, rnd(vk))), 0.0)
+        dRF = rnd(torch.einsum("bqsh,bshk->bqhk", dA, KF))
+        dKF = rnd(torch.einsum("bqsh,bqhk->bshk", dA, RF))
+        dVi = rnd(torch.einsum("bqsh,bqhv->bshv", A, g))
+        dRD = torch.einsum("bqhv,bhkv->bqhk", g, S0)
+        dKW = torch.einsum("bshv,bhkv->bshk", vk, dS)
+        dVs = torch.einsum("bshk,bhkv->bshv", KW, dS)
+        cur = (rk * uu * kk).sum(-1, keepdim=True)
+        dcur = (g * vk).sum(-1, keepdim=True)
+        grads[0][:, t0:t0 + c] = dRD * torch.exp(d) + dRF * torch.exp(d - m) + dcur * uu * kk
+        grads[1][:, t0:t0 + c] = (dKW * torch.exp(tot[:, None] - cs) + dKF * torch.exp(m - cs)
+                                  + dcur * uu * rk)
+        grads[2][:, t0:t0 + c] = dVs + dVi + cur * g
+        du += (dcur * rk * kk).sum(1)
+        e1, e2, e3, e4 = dRD * RD, dRF * RFu, dKF * KFu, dKW * KW
+        gm = (e3 - e2).sum(1)
+        gtot = e4.sum(1) + torch.exp(tot) * (dS * S0).sum(-1) + 0.5 * gm
+        gcs = e1 + e2 - e3 - e4
+        gcs[:, -1] += gtot
+        gw = -(e1 + e2)
+        gw[:, 0] -= 0.5 * gm
+        grads[3][:, t0:t0 + c] = gw + gcs.flip(1).cumsum(1).flip(1)
+        dS = torch.exp(tot)[..., None] * dS + torch.einsum("bqhk,bqhv->bhkv", RD, g)
+    du = du if u.shape[0] == B and B > 1 else du.sum(0, keepdim=True)
+    return (*(gr.to(t.dtype) for gr, t in zip(grads, (r, k, v, w))), du)
 
 
 def _chunks(t: torch.Tensor, c: int) -> torch.Tensor:

@@ -12,8 +12,7 @@ Layer stacks are *stacked* (leading "layers" axis) as in the reference,
 which scans over them; the port runs a Python loop over layer slices, and
 autograd sums each slice's gradient into the stacked leaf. What is not
 ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: MLA
-(deepseek-v3), the enc-dec family, and training of the MoE, SSM and hybrid
-families.
+(deepseek-v3), the enc-dec family, and training of the MoE family.
 
 The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
 over the hidden states that ``forward(..., return_hidden=True)`` returns.
@@ -58,7 +57,7 @@ _TODO = {
 }
 _MLA = "10(c) (MLA and deepseek-v3)"
 # families that serve but do not train yet: what their training needs
-_UNTRAINED = {"moe": ("MoE", "K9"), "ssm": ("SSM", "K12"), "hybrid": ("hybrid", "K8")}
+_UNTRAINED = {"moe": ("MoE", "K9")}
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -337,13 +336,15 @@ def chunked_ce(x: torch.Tensor, out_w: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token CE of the ``dense`` and ``vlm`` families."""
+    """Next-token CE of the ``dense``, ``vlm``, ``ssm`` and ``hybrid``
+    families (the SSM's and hybrid's scans differentiate through K12b and
+    K8b)."""
     _require_ported(cfg)
     if cfg.family in _UNTRAINED:
         name, kernel = _UNTRAINED[cfg.family]
         raise NotImplementedError(
             f"{cfg.name}: training the {name} family is not ported yet (ROADMAP.md item "
-            f"10(c) (training the {name} family, with {kernel}'s backward))")
+            f"10(c) (training the {name} family, with {kernel}'s backward, the next slice))")
     if rt.remat != "none":
         raise NotImplementedError(
             f"Runtime.remat={rt.remat!r} is not ported yet (ROADMAP.md item 11, with the "

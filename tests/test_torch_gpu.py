@@ -234,6 +234,33 @@ def test_forest_eval_routes_on_a_tuner_plane(cuda, n):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), route
 
 
+def test_plane_predict_on_the_card_ignores_delta_and_launches_k1(cuda):
+    """``ForestPlane.predict(X, delta=...)`` on the card is ``predict(X)``
+    bit for bit through K1 (the device route ignores the chain-delta
+    provenance, as the reference's accelerated backends do), and equals the
+    host route with the delta plan, which the card takes only when asked."""
+    from repro_torch.kernels import counts
+
+    _, plane = _arena(5, 3, 40, 9, cuda)
+    rng = np.random.default_rng(0)
+    bases = rng.random((4, 9))
+    base_of = np.concatenate([np.full(16, -1), rng.integers(0, 4, 48)])
+    X = rng.random((64, 9))
+    for i in np.flatnonzero(base_of >= 0):
+        keep = rng.random(9) < 0.7
+        X[i, keep] = bases[base_of[i], keep]
+    counts.reset()
+    got = plane.predict(X, delta=(bases, base_of))
+    assert counts.LAUNCHES["forest_eval"] == 1 and counts.PLAIN_CALLS["forest_eval"] == 0
+    want = plane.predict(X)
+    host = plane.predict(X, "numpy", delta=(bases, base_of))
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["forest_eval"] == 2
+    for a, b, c in zip(got, want, host):
+        assert a.device.type == c.device.type == "cuda"
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_forest_eval_builds_its_node_table_and_plans_tiled(cuda):
     from repro_torch.kernels import counts
     from repro_torch.kernels.forest_eval import ops
@@ -1428,6 +1455,87 @@ def test_wkv_refuses_what_it_does_not_take(cuda):
         ops.wkv_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u[None], 8, True)
 
 
+def _grads_close(got, want, exact):
+    """Each gradient within 2e-5 of its largest magnitude where the function
+    rounds nothing to bf16 (``exact``: float32 tensors, float32 products),
+    else within two bf16 steps of it: a bf16 rounding inside the forward
+    rounds the gradient that crosses it, and the kernel's float32 sums,
+    taken in another order than the plain version's, flip single
+    roundings."""
+    for i, (g, p) in enumerate(zip(got, want)):
+        assert g.shape == p.shape and g.dtype == p.dtype, (i, g.shape, p.shape, g.dtype)
+        scale = max(float(p.float().abs().max()), 1e-30)
+        err = float((g.float() - p.float()).abs().max()) / scale
+        assert err <= (2e-5 if exact else 2 * 2.0 ** -7), (i, err)
+
+
+# (B, S, H, K, chunk): rwkv6-7b's head width over a few chunks of 64; the
+# reduced model's; S that halves the chunk (48 -> 16, 33 -> 1); K below 64
+# and not a power of two
+WKV_BWD_SHAPES = [(2, 256, 2, 64, 64), (2, 64, 4, 32, 32), (1, 48, 3, 32, 32),
+                  (2, 33, 2, 16, 16), (1, 96, 5, 24, 64), (1, 64, 3, 20, 32)]
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", WKV_BWD_SHAPES)
+@pytest.mark.parametrize("dtype,wdtype", WKV_DTYPES)
+@pytest.mark.parametrize("bf16_intra", [False, True])
+@pytest.mark.parametrize("u_rows", [False, True])
+def test_wkv_bwd_matches_plain(cuda, B, S, H, K, chunk, dtype, wdtype, bf16_intra, u_rows):
+    """K12b against its plain version (autograd of ``wkv_plain``) on the same
+    card tensors, with the final state's gradient too; u shared over the
+    batch (du summed) or one row per batch entry."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r, k, v, w, u = _wkv_inputs(B, S, H, K, dtype, wdtype, cuda, seed=5 * S + K)
+    u = u[None].repeat(B, 1, 1) * torch.arange(1, B + 1, device=cuda)[:, None, None] \
+        if u_rows else u[None]
+    g = torch.Generator().manual_seed(S)
+    dy = torch.randn((B, S, H, K), generator=g).to(cuda, dtype)
+    dstate = torch.randn((B, H, K, K), generator=g).to(cuda)
+    c = ops.cut_chunk(chunk, S)
+    counts.reset()
+    got = ops.wkv_bwd_cuda(r, k, v, w, u.contiguous(), dy, dstate, c, bf16_intra)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["rwkv6_wkv_bwd"] == 1 and counts.PLAIN_CALLS["rwkv6_wkv_bwd"] == 0
+    want = ops.wkv_bwd_plain(r, k, v, w, u.contiguous(), dy, dstate, c, bf16_intra)
+    exact = dtype == wdtype == torch.float32 and not bf16_intra
+    _grads_close(got, want, exact)
+
+
+@pytest.mark.parametrize("form", ["heads", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_autograd_on_the_card(cuda, form, dtype):
+    """Both entry points' gradients through autograd: K12 forward and K12b
+    backward once each, no plain call, equal to the plain backward."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    B, S, H, K = 2, 128, 3, 32
+    r, k, v, w, u = _wkv_inputs(B, S, H, K, dtype, torch.float32, cuda, seed=21)
+    if form == "scan":   # the Pallas layout, a bonus row per (b, h)
+        r, k, v, w = (t.permute(0, 2, 1, 3).reshape(B * H, S, K).contiguous()
+                      for t in (r, k, v, w))
+        u = u.repeat(B, 1)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    dy = torch.randn(r.shape, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    counts.reset()
+    y = (ops.wkv_scan(*leaves, chunk=32) if form == "scan"
+         else ops.wkv_heads(*leaves, chunk=32)[0])
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["rwkv6_wkv"] == counts.LAUNCHES["rwkv6_wkv_bwd"] == 1
+    assert sum(counts.PLAIN_CALLS.values()) == 0
+    if form == "scan":
+        want = ops.wkv_bwd_plain(*(t[:, :, None] for t in (r, k, v, w)), u[:, None],
+                                 dy[:, :, None], None, 32, False)
+        want = [t[:, :, 0] for t in want[:4]] + [want[4][:, 0]]
+    else:
+        want = ops.wkv_bwd_plain(r, k, v, w, u[None], dy, None, 32, True)
+        want = list(want[:4]) + [want[4][0]]
+    _grads_close([t.grad for t in leaves], want, dtype == torch.float32 and form == "scan")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reduced_rwkv6_on_the_card_matches_the_cpu(cuda, dtype):
     from repro_torch.configs import get_arch, reduced
@@ -1784,6 +1892,7 @@ def test_ssd_strided_views_and_pallas_layout_on_the_card(cuda):
 
 
 def test_ssd_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import counts
     from repro_torch.kernels.mamba2_ssd import ops
 
     x, Bm, Cm, a = _ssd_inputs(1, 64, 2, 32, 16, torch.float32, torch.float32, cuda)
@@ -1796,9 +1905,88 @@ def test_ssd_refuses_what_it_does_not_take(cuda):
         ops.ssd_cuda(x.half(), Bm.half(), Cm.half(), a, 32, True)
     with pytest.raises(ValueError, match="contiguous"):
         ops.ssd_cuda(x, Bm.transpose(2, 3).contiguous().transpose(2, 3), Cm, a, 32, True)
+    # an input that needs a gradient gets one, through K8b
+    counts.reset()
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssd_heads(x, Bm, Cm, a, chunk=32)
+    ops.ssd_heads(x, Bm, Cm, a, chunk=32)[0].sum().backward()
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["mamba2_ssd_bwd"] == 1 and x.grad is not None
+    assert bool(torch.isfinite(x.grad).all())
+
+
+# (B, S, H, P, N, chunk): zamba2-2.7b's P = N = 64 at chunk 128 over two
+# chunks and at 64; chunks of 32; S that halves the chunk (200 -> 8, 33 ->
+# 1); P and N below 64 and not powers of two; one chunk of 100 rows
+SSD_BWD_SHAPES = [(2, 256, 2, 64, 64, 128), (1, 128, 3, 64, 64, 64), (2, 64, 4, 32, 16, 32),
+                  (2, 200, 2, 24, 40, 128), (1, 33, 2, 64, 64, 128), (1, 64, 2, 20, 12, 32),
+                  (1, 100, 2, 32, 16, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", [False, True])
+def test_ssd_bwd_matches_plain(cuda, B, S, H, P, N, chunk, dtype, model):
+    """K8b against its plain version (autograd of ``ssd_plain``) on the same
+    card tensors, with the final state's gradient too, B and C read as
+    views of one wider row, as the model passes them."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, dtype, torch.float32, cuda, seed=S + P)
+    wide = torch.cat([x.reshape(B, S, H * P), Bm.reshape(B, S, H * N), Cm.reshape(B, S, H * N)],
+                     -1)
+    Bv = wide[..., H * P:H * (P + N)].reshape(B, S, H, N)
+    Cv = wide[..., H * (P + N):].reshape(B, S, H, N)
+    g = torch.Generator().manual_seed(S)
+    dy = torch.randn((B, S, H, P), generator=g).to(cuda, dtype)
+    dstate = torch.randn((B, H, P, N), generator=g).to(cuda)
+    c = ops.cut_chunk(chunk, S)
+    counts.reset()
+    got = ops.ssd_bwd_cuda(x, Bv, Cv, a, dy, dstate, c, model)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["mamba2_ssd_bwd"] == 1 and counts.PLAIN_CALLS["mamba2_ssd_bwd"] == 0
+    want = ops.ssd_bwd_plain(x, Bm, Cm, a, dy, dstate, c, model)
+    _grads_close(got, want, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("form", ["heads", "scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_on_the_card(cuda, form, dtype):
+    """Both entry points' gradients through autograd: K8 forward and K8b
+    backward once each, no plain call, equal to the plain backward; in the
+    model layout B and C are views of one projection, whose gradient takes
+    dB and dC at their columns."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    B, S, H, P, N = 2, 256, 3, 32, 16
+    x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, dtype, torch.float32, cuda, seed=4)
+    dy = torch.randn((B, S, H, P), generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    counts.reset()
+    if form == "scan":
+        rows = [t.permute(0, 2, 1, 3).reshape(B * H, S, -1).contiguous() for t in (x, Bm, Cm)]
+        rows.append(a.permute(0, 2, 1).reshape(B * H, S).contiguous())
+        leaves = [t.clone().requires_grad_(True) for t in rows]
+        dyr = dy.permute(0, 2, 1, 3).reshape(B * H, S, P).contiguous()
+        ops.ssd_scan(*leaves, chunk=64).backward(dyr)
+        want = ops.ssd_bwd_plain(*(t[:, :, None] for t in rows), dyr[:, :, None], None, 64,
+                                 False)
+        want = [t[:, :, 0] for t in want]
+        got = [t.grad for t in leaves]
+    else:
+        wide = torch.cat([Bm.reshape(B, S, H * N), Cm.reshape(B, S, H * N)], -1)
+        wide.requires_grad_(True)
+        xl, al = x.clone().requires_grad_(True), a.clone().requires_grad_(True)
+        Bv = wide[..., :H * N].reshape(B, S, H, N)
+        Cv = wide[..., H * N:].reshape(B, S, H, N)
+        ops.ssd_heads(xl, Bv, Cv, al, chunk=128)[0].backward(dy)
+        want = ops.ssd_bwd_plain(x, Bm, Cm, a, dy, None, 128, True)
+        got = [xl.grad, wide.grad[..., :H * N].reshape(B, S, H, N),
+               wide.grad[..., H * N:].reshape(B, S, H, N), al.grad]
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["mamba2_ssd"] == counts.LAUNCHES["mamba2_ssd_bwd"] == 1
+    assert sum(counts.PLAIN_CALLS.values()) == 0
+    _grads_close([t.contiguous() for t in got], want, dtype == torch.float32)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

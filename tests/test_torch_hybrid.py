@@ -298,10 +298,19 @@ def test_ssd_refuses_what_the_kernel_does_not_take():
     a[3] = torch.zeros((1, 2, 8)).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_ops.ssd_heads(*a, chunk=8)
-    a = args()
-    a[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match=r"no backward.*ROADMAP.md item 10\(c\)"):
-        ssd_ops.ssd_heads(*a, chunk=8)
+    # an input that needs a gradient gets one: K8b's plain version, which is
+    # autograd of the plain forward, bit for bit
+    g = torch.Generator().manual_seed(0)
+    a = [torch.randn(t.shape, generator=g) * 0.5 for t in args()]
+    a[3] = -torch.rand(a[3].shape, generator=g)                  # a log decay
+    leaves = [t.clone().requires_grad_(True) for t in a]
+    counts.reset()
+    ssd_ops.ssd_heads(*leaves, chunk=8)[0].sum().backward()
+    assert counts.PLAIN_CALLS["mamba2_ssd_bwd"] == 1
+    ref = [t.clone().requires_grad_(True) for t in a]
+    ssd_ops.ssd_plain(*ref, 8, True)[0].sum().backward()
+    for got, want in zip(leaves, ref):
+        assert torch.equal(got.grad, want.grad)
     with torch.no_grad():
         ssd_ops.ssd_heads(*a, chunk=8)
     with pytest.raises(ValueError, match=r"\(BH, S, P\)"):

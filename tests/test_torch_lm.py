@@ -154,18 +154,25 @@ def test_init_params_rules():
                                          "seamless-m4t-medium"])
 def test_other_families_are_refused_with_their_roadmap_item(family_arch):
     cfg = PC.reduced(PC.get_arch(family_arch))
-    serving = {"ssm": "SSM", "hybrid": "hybrid"}
-    if cfg.family in serving:
-        # the SSM and hybrid families serve; their training is what stays closed
+    scans = {"ssm": "rwkv6_wkv", "hybrid": "mamba2_ssd"}
+    if cfg.family in scans:
+        # the SSM and hybrid families serve and train: a gradient flows into
+        # every leaf through their scans' backward (K12b, K8b; plain here)
         from repro_torch.models import loss_fn as p_loss_fn
+        from repro_torch.models.params import tree_leaves
 
         params = p_init_params(p_specs(cfg, PRuntime()), torch.Generator().manual_seed(0), CPU)
-        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-                 "labels": torch.zeros((1, 8), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError,
-                           match=rf"training the {serving[cfg.family]} family.*"
-                                 r"ROADMAP.md item 10\(c\)"):
-            p_loss_fn(params, cfg, PRuntime(), batch)
+        batch = {"tokens": torch.arange(2, 10, dtype=torch.int32)[None],
+                 "labels": torch.arange(3, 11, dtype=torch.int32)[None]}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        counts.reset()
+        loss = p_loss_fn(params, cfg, PRuntime(), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        assert counts.PLAIN_CALLS[scans[cfg.family] + "_bwd"] == cfg.n_layers
+        assert bool(torch.isfinite(loss))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
         p_specs(cfg, PRuntime())

@@ -295,10 +295,19 @@ def test_wkv_refuses_what_the_kernel_does_not_take():
     a[4] = torch.zeros((3, 16))
     with pytest.raises(ValueError, match="shape"):
         wkv_ops.wkv_heads(*a, chunk=8)
-    a = args()
-    a[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match=r"no backward.*ROADMAP.md item 10\(c\)"):
-        wkv_ops.wkv_heads(*a, chunk=8)
+    # an input that needs a gradient gets one: K12b's plain version, which is
+    # autograd of the plain forward, bit for bit
+    g = torch.Generator().manual_seed(0)
+    a = [torch.randn(t.shape, generator=g) * 0.5 for t in args()]
+    a[3] = -torch.rand(a[3].shape, generator=g)                  # a log decay
+    leaves = [t.clone().requires_grad_(True) for t in a]
+    counts.reset()
+    wkv_ops.wkv_heads(*leaves, chunk=8)[0].sum().backward()
+    assert counts.PLAIN_CALLS["rwkv6_wkv_bwd"] == 1
+    ref = [t.clone().requires_grad_(True) for t in a]
+    wkv_ops.wkv_plain(*ref[:4], ref[4][None], 8, True)[0].sum().backward()
+    for got, want in zip(leaves, ref):
+        assert torch.equal(got.grad, want.grad)
     with torch.no_grad():
         wkv_ops.wkv_heads(*a, chunk=8)
     with pytest.raises(ValueError, match=r"\(BH, S, K\)"):
