@@ -1992,10 +1992,14 @@ def kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel, by its name."""
     if any(t in name for t in ("decode_partial", "decode_combine", "decode_ring")):
         return "decode attention K7"
+    if any(t in name for t in ("ssd_bwd", "ssd_grad")):
+        return "SSD backward K8b"
+    if any(t in name for t in ("wkv_bwd", "wkv_grad")):
+        return "WKV backward K12b"
     if any(t in name for t in ("ssd_kernel", "ssd_states", "ssd_out")):
         return "SSD scan K8"
     if "state_pass" in name:
-        return "state pass of K8 or K12"
+        return "state passes of K8, K12, K8b and K12b"
     if "flash_" in name:
         return "attention K4-K6"
     if "gmm_" in name:
@@ -4199,6 +4203,7 @@ FAMILY_TRAIN = {
                              "block fires 3 times (K4-K6 at head dim 80)"),
 }
 FAMILY_STEPS = 3
+ROUTES_BWD = ("chunked", "serial")   # K12b's and K8b's routes, the path's first
 K12B_SOURCE = ("src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
                "none: no Pallas original; the reference's backward is jax.vjp of wkv_ref "
                "(src/repro/kernels/rwkv6_wkv/ops.py:30)")
@@ -4302,14 +4307,17 @@ def hold_scan_bwd(family: str, call, launches: int) -> dict:
     checks = {}
     for label, args, exact in (("the model's function", model, False),
                                ("upcast to float32, float32 products", f32, True)):
-        got = fn(*args)
         want = plain(*args)
-        torch.cuda.synchronize()
-        checks[label] = grad_close(got, want, exact)
-        ok, err, scale = checks[label]
-        print(f"[{tag}] {name} vs plain at the first layer's inputs, {label}: largest "
-              f"|plain| {scale} max err {err} match={ok}", flush=True)
-        del got, want
+        for route in ROUTES_BWD:
+            got = fn(*args, route=route)
+            torch.cuda.synchronize()
+            checks[label, route] = grad_close(got, want, exact)
+            ok, err, scale = checks[label, route]
+            print(f"[{tag}] {name} route {route} vs plain at the first layer's inputs, {label}: "
+                  f"largest |plain| {scale} max err {err} match={ok}", flush=True)
+            del got
+        del want
+
     def moved(args):   # every input read once, each input's gradient written once
         return (nbytes(*(t for t in args if torch.is_tensor(t)))
                 + nbytes(*(t for t in args[:n_in] if torch.is_tensor(t))))
@@ -4317,28 +4325,53 @@ def hold_scan_bwd(family: str, call, launches: int) -> dict:
     n_bytes = moved(model)
     b_ms, b_by = bound(n_bytes, ops_model[0], bf16_ops=ops_model[1])
     f32_b_ms, f32_b_by = bound(moved(f32), ops_f32)
-    ms = cuda_time_ms(lambda: fn(*model), 5)
-    f32_ms = cuda_time_ms(lambda: fn(*f32), 3)
+    # the chunked route against the serial one in turns: chunked, serial,
+    # serial, chunked
+    ms, serial_ms, turns = in_turns(lambda: fn(*model, route="chunked"),
+                                    lambda: fn(*model, route="serial"), 5)
+    f32_ms, f32_serial_ms, _ = in_turns(lambda: fn(*f32, route="chunked"),
+                                        lambda: fn(*f32, route="serial"), 3)
+    torch.cuda.synchronize()
+    # each launch's device time, the mean over a trace of 10 calls
+    stem = "wkv" if family == "ssm" else "ssd"
+    traced = {}
+    for route, tags in (("chunked", (f"{stem}_bwd_states", "state_pass", f"{stem}_grad")),
+                        ("serial", (f"{stem}_bwd_kernel",))):
+        got = traced_ms(lambda: fn(*model, route=route), tags)
+        traced[route] = (dict(zip(tags, got)) if got is not None
+                         else "not measured: the trace held none of a launch")
     row = dict(name=name, source=src[0], replaces=src[1], shape=shape,
                match=all(c[0] for c in checks.values()),
                max_abs_err=max(c[1] for c in checks.values()), ms=ms,
                plain_ms=cuda_time_ms(lambda: plain(*model), 2), bound_ms=b_ms, bound_by=b_by,
                library_ms=None, library="none: no PyTorch call computes it",
-               float32_products_ms=f32_ms, float32_products_bound_ms=f32_b_ms,
-               float32_products_bound_by=f32_b_by)
+               path_route="chunked", first_design="serial", first_design_ms=serial_ms,
+               turns_ms=list(turns),
+               traced_launch_ms=traced,
+               float32_products_ms=f32_ms, float32_products_first_design_ms=f32_serial_ms,
+               float32_products_bound_ms=f32_b_ms, float32_products_bound_by=f32_b_by)
     print(f"[{tag}] {name} at the first layer's inputs: {shape} match={row['match']} "
-          f"max_abs_err={row['max_abs_err']} ms={ms:.6f} plain_ms={row['plain_ms']:.6f} "
-          f"bound_ms={b_ms:.6f} ({b_by}: {n_bytes} bytes, {ops_model[0]:.6g} "
-          f"float32 and {ops_model[1]:.6g} bf16-operand operations); float32 products "
-          f"ms={f32_ms:.6f} bound_ms={f32_b_ms:.6f} ({f32_b_by}); launches in "
+          f"max_abs_err={row['max_abs_err']} chunked ms={ms:.6f} serial ms={serial_ms:.6f} "
+          f"(turns chunked, serial, serial, chunked: {row['turns_ms']}) "
+          f"plain_ms={row['plain_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}: {n_bytes} bytes, "
+          f"{ops_model[0]:.6g} float32 and {ops_model[1]:.6g} bf16-operand operations); "
+          f"float32 products chunked ms={f32_ms:.6f} serial ms={f32_serial_ms:.6f} "
+          f"bound_ms={f32_b_ms:.6f} ({f32_b_by}); traced ms by launch {traced}; launches in "
           f"Trainer.run={launches}", flush=True)
+    if ms >= serial_ms:
+        print(f"[{tag}] {name}: the chunked route is not faster than the serial one", flush=True)
+    if ms < b_ms:
+        print(f"[{tag}] {name}: {ms:.6f} ms is under the bound {b_ms:.6f}, which counts the "
+              f"state products as float32 operations; the chunked route runs them as hi + lo "
+              f"bf16 halves on the tensor cores", flush=True)
     return row
 
 
 def check_scan_bwd_small(family: str) -> list:
     """K12b or K8b against its plain version at small and ragged shapes, in
-    both functions and dtypes, with the final state's gradient; returns the
-    cases that disagree."""
+    both functions and dtypes, with the final state's gradient, by each
+    route the shape takes (``serial`` everywhere, ``chunked`` where the cut
+    chunk is a multiple of 16); returns the cases that disagree."""
     import torch
 
     bad = []
@@ -4347,7 +4380,7 @@ def check_scan_bwd_small(family: str) -> list:
         from repro_torch.kernels.rwkv6_wkv import ops
 
         for B, S, H, K, chunk in [(2, 128, 2, 64, 64), (1, 48, 3, 32, 32), (2, 33, 2, 16, 16),
-                                  (1, 96, 3, 24, 64)]:
+                                  (1, 96, 3, 24, 64), (1, 144, 2, 20, 48)]:
             for dt in (torch.float32, torch.bfloat16):
                 for bf16_intra in (False, True):
                     r, k, v, dy = (torch.randn((B, S, H, K), generator=g).to("cuda", dt) * 0.5
@@ -4358,15 +4391,21 @@ def check_scan_bwd_small(family: str) -> list:
                     ds = torch.randn((B, H, K, K), generator=g).to("cuda")
                     c = ops.cut_chunk(chunk, S)
                     a = (r, k, v, w, u, dy, ds, c, bf16_intra)
-                    ok = grad_close(ops.wkv_bwd_cuda(*a), ops.wkv_bwd_plain(*a),
-                                    dt == torch.float32 and not bf16_intra)[0]
-                    if not ok:
-                        bad.append(f"{(B, S, H, K, chunk)} {dt} bf16_intra={bf16_intra}")
+                    want = ops.wkv_bwd_plain(*a)
+                    for route in ROUTES_BWD:
+                        if route == "chunked" and ops.wkv_route(S, c, K) != "chunked":
+                            continue
+                        ok = grad_close(ops.wkv_bwd_cuda(*a, route=route), want,
+                                        dt == torch.float32 and not bf16_intra)[0]
+                        if not ok:
+                            bad.append(f"{(B, S, H, K, chunk)} {dt} bf16_intra={bf16_intra} "
+                                       f"route={route}")
     else:
         from repro_torch.kernels.mamba2_ssd import ops
 
         for B, S, H, P, N, chunk in [(2, 256, 2, 64, 64, 128), (1, 64, 3, 32, 16, 32),
-                                     (2, 200, 2, 24, 40, 128), (1, 100, 2, 32, 16, 128)]:
+                                     (2, 200, 2, 24, 40, 128), (1, 100, 2, 32, 16, 128),
+                                     (1, 144, 2, 20, 12, 96)]:
             for dt in (torch.float32, torch.bfloat16):
                 for mdl in (False, True):
                     x, dy = (torch.randn((B, S, H, P), generator=g).to("cuda", dt) * 0.5
@@ -4378,14 +4417,65 @@ def check_scan_bwd_small(family: str) -> list:
                     ds = torch.randn((B, H, P, N), generator=g).to("cuda")
                     c = ops.cut_chunk(chunk, S)
                     args = (x, Bm, Cm, a, dy, ds, c, mdl)
-                    ok = grad_close(ops.ssd_bwd_cuda(*args), ops.ssd_bwd_plain(*args),
-                                    dt == torch.float32)[0]
-                    if not ok:
-                        bad.append(f"{(B, S, H, P, N, chunk)} {dt} model={mdl}")
+                    want = ops.ssd_bwd_plain(*args)
+                    for route in ROUTES_BWD:
+                        if route == "chunked" and ops.ssd_route(S, c, P, N) != "chunked":
+                            continue
+                        ok = grad_close(ops.ssd_bwd_cuda(*args, route=route), want,
+                                        dt == torch.float32)[0]
+                        if not ok:
+                            bad.append(f"{(B, S, H, P, N, chunk)} {dt} model={mdl} "
+                                       f"route={route}")
     torch.cuda.synchronize()
     print(f"[train_{family}] {'K12b' if family == 'ssm' else 'K8b'} small and ragged shapes x "
-          f"dtypes x functions: disagree={bad}", flush=True)
+          f"dtypes x functions x routes: disagree={bad}", flush=True)
     return bad
+
+
+@contextlib.contextmanager
+def scan_bwd_route(module, wrapper: str, route: str):
+    """While active, every call of ``module.<wrapper>`` (K12b's or K8b's
+    wrapper) takes ``route``."""
+    import functools
+
+    original = getattr(module, wrapper)
+    setattr(module, wrapper, functools.partial(original, route=route))
+    try:
+        yield
+    finally:
+        setattr(module, wrapper, original)
+
+
+def profile_train_step(one_step, tag: str, bwd: str, module, wrapper: str, layers: int) -> dict:
+    """One training step (``one_step()``) on each of K8b's or K12b's routes,
+    chunked then serial: its wall by the host clock (mean of 2), its device
+    time by class of kernel from one profiled step, its peak device memory
+    and its launches by route; returns them by route."""
+    import torch
+
+    from repro_torch.kernels import counts
+
+    out = {}
+    for route in ROUTES_BWD:
+        with scan_bwd_route(module, wrapper, route):
+            one_step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts.reset()
+            prof = device_profile(one_step, f"one training step, {bwd} route {route}", reps=2,
+                                  tag=tag)
+            peak = torch.cuda.max_memory_allocated()
+            routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith(bwd)}
+        if routes != {f"{bwd}/{route}": 3 * layers}:
+            fail(f"{tag}: the {route} step's {bwd} launches by route are {routes} (want "
+                 f"{3 * layers} on {route})")
+        out[route] = dict(step_ms=prof["wall_s"] * 1e3, busy_share=prof["busy_share"],
+                          ms_by_class=prof["ms_by_class"], max_memory_allocated=peak,
+                          route_launches=routes)
+        print(f"[{tag}] one training step, {bwd} route {route}: step_ms="
+              f"{prof['wall_s'] * 1e3:.3f} max_memory_allocated={peak} launches by route "
+              f"{routes}", flush=True)
+    return out
 
 
 def run_train_family(device, family: str) -> tuple:
@@ -4463,6 +4553,7 @@ def run_train_family(device, family: str) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(counts.LAUNCHES)
+        routes = dict(counts.ROUTE_LAUNCHES)
         plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
     peak = torch.cuda.max_memory_allocated()
     steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
@@ -4470,10 +4561,15 @@ def run_train_family(device, family: str) -> tuple:
           f"{step_s} (the first includes warm-up); steady step_ms={steady * 1e3:.3f} "
           f"tokens_per_s={B * S / steady:.1f}; max_memory_allocated={peak}; launches "
           f"{ {k: launches[k] for k in kernels} } plain_calls {plain}", flush=True)
+    by_route = {k: v for k, v in routes.items() if k.startswith(bwd + "/")}
+    print(f"[{tag}] Trainer.run({FAMILY_STEPS}) launches by route: {routes}", flush=True)
     for name in kernels:
         if launches[name] != FAMILY_STEPS * want[name]:
             fail(f"{tag}: Trainer.run launched {name} {launches[name]} times (want "
                  f"{FAMILY_STEPS * want[name]})")
+    if by_route != {f"{bwd}/chunked": FAMILY_STEPS * want[bwd]}:
+        fail(f"{tag}: Trainer.run's {bwd} launches by route are {by_route} (want "
+             f"{FAMILY_STEPS * want[bwd]} on the chunked route)")
     if plain:
         fail(f"{tag}: Trainer.run called plain versions {plain} (want none)")
     ln_v = math.log(cfg.vocab)
@@ -4491,6 +4587,11 @@ def run_train_family(device, family: str) -> tuple:
     print(f"[{tag}] make_train_step x 3 on one repeated batch: losses {rep}", flush=True)
     if not rep[-1] < rep[0]:
         fail(f"{tag}: the loss does not fall on a repeated batch: {rep}")
+
+    def one_step():
+        trainer.params, trainer.opt, _ = step(trainer.params, trainer.opt, batch)
+
+    step_profile_by_route = profile_train_step(one_step, tag, bwd, scan_ops_mod, wrapper, L)
 
     # the kernels' route against the plain route (K12/K8, K12b/K8b, K10/K11
     # plain and xla attention) from the same weights and batch, in float32
@@ -4527,6 +4628,8 @@ def run_train_family(device, family: str) -> tuple:
     torch.cuda.empty_cache()
 
     row = hold_scan_bwd(family, kept[L - 1], launches[bwd])
+    row["step_profile"] = step_profile_by_route
+    row["launches_by_route"] = by_route
     del kept
     small = check_scan_bwd_small(family)
     if not row["match"] or small:

@@ -1,8 +1,8 @@
 // Building blocks of the chunk-parallel scans (K8, csrc/mamba2_ssd.cu; K12,
 // csrc/rwkv6_wkv.cu): dtype conversions, the bf16 mma.sync m16n8k16
 // tensor-core product and its fragment loads from shared memory, tile
-// copies with 16-byte loads and cp.async, and the state pass between the
-// chunks.
+// copies with 16-byte loads and cp.async, and the state passes between the
+// chunks (forward for the scans, reverse for their backward, K8b and K12b).
 //
 // mma.sync m16n8k16 (row.col, bf16 operands, float32 sums), lane = 4 g + t:
 //   A (16 x 16, row-major): a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1],
@@ -132,6 +132,32 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// close the group of this thread's cp.async copies issued so far; wait
+// until at most N groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four neighbouring values of a shared-memory row as floats (p 16-byte
+// aligned for float, 8-byte for bf16)
+__device__ __forceinline__ void ld4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(u.x << 16);
+  o[1] = __uint_as_float(u.x & 0xffff0000u);
+  o[2] = __uint_as_float(u.y << 16);
+  o[3] = __uint_as_float(u.y & 0xffff0000u);
+}
 
 // rows x cols of src (row stride ld) into dst (row stride ldd) of the same
 // type, by nt threads: with vec, as cp.async copies of 16 bytes that the
@@ -152,26 +178,39 @@ __device__ __forceinline__ void copy_tile(T* dst, int ldd, const T* __restrict__
   }
 }
 
-// The state pass: for each of the n_rows rows of nc chunks of per_chunk
-// float32 values in ws (row-major (n_rows, nc, per_chunk)), h = decay * h +
-// inc over the chunks, a multiply and then an add, from h = 0; each
-// chunk's slot is overwritten with its starting state and the final h goes
-// to hout (n_rows, per_chunk). The decay of value i of a chunk is decay[row,
-// chunk, i / per_decay] (decay (n_rows, nc, per_chunk / per_decay)). A
-// thread takes four neighbouring values (per_decay a multiple of 4) as
-// float4, and issues the loads of U chunks before it stores any.
-__global__ void __launch_bounds__(256) state_pass_kernel(float* __restrict__ ws,
-                                                         const float* __restrict__ decay,
-                                                         float* __restrict__ hout, int n_rows,
+// The state passes. A pass walks, for each of the n_rows rows of nc chunks
+// of per_chunk float32 values in ws (row-major (n_rows, nc, per_chunk)), h
+// = decay * h + inc over the chunks, a multiply and then an add, from h =
+// h0 (n_rows, per_chunk; zero where h0 is null), overwriting each chunk's
+// slot with h before its update, and writes the last h to hout (n_rows,
+// per_chunk) where hout is not null. forward (reverse = 0) walks the chunks
+// in order, so each slot ends as its chunk's starting state (the scans'
+// forward); reverse walks them from the last, so each slot ends as the
+// gradient of its chunk's end state (the backward's dS, with h0 the final
+// state's gradient). The decay of value i of a chunk is decay[row, chunk, i
+// / per_decay] (decay (n_rows, nc, per_chunk / per_decay)).
+struct StatePass {
+  float* ws;
+  const float* decay;
+  const float* h0;
+  float* hout;
+  int reverse;
+};
+
+// a thread takes four neighbouring values (per_decay a multiple of 4) as
+// float4 and issues the loads of U chunks before it stores any;
+// blockIdx.y picks the pass (one launch may run both)
+__global__ void __launch_bounds__(256) state_pass_kernel(StatePass fwd, StatePass bwd, int n_rows,
                                                          int nc, int per_chunk, int per_decay) {
+  const StatePass p = blockIdx.y ? bwd : fwd;
   const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (e >= (int64_t)n_rows * per_chunk) return;
   const int64_t row = e / per_chunk;
   const int i = (int)(e - row * per_chunk);
   const int nd = per_chunk / per_decay;
-  float* w = ws + row * nc * per_chunk + i;
-  const float* d = decay + row * nc * nd + i / per_decay;
-  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* w = p.ws + row * nc * per_chunk + i;
+  const float* d = p.decay + row * nc * nd + i / per_decay;
+  float4 h = p.h0 ? *reinterpret_cast<const float4*>(p.h0 + e) : make_float4(0.f, 0.f, 0.f, 0.f);
   constexpr int U = 8;
   for (int j0 = 0; j0 < nc; j0 += U) {
     float4 inc[U];
@@ -179,14 +218,16 @@ __global__ void __launch_bounds__(256) state_pass_kernel(float* __restrict__ ws,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (j0 + u < nc) {
-        inc[u] = *reinterpret_cast<const float4*>(w + (int64_t)(j0 + u) * per_chunk);
-        dv[u] = d[(int64_t)(j0 + u) * nd];
+        const int64_t j = p.reverse ? nc - 1 - (j0 + u) : j0 + u;
+        inc[u] = *reinterpret_cast<const float4*>(w + j * per_chunk);
+        dv[u] = d[j * nd];
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (j0 + u < nc) {
-        *reinterpret_cast<float4*>(w + (int64_t)(j0 + u) * per_chunk) = h;
+        const int64_t j = p.reverse ? nc - 1 - (j0 + u) : j0 + u;
+        *reinterpret_cast<float4*>(w + j * per_chunk) = h;
         h.x = dv[u] * h.x + inc[u].x;
         h.y = dv[u] * h.y + inc[u].y;
         h.z = dv[u] * h.z + inc[u].z;
@@ -194,19 +235,27 @@ __global__ void __launch_bounds__(256) state_pass_kernel(float* __restrict__ ws,
       }
     }
   }
-  *reinterpret_cast<float4*>(hout + e) = h;
+  if (p.hout) *reinterpret_cast<float4*>(p.hout + e) = h;
 }
 
-// per_chunk and per_decay multiples of 4; ws, decay and hout from the
-// allocator (16-byte aligned)
-inline int launch_state_pass(float* ws, const float* decay, float* hout, int n_rows, int nc,
-                             int per_chunk, int per_decay, cudaStream_t stream) {
+// bwd.ws null: the forward pass alone. per_chunk and per_decay multiples of
+// 4; every buffer from the allocator (16-byte aligned)
+inline int launch_state_passes(StatePass fwd, StatePass bwd, int n_rows, int nc, int per_chunk,
+                               int per_decay, cudaStream_t stream) {
   if (per_chunk % 4 || per_decay % 4) return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)n_rows * per_chunk / 4;
   if (n == 0) return 0;
-  state_pass_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(ws, decay, hout, n_rows, nc,
-                                                                     per_chunk, per_decay);
+  const dim3 grid((unsigned)((n + 255) / 256), bwd.ws ? 2 : 1);
+  state_pass_kernel<<<grid, 256, 0, stream>>>(fwd, bwd, n_rows, nc, per_chunk, per_decay);
   return (int)cudaGetLastError();
+}
+
+// the scans' forward: each chunk's starting state, the final state to hout
+inline int launch_state_pass(float* ws, const float* decay, float* hout, int n_rows, int nc,
+                             int per_chunk, int per_decay, cudaStream_t stream) {
+  return launch_state_passes(StatePass{ws, decay, nullptr, hout, 0},
+                             StatePass{nullptr, nullptr, nullptr, nullptr, 1}, n_rows, nc,
+                             per_chunk, per_decay, stream);
 }
 
 }  // namespace chunk_scan

@@ -41,6 +41,16 @@ backward ``ref.ssd_bwd_plain`` (autograd of ``ssd_plain``, as the
 reference's backward is ``jax.vjp`` of its oracle) on the CPU. It returns
 dx, dB, dC and da, contiguous; where B and C are views of one projection,
 autograd adds dB and dC into that projection's gradient at their columns.
+K8b has the forward's two routes, picked by the same :func:`ssd_route`:
+
+- ``chunked``: three launches over (b, h, chunk): both state increments
+  (the forward's and the backward's), both state passes in one launch
+  (each chunk's starting state forward, its end state's gradient
+  backward, in two float32 workspaces (Bt, H, S / chunk, P, N)), and every
+  chunk's gradients, the model's bf16 intra-chunk products on the tensor
+  cores (``ref.ssd_bwd_chunked`` emulates the three);
+- ``serial``: the first design, one block per (b, h), a forward walk and
+  then the chunks backward (``ref.ssd_bwd_chunks``).
 """
 
 from __future__ import annotations
@@ -183,26 +193,48 @@ def ssd_cuda(x, Bm, Cm, a, chunk: int, model: bool,
 
 
 def ssd_bwd_cuda(x, Bm, Cm, a, dy, dstate: Optional[torch.Tensor], chunk: int,
-                 model: bool) -> Tuple[torch.Tensor, ...]:
+                 model: bool, route: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """Launch K8b on the card: the arguments of ``ref.ssd_bwd_plain``, with
     ``chunk`` already cut to divide S, ``dy`` (Bt, S, H, P) contiguous in
     x's dtype and ``dstate`` (Bt, H, P, N) float32 or None -> (dx, dB, dC,
-    da), contiguous."""
+    da), contiguous, by the route :func:`ssd_route` picks or the one named
+    (the tests and the smoke's timings)."""
     Bt, S, H, P, N, (ldx, ldb, ldc) = _check(x, Bm, Cm, a, chunk)
     check("dy", dy, x.dtype, (Bt, S, H, P), x.device)
     if dstate is not None:
         check("dstate", dstate, torch.float32, (Bt, H, P, N), x.device)
+    if route is None:
+        route = ssd_route(S, chunk, P, N)
+    elif route not in ROUTES:
+        raise ValueError(f"mamba2_ssd: unknown route {route!r} (one of {ROUTES})")
+    if route == "chunked" and ssd_route(S, chunk, P, N) != "chunked":
+        raise ValueError(f"mamba2_ssd: the chunked route takes S > 0, chunks of a multiple of "
+                         f"{CHUNK_ROWS} rows and P N a multiple of 4, got S = {S}, chunk "
+                         f"{chunk}, P = {P}, N = {N}")
     dx = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
     dB = torch.empty((Bt, S, H, N), dtype=x.dtype, device=x.device)
     dC = torch.empty_like(dB)
     da = torch.empty_like(a)
     nc = S // chunk if S else 0
-    # every chunk's starting state, recomputed by the kernel's forward walk
-    ws = torch.empty((Bt, H, nc, P, N), dtype=torch.float32, device=x.device)
     fn = f"{_DTYPES[x.dtype]}_{'model' if model else 'f32'}"
-    launch("mamba2_ssd_bwd", f"mamba2_ssd_bwd_{fn}", x.device,
-           (x, Bm, Cm, a, dy, dstate, dx, dB, dC, da, ws),
-           (Bt, S, H, P, N, chunk, ldx, ldb, ldc))
+    # the workspaces live on the launching stream: the allocator hands them
+    # out again only to work queued after these launches
+    if route == "serial":
+        # every chunk's starting state, recomputed by the kernel's forward walk
+        ws = torch.empty((Bt, H, nc, P, N), dtype=torch.float32, device=x.device)
+        launch("mamba2_ssd_bwd", f"mamba2_ssd_bwd_{fn}", x.device,
+               (x, Bm, Cm, a, dy, dstate, dx, dB, dC, da, ws),
+               (Bt, S, H, P, N, chunk, ldx, ldb, ldc), route=route)
+        return dx, dB, dC, da
+    # each chunk's starting state and its end state's gradient, from their
+    # increments
+    wsf, wsb = (torch.empty((Bt, H, nc, P, N), dtype=torch.float32, device=x.device)
+                for _ in range(2))
+    decay = torch.empty((Bt, H, nc), dtype=torch.float32, device=x.device)
+    vec = _vec((x, ldx, P), (Bm, ldb, N), (Cm, ldc, N), (dy, H * P, P))
+    launch("mamba2_ssd_bwd", f"mamba2_ssd_bwd_chunked_{fn}", x.device,
+           (x, Bm, Cm, a, dy, dstate, dx, dB, dC, da, wsf, wsb, decay),
+           (Bt, S, H, P, N, chunk, ldx, ldb, ldc, vec), route=route)
     return dx, dB, dC, da
 
 

@@ -33,6 +33,18 @@ every chunk's y from its starting state at once. The state pass computes
 what ``ssd_plain``'s loop computes, one multiply and one add a chunk, so
 the two give the same final state where they compute the increments alike.
 
+The backward K8b has the same two routes. ``ssd_bwd_chunks`` models the
+``serial`` one (a forward walk for the starting states, then the chunks
+backward with dh carried), ``ssd_bwd_chunked`` the ``chunked`` one (every
+chunk's two increments, the state pass forward and, with
+``state_reverse_pass``, backward, every chunk's gradients). Both take each
+chunk's increments and gradients from the same per-chunk functions, so
+their states (``ssd_bwd_states``) are equal. The card's tensor-core form of
+the chunked route (bf16 activations, the model's function) takes the state
+products' float32 operands as hi + lo bf16 halves; these models take them
+in float32, and the card is held to its plain version within two bf16
+steps.
+
 ``ssd_ref`` is the reference's sequential oracle (``mamba2_ssd/ref.py``),
 kept for the tests.
 """
@@ -43,8 +55,11 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ssd_bwd_chunks", "ssd_bwd_plain", "ssd_chunk_outputs", "ssd_chunk_states", "ssd_chunked", "ssd_plain", "ssd_ref",
-           "ssd_state_pass"]
+from ..rwkv6_wkv.ref import state_reverse_pass
+
+__all__ = ["ssd_bwd_chunked", "ssd_bwd_chunks", "ssd_bwd_plain", "ssd_bwd_states",
+           "ssd_chunk_outputs", "ssd_chunk_states", "ssd_chunked", "ssd_plain", "ssd_ref",
+           "ssd_state_pass", "state_reverse_pass"]
 
 
 def ssd_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
@@ -99,57 +114,120 @@ def ssd_bwd_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.
         return torch.autograd.grad(outs, leaves, grads)
 
 
-def ssd_bwd_chunks(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
-                   dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int, model: bool
-                   ) -> Tuple[torch.Tensor, ...]:
-    """K8b's algorithm in plain PyTorch (the CPU model of
-    ``csrc/mamba2_ssd_bwd.cu``, used by the tests): the arguments and results
-    of ``ssd_bwd_plain``, computed as the kernel computes them: a forward
-    walk keeping each chunk's starting state, then the chunks backward with
-    the closed-form gradients of the source's header, dh carried."""
+def _ssd_increments(xk, bk, ck, g, ak):
+    """One chunk's float32 slices (x, B, C, dy (Bt, c, H, W); a (Bt, c, H))
+    -> (the forward's increment x^T (B e^(total - cs)), the backward's dy^T
+    (C e^cs), both (Bt, H, P, N), and e^total (Bt, H)), as both CPU models
+    of K8b compute them."""
+    cs = torch.cumsum(ak, dim=1)
+    fwd = torch.einsum("bkhn,bkhp->bhpn", bk * torch.exp(cs[:, -1:] - cs)[..., None], xk)
+    bwd = torch.einsum("bqhp,bqhn->bhpn", g, ck * torch.exp(cs)[..., None])
+    return fwd, bwd, torch.exp(cs[:, -1])
+
+
+def _ssd_chunk_grads(xk, bk, ck, g, ak, h0, dh, rnd, tri):
+    """One chunk's gradients from its starting state h0 and its end state's
+    gradient dh (Bt, H, P, N), with the closed forms of K8b's header -> (dx,
+    dB, dC (Bt, c, H, W), da (Bt, c, H)), float32."""
+    cs = torch.cumsum(ak, dim=1)                                       # (Bt, c, H)
+    tot = cs[:, -1]
+    e, wg = torch.exp(cs), torch.exp(tot[:, None] - cs)
+    L = torch.where(tri, torch.exp(torch.where(tri, cs[:, :, None] - cs[:, None], 0.0)), 0.0)
+    SC = torch.where(tri, rnd(torch.einsum("bqhn,bshn->bqsh", ck, bk)), 0.0)
+    gs = torch.where(tri, rnd(torch.einsum("bqhp,bshp->bqsh", g, xk)), 0.0)
+    grel = gs * SC * L
+    rs, gSC = rnd(SC * L), rnd(gs * L)
+    dCE = torch.einsum("bqhp,bhpn->bqhn", g, h0)
+    dBw = torch.einsum("bshp,bhpn->bshn", xk, dh)
+    dC = torch.einsum("bqsh,bshn->bqhn", gSC, bk) + dCE * e[..., None]
+    dB = torch.einsum("bqsh,bqhn->bshn", gSC, ck) + dBw * wg[..., None]
+    dx = (torch.einsum("bqsh,bqhp->bshp", rs, g)
+          + torch.einsum("bshn,bhpn->bshp", bk * wg[..., None], dh))
+    ex1 = (dCE * ck).sum(-1) * e
+    ex2 = (dBw * bk).sum(-1)
+    gcs = grel.sum(2) - grel.sum(1) + ex1 - ex2 * wg
+    gcs[:, -1] += torch.exp(tot) * (dh * h0).sum((-2, -1)) + (ex2 * wg).sum(1)
+    return dx, dB, dC, gcs.flip(1).cumsum(1).flip(1)
+
+
+def _ssd_bwd(x, Bm, Cm, a, dy, dstate, chunk: int, model: bool, chunked: bool):
+    """Both CPU models of K8b -> (the gradients as ``ssd_bwd_plain``
+    returns them, each chunk's starting state and its end state's gradient,
+    (Bt, H, nc, P, N) each). ``chunked``: the chunked route's three launches
+    (every chunk's two increments, the two state passes, every chunk's
+    gradients); else the serial route's walks (the starting states forward,
+    then the chunks backward with dh carried)."""
     Bt, S, H, P = x.shape
     N = Bm.shape[-1]
     c = chunk
+    nc = S // c if S else 0
     dt = x.dtype
     rnd = (lambda t: t.to(dt).float()) if model else (lambda t: t)
     tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()[None, :, :, None]
-    f = [t.float() for t in (x, Bm, Cm, dy)]
-    af = a.float()
-    starts, h = [], torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
-    for t0 in range(0, S, c):
-        cs = torch.cumsum(af[:, t0:t0 + c], dim=1)
-        starts.append(h)
-        h = torch.exp(cs[:, -1])[:, :, None, None] * h + torch.einsum(
-            "bkhn,bkhp->bhpn", f[1][:, t0:t0 + c] * torch.exp(cs[:, -1:] - cs)[..., None],
-            f[0][:, t0:t0 + c])
-    dh = torch.zeros_like(h) if dstate is None else dstate.float()
-    grads = [torch.empty_like(t) for t in f[:3]]
-    da = torch.empty_like(af)
-    for j, t0 in reversed(list(enumerate(range(0, S, c)))):
-        xk, bk, ck, g = (t[:, t0:t0 + c] for t in f)
-        h0 = starts[j]
-        cs = torch.cumsum(af[:, t0:t0 + c], dim=1)                     # (Bt, c, H)
-        tot = cs[:, -1]
-        e, wg = torch.exp(cs), torch.exp(tot[:, None] - cs)
-        L = torch.where(tri, torch.exp(torch.where(tri, cs[:, :, None] - cs[:, None], 0.0)), 0.0)
-        SC = torch.where(tri, rnd(torch.einsum("bqhn,bshn->bqsh", ck, bk)), 0.0)
-        gs = torch.where(tri, rnd(torch.einsum("bqhp,bshp->bqsh", g, xk)), 0.0)
-        grel = gs * SC * L
-        rs, gSC = rnd(SC * L), rnd(gs * L)
-        dCE = torch.einsum("bqhp,bhpn->bqhn", g, h0)
-        dBw = torch.einsum("bshp,bhpn->bshn", xk, dh)
-        grads[2][:, t0:t0 + c] = torch.einsum("bqsh,bshn->bqhn", gSC, bk) + dCE * e[..., None]
-        grads[1][:, t0:t0 + c] = torch.einsum("bqsh,bqhn->bshn", gSC, ck) + dBw * wg[..., None]
-        grads[0][:, t0:t0 + c] = (torch.einsum("bqsh,bqhp->bshp", rs, g)
-                                  + torch.einsum("bshn,bhpn->bshp", bk * wg[..., None], dh))
-        ex1 = (dCE * ck).sum(-1) * e
-        ex2 = (dBw * bk).sum(-1)
-        gcs = grel.sum(2) - grel.sum(1) + ex1 - ex2 * wg
-        gcs[:, -1] += torch.exp(tot) * (dh * h0).sum((-2, -1)) + (ex2 * wg).sum(1)
-        da[:, t0:t0 + c] = gcs.flip(1).cumsum(1).flip(1)
-        dh = torch.exp(tot)[:, :, None, None] * dh + torch.einsum(
-            "bqhp,bqhn->bhpn", g, ck * e[..., None])
-    return (*(gr.to(t.dtype) for gr, t in zip(grads, (x, Bm, Cm))), da.to(a.dtype))
+    f = [t.float() for t in (x, Bm, Cm, dy)] + [a.float()]
+    slices = [[t[:, j * c:(j + 1) * c] for t in f] for j in range(nc)]
+    d0 = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    dlast = d0 if dstate is None else dstate.float()
+    empty = torch.zeros((Bt, H, 0, P, N), dtype=torch.float32, device=x.device)
+    if chunked:
+        incs = [_ssd_increments(*sl) for sl in slices]
+        if nc:
+            decay = torch.stack([i[2] for i in incs], 2)
+            starts = ssd_state_pass(torch.stack([i[0] for i in incs], 2), decay)[0]
+            ends = state_reverse_pass(torch.stack([i[1] for i in incs], 2),
+                                      decay[..., None, None], dlast)
+        else:
+            starts = ends = empty
+    else:
+        h, sts = d0, []
+        for sl in slices:
+            fwd, _, dec = _ssd_increments(*sl)
+            sts.append(h)
+            h = dec[:, :, None, None] * h + fwd
+        dh, en = dlast, [None] * nc
+        for j in reversed(range(nc)):
+            en[j] = dh
+            _, bwd, dec = _ssd_increments(*slices[j])
+            dh = dec[:, :, None, None] * dh + bwd
+        starts = torch.stack(sts, 2) if nc else empty
+        ends = torch.stack(en, 2) if nc else empty
+    grads = [torch.empty_like(t) for t in f[:3]] + [torch.empty_like(f[4])]
+    for j, sl in enumerate(slices):
+        for gr, gv in zip(grads, _ssd_chunk_grads(*sl, starts[:, :, j], ends[:, :, j], rnd, tri)):
+            gr[:, j * c:(j + 1) * c] = gv
+    return (tuple(gr.to(t.dtype) for gr, t in zip(grads, (x, Bm, Cm, a))), starts, ends)
+
+
+def ssd_bwd_chunks(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                   dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int, model: bool
+                   ) -> Tuple[torch.Tensor, ...]:
+    """K8b's ``serial`` route in plain PyTorch (the CPU model of
+    ``csrc/mamba2_ssd_bwd.cu``'s first design, used by the tests): the
+    arguments and results of ``ssd_bwd_plain``, computed as the kernel
+    computes them: a forward walk keeping each chunk's starting state, then
+    the chunks backward with the closed-form gradients of the source's
+    header, dh carried."""
+    return _ssd_bwd(x, Bm, Cm, a, dy, dstate, chunk, model, False)[0]
+
+
+def ssd_bwd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                    dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int, model: bool
+                    ) -> Tuple[torch.Tensor, ...]:
+    """K8b's ``chunked`` route in plain PyTorch: the arguments and results
+    of ``ssd_bwd_plain``, computed as the route's three launches compute
+    them: every chunk's two increments, the forward state pass (starting
+    states) and the reverse one (end states' gradients), every chunk's
+    gradients."""
+    return _ssd_bwd(x, Bm, Cm, a, dy, dstate, chunk, model, True)[0]
+
+
+def ssd_bwd_states(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, a: torch.Tensor,
+                   dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int, chunked: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each chunk's starting state and its end state's gradient (Bt, H, nc,
+    P, N) as the ``chunked`` (passes over the increments) or ``serial``
+    (walks) model of K8b computes them."""
+    return _ssd_bwd(x, Bm, Cm, a, dy, dstate, chunk, False, chunked)[1:]
 
 
 def _chunks(t: torch.Tensor, c: int) -> torch.Tensor:

@@ -40,8 +40,19 @@ backward ``ref.wkv_bwd_plain`` (autograd of ``wkv_plain``, as the
 reference's backward is ``jax.vjp`` of its oracle) on the CPU. It returns
 dr, dk, dv, dw and du; du is summed over the batch where u is shared (the
 model's (H, K)) and stays per row where u is (BH, K). The backward
-recomputes each chunk's starting state in its own forward walk rather than
-keep the forward's workspace as a residual (see the source).
+recomputes each chunk's starting state rather than keep the forward's
+workspace as a residual (see the source). K12b has the forward's two
+routes, picked by the same :func:`wkv_route`:
+
+- ``chunked``: three launches over (b, h, chunk): both state increments
+  (the forward's and the backward's), both state passes in one launch
+  (each chunk's starting state forward, its end state's gradient
+  backward, in two float32 workspaces (B, H, S / chunk, K, K)), and every
+  chunk's gradients, the model's bf16 intra-chunk products on the tensor
+  cores; du per chunk, summed over the chunks here (``ref.wkv_bwd_chunked``
+  emulates the three);
+- ``serial``: the first design, one block per (b, h), a forward walk and
+  then the chunks backward (``ref.wkv_bwd_chunks``).
 """
 
 from __future__ import annotations
@@ -160,23 +171,49 @@ def wkv_cuda(r, k, v, w, u, chunk: int, bf16_intra: bool,
 
 
 def wkv_bwd_cuda(r, k, v, w, u, dy, dstate: Optional[torch.Tensor], chunk: int,
-                 bf16_intra: bool) -> Tuple[torch.Tensor, ...]:
+                 bf16_intra: bool, route: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """Launch K12b on the card: the arguments of ``ref.wkv_bwd_plain``,
     with ``chunk`` already cut to divide S, ``dy`` (B, S, H, K) in r's dtype
-    and ``dstate`` (B, H, K, K) float32 or None -> (dr, dk, dv, dw, du)."""
+    and ``dstate`` (B, H, K, K) float32 or None -> (dr, dk, dv, dw, du), by
+    the route :func:`wkv_route` picks or the one named (the tests and the
+    smoke's timings)."""
     B, S, H, K = _check(r, k, v, w, u, chunk)
     check("dy", dy, r.dtype, (B, S, H, K), r.device)
     if dstate is not None:
         check("dstate", dstate, torch.float32, (B, H, K, K), r.device)
+    if route is None:
+        route = wkv_route(S, chunk, K)
+    elif route not in ROUTES:
+        raise ValueError(f"rwkv6_wkv: unknown route {route!r} (one of {ROUTES})")
+    if route == "chunked" and wkv_route(S, chunk, K) != "chunked":
+        raise ValueError(f"rwkv6_wkv: the chunked route takes S > 0, chunks of a multiple of "
+                         f"{CHUNK_ROWS} rows and K a multiple of 4, got S = {S}, chunk {chunk}, "
+                         f"K = {K}")
     grads = [torch.empty_like(t) for t in (r, k, v, w)]
-    du_rows = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
     nc = S // chunk if S else 0
-    # every chunk's starting state, recomputed by the kernel's forward walk
-    ws = torch.empty((B, H, nc, K, K), dtype=torch.float32, device=r.device)
     fn = f"{_DTYPES[r.dtype]}_{_DTYPES[w.dtype]}_{'bf16' if bf16_intra else 'f32'}"
     u_per_row = int(u.shape[0] == B and B > 1)
-    launch("rwkv6_wkv_bwd", f"rwkv6_wkv_bwd_{fn}", r.device,
-           (r, k, v, w, u, dy, dstate, *grads, du_rows, ws), (B, S, H, K, chunk, u_per_row))
+    # the workspaces live on the launching stream: the allocator hands them
+    # out again only to work queued after these launches
+    if route == "serial":
+        du_rows = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+        # every chunk's starting state, recomputed by the kernel's forward walk
+        ws = torch.empty((B, H, nc, K, K), dtype=torch.float32, device=r.device)
+        launch("rwkv6_wkv_bwd", f"rwkv6_wkv_bwd_{fn}", r.device,
+               (r, k, v, w, u, dy, dstate, *grads, du_rows, ws), (B, S, H, K, chunk, u_per_row),
+               route=route)
+    else:
+        # each chunk's starting state and its end state's gradient, from
+        # their increments; du per chunk, summed over the chunks here
+        wsf, wsb = (torch.empty((B, H, nc, K, K), dtype=torch.float32, device=r.device)
+                    for _ in range(2))
+        decay = torch.empty((B, H, nc, K), dtype=torch.float32, device=r.device)
+        du_parts = torch.empty((B, H, nc, K), dtype=torch.float32, device=r.device)
+        vec = int(all(_vec(t, H, K) for t in (r, k, v, dy))) | 2 * int(_vec(w, H, K))
+        launch("rwkv6_wkv_bwd", f"rwkv6_wkv_bwd_chunked_{fn}", r.device,
+               (r, k, v, w, u, dy, dstate, *grads, du_parts, wsf, wsb, decay),
+               (B, S, H, K, chunk, u_per_row, vec), route=route)
+        du_rows = du_parts.sum(2)
     du = du_rows if u.shape[0] == B and B > 1 else du_rows.sum(0, keepdim=True)
     return (*grads, du)
 

@@ -1503,6 +1503,38 @@ def test_wkv_bwd_matches_plain(cuda, B, S, H, K, chunk, dtype, wdtype, bf16_intr
     _grads_close(got, want, exact)
 
 
+# (B, S, H, K, chunk): rwkv6-7b's head width; chunks of 32 and 48 rows
+# (a ragged row-tile count); K of 24 and 20 (a partial 8-column tile)
+WKV_BWD_ROUTE_SHAPES = [(2, 256, 2, 64, 64), (1, 144, 3, 32, 48), (1, 96, 5, 24, 64),
+                        (1, 64, 3, 20, 32)]
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", WKV_BWD_ROUTE_SHAPES)
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.float32, torch.float32)])
+@pytest.mark.parametrize("bf16_intra", [False, True])
+@pytest.mark.parametrize("route", ["chunked", "serial"])
+def test_wkv_bwd_routes_match_plain(cuda, B, S, H, K, chunk, dtype, wdtype, bf16_intra, route):
+    """Each of K12b's routes, named, against the plain version: one launch
+    counted under the route."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    r, k, v, w, u = _wkv_inputs(B, S, H, K, dtype, wdtype, cuda, seed=3 * S + K)
+    g = torch.Generator().manual_seed(S + 1)
+    dy = torch.randn((B, S, H, K), generator=g).to(cuda, dtype)
+    dstate = torch.randn((B, H, K, K), generator=g).to(cuda)
+    c = ops.cut_chunk(chunk, S)
+    assert ops.wkv_route(S, c, K) == "chunked"
+    counts.reset()
+    got = ops.wkv_bwd_cuda(r, k, v, w, u[None], dy, dstate, c, bf16_intra, route=route)
+    torch.cuda.synchronize()
+    assert counts.ROUTE_LAUNCHES == {f"rwkv6_wkv_bwd/{route}": 1}
+    want = ops.wkv_bwd_plain(r, k, v, w, u[None], dy, dstate, c, bf16_intra)
+    _grads_close(got, want, dtype == wdtype == torch.float32 and not bf16_intra)
+
+
 @pytest.mark.parametrize("form", ["heads", "scan"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv_autograd_on_the_card(cuda, form, dtype):
@@ -1945,6 +1977,39 @@ def test_ssd_bwd_matches_plain(cuda, B, S, H, P, N, chunk, dtype, model):
     got = ops.ssd_bwd_cuda(x, Bv, Cv, a, dy, dstate, c, model)
     torch.cuda.synchronize()
     assert counts.LAUNCHES["mamba2_ssd_bwd"] == 1 and counts.PLAIN_CALLS["mamba2_ssd_bwd"] == 0
+    want = ops.ssd_bwd_plain(x, Bm, Cm, a, dy, dstate, c, model)
+    _grads_close(got, want, dtype == torch.float32)
+
+
+# (B, S, H, P, N, chunk): zamba2-2.7b's widths at chunk 128; chunks of 48
+# rows (a ragged row-tile count); P and N below 64 and not powers of two
+SSD_BWD_ROUTE_SHAPES = [(2, 256, 2, 64, 64, 128), (1, 144, 2, 24, 40, 96),
+                        (1, 64, 2, 20, 12, 32), (2, 64, 3, 8, 4, 16)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_ROUTE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", [False, True])
+@pytest.mark.parametrize("route", ["chunked", "serial"])
+def test_ssd_bwd_routes_match_plain(cuda, B, S, H, P, N, chunk, dtype, model, route):
+    """Each of K8b's routes, named, against the plain version, B and C views
+    of one wider row: one launch counted under the route."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    x, Bm, Cm, a = _ssd_inputs(B, S, H, P, N, dtype, torch.float32, cuda, seed=2 * S + P)
+    wide = torch.cat([Bm.reshape(B, S, H * N), Cm.reshape(B, S, H * N)], -1)
+    Bv = wide[..., :H * N].reshape(B, S, H, N)
+    Cv = wide[..., H * N:].reshape(B, S, H, N)
+    g = torch.Generator().manual_seed(S + 1)
+    dy = torch.randn((B, S, H, P), generator=g).to(cuda, dtype)
+    dstate = torch.randn((B, H, P, N), generator=g).to(cuda)
+    c = ops.cut_chunk(chunk, S)
+    assert ops.ssd_route(S, c, P, N) == "chunked"
+    counts.reset()
+    got = ops.ssd_bwd_cuda(x, Bv, Cv, a, dy, dstate, c, model, route=route)
+    torch.cuda.synchronize()
+    assert counts.ROUTE_LAUNCHES == {f"mamba2_ssd_bwd/{route}": 1}
     want = ops.ssd_bwd_plain(x, Bm, Cm, a, dy, dstate, c, model)
     _grads_close(got, want, dtype == torch.float32)
 

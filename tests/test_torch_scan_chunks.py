@@ -268,10 +268,20 @@ def test_output_step_splits_columns_only_where_the_grid_is_short(split_fn, per_s
 
 
 def test_wrappers_check_routes_before_the_card():
-    """An unknown route is refused; the CPU takes the plain version."""
+    """An unknown route is refused, and so is the chunked route where the
+    shape does not take it, by the forwards and the backwards (K12b, K8b);
+    the CPU takes the plain version."""
     _, (x, Bm, Cm, a) = _ssd_inputs(1, 32, 2, 8, 4, "float32", 1)
     with pytest.raises(ValueError, match="unknown route"):
         ssd_ops.ssd_cuda(x, Bm, Cm, a, 32, True, route="ring")
+    with pytest.raises(ValueError, match="unknown route"):
+        ssd_ops.ssd_bwd_cuda(x, Bm, Cm, a, x, None, 32, True, route="ring")
+    with pytest.raises(ValueError, match="chunked route takes"):
+        ssd_ops.ssd_bwd_cuda(x, Bm, Cm, a, x, None, 8, True, route="chunked")
     _, (r, k, v, w, u) = _wkv_inputs(1, 32, 2, 8, "float32", 1, (1, 2, 8))
     with pytest.raises(ValueError, match="unknown route"):
         wkv_ops.wkv_cuda(r, k, v, w, u, 32, True, route="ring")
+    with pytest.raises(ValueError, match="unknown route"):
+        wkv_ops.wkv_bwd_cuda(r, k, v, w, u, r, None, 32, True, route="ring")
+    with pytest.raises(ValueError, match="chunked route takes"):
+        wkv_ops.wkv_bwd_cuda(r, k, v, w, u, r, None, 8, True, route="chunked")

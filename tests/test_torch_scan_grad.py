@@ -2,9 +2,13 @@
 the CPU: K12b (the RWKV6 WKV) and K8b (the Mamba2 SSD), here through their
 plain versions (autograd of the forward's plain version, as the
 reference's backward is ``jax.vjp`` of its oracle), and the kernels'
-algorithms (``ref.wkv_bwd_chunks``, ``ref.ssd_bwd_chunks``: a forward walk
-for the chunks' starting states, then the closed-form gradients chunk by
-chunk) against the plain backward. Inputs are drawn by numpy from a seed and
+algorithms by route against the plain backward: ``serial``
+(``ref.wkv_bwd_chunks``, ``ref.ssd_bwd_chunks``: a forward walk for the
+chunks' starting states, then the closed-form gradients chunk by chunk) and
+``chunked`` (``ref.wkv_bwd_chunked``, ``ref.ssd_bwd_chunked``: every chunk's
+two increments, a forward and a reverse state pass, every chunk's
+gradients), whose chunk states are the serial model's, and the chunked
+model against the reference model's backward too. Inputs are drawn by numpy from a seed and
 fed to both packages; the reference's scan kernels run in Pallas interpret
 mode, as ``tests/test_kernels.py`` runs them. ``tests/test_torch_train_ssm.py``
 trains the two families.
@@ -31,6 +35,10 @@ result, with its reason:
   bfloat16.
 - The kernels' algorithms against the plain backward: 1e-6 without bf16
   roundings; one bf16 step with them, where the two sum in other orders.
+  The two routes' models take their increments and per-chunk gradients
+  from the same functions, so their chunk states are equal, bit for bit.
+  The chunked model against ``jax.vjp`` of the reference model: the gates
+  of the port's model form above.
 """
 from __future__ import annotations
 
@@ -47,9 +55,11 @@ from repro.models import mamba2 as JM
 from repro.models import rwkv6 as J6
 from repro_torch.kernels import counts
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
-from repro_torch.kernels.mamba2_ssd.ref import ssd_bwd_chunks, ssd_bwd_plain
+from repro_torch.kernels.mamba2_ssd.ref import (ssd_bwd_chunked, ssd_bwd_chunks, ssd_bwd_plain,
+                                                 ssd_bwd_states)
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
-from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_chunks, wkv_bwd_plain
+from repro_torch.kernels.rwkv6_wkv.ref import (wkv_bwd_chunked, wkv_bwd_chunks, wkv_bwd_plain,
+                                                wkv_bwd_states)
 from repro_torch.models import mamba2 as PM
 from repro_torch.models import rwkv6 as P6
 
@@ -193,6 +203,10 @@ def test_ssd_chunked_grads_match_reference(S, chunk, dtype):
         _assert_scaled(g, w, F32 if dtype == "float32" else BF16_GRAD)
 
 
+BWD_MODELS = {"wkv": {"serial": wkv_bwd_chunks, "chunked": wkv_bwd_chunked},
+              "ssd": {"serial": ssd_bwd_chunks, "chunked": ssd_bwd_chunked}}
+
+
 # (B, S, H, K, chunk, u rows): several chunks, S that halves the chunk
 # (40 -> 8, 33 -> 1), u one row per batch entry
 @pytest.mark.parametrize("B,S,H,K,chunk,u_rows", [(2, 64, 3, 16, 16, False),
@@ -201,10 +215,13 @@ def test_ssd_chunked_grads_match_reference(S, chunk, dtype):
                                                   (2, 128, 2, 64, 64, True)])
 @pytest.mark.parametrize("dtype,bf16_intra", [(torch.float32, False), (torch.float32, True),
                                               (torch.bfloat16, True)])
-def test_wkv_bwd_kernel_model_matches_plain(B, S, H, K, chunk, u_rows, dtype, bf16_intra):
-    """``ref.wkv_bwd_chunks``, K12b's algorithm on the CPU (a forward walk
-    for the chunks' starting states, then the closed-form gradients chunk by
-    chunk), against the plain backward, with the final state's gradient:
+@pytest.mark.parametrize("route", ["serial", "chunked"])
+def test_wkv_bwd_kernel_model_matches_plain(B, S, H, K, chunk, u_rows, dtype, bf16_intra, route):
+    """K12b's algorithm on the CPU by route (``ref.wkv_bwd_chunks`` for
+    ``serial``: a forward walk for the chunks' starting states, then the
+    closed-form gradients chunk by chunk; ``ref.wkv_bwd_chunked`` for
+    ``chunked``: both increments, both state passes, every chunk's
+    gradients), against the plain backward, with the final state's gradient:
     float32 products within 1e-6 of each gradient's scale; with bf16
     intra-chunk operands the roundings of the gradients flip where the two
     sum in other orders, so within one bf16 step."""
@@ -214,7 +231,7 @@ def test_wkv_bwd_kernel_model_matches_plain(B, S, H, K, chunk, u_rows, dtype, bf
     dyt = torch.from_numpy(dy).to(dtype)
     dstate = torch.from_numpy(np.random.default_rng(1).standard_normal((B, H, K, K))).float()
     c = wkv_ops.cut_chunk(chunk, S)
-    got = wkv_bwd_chunks(*ts, dyt, dstate, c, bf16_intra)
+    got = BWD_MODELS["wkv"][route](*ts, dyt, dstate, c, bf16_intra)
     want = wkv_bwd_plain(*ts, dyt, dstate, c, bf16_intra)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -225,8 +242,10 @@ def test_wkv_bwd_kernel_model_matches_plain(B, S, H, K, chunk, u_rows, dtype, bf
                                              (2, 256, 2, 16, 8, 128), (1, 33, 1, 4, 4, 16)])
 @pytest.mark.parametrize("dtype,model", [(torch.float32, False), (torch.float32, True),
                                          (torch.bfloat16, True)])
-def test_ssd_bwd_kernel_model_matches_plain(B, S, H, P, N, chunk, dtype, model):
-    """``ref.ssd_bwd_chunks``, K8b's algorithm on the CPU, against the plain
+@pytest.mark.parametrize("route", ["serial", "chunked"])
+def test_ssd_bwd_kernel_model_matches_plain(B, S, H, P, N, chunk, dtype, model, route):
+    """K8b's algorithm on the CPU by route (``ref.ssd_bwd_chunks`` for
+    ``serial``, ``ref.ssd_bwd_chunked`` for ``chunked``), against the plain
     backward, with the final state's gradient: within 1e-6 of each
     gradient's scale without roundings, one bf16 step with them."""
     arrays, dy = _ssd_draw((B, S, H, P), (B, S, H, N), (B, S, H), S + P)
@@ -235,8 +254,87 @@ def test_ssd_bwd_kernel_model_matches_plain(B, S, H, P, N, chunk, dtype, model):
     dyt = torch.from_numpy(dy).to(dtype)
     dstate = torch.from_numpy(np.random.default_rng(1).standard_normal((B, H, P, N))).float()
     c = ssd_ops.cut_chunk(chunk, S)
-    got = ssd_bwd_chunks(*ts, dyt, dstate, c, model)
+    got = BWD_MODELS["ssd"][route](*ts, dyt, dstate, c, model)
     want = ssd_bwd_plain(*ts, dyt, dstate, c, model)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         _assert_scaled(g, w, 1e-6 if dtype == torch.float32 else BF16_STEP)
+
+
+# (family, shape, chunk): several chunks, one chunk, chunks of 48 rows (a
+# ragged row-tile count), a chunk that halves (40 -> 8), no final state's
+# gradient
+@pytest.mark.parametrize("family,shape,chunk,with_dstate", [
+    ("wkv", (2, 64, 3, 16), 16, True), ("wkv", (1, 96, 2, 24), 64, True),
+    ("wkv", (3, 40, 1, 8), 16, False), ("ssd", (2, 256, 2, 16, 8), 128, True),
+    ("ssd", (1, 144, 2, 20, 12), 96, True), ("ssd", (2, 64, 3, 8, 4), 16, False)])
+def test_bwd_models_share_chunk_states(family, shape, chunk, with_dstate):
+    """The chunked model's starting states (forward pass over the
+    increments) and end states' gradients (reverse pass from the final
+    state's gradient) equal the serial model's walks bit for bit, as the
+    kernels' two routes' states are."""
+    if family == "wkv":
+        B, S, H, K = shape
+        arrays, dy = _wkv_draw(shape, (1, H, K), S + K)
+        ts = [torch.from_numpy(a).float() for a in arrays[:4]]
+        dstate = torch.from_numpy(np.random.default_rng(2).standard_normal((B, H, K, K))).float()
+        c = wkv_ops.cut_chunk(chunk, S)
+        states = [wkv_bwd_states(*ts, torch.from_numpy(dy).float(),
+                                 dstate if with_dstate else None, c, chunked)
+                  for chunked in (False, True)]
+    else:
+        B, S, H, P, N = shape
+        arrays, dy = _ssd_draw((B, S, H, P), (B, S, H, N), (B, S, H), S + P)
+        ts = [torch.from_numpy(a).float() for a in arrays]
+        dstate = torch.from_numpy(np.random.default_rng(2).standard_normal((B, H, P, N))).float()
+        c = ssd_ops.cut_chunk(chunk, S)
+        states = [ssd_bwd_states(*ts, torch.from_numpy(dy).float(),
+                                 dstate if with_dstate else None, c, chunked)
+                  for chunked in (False, True)]
+    (s_starts, s_ends), (c_starts, c_ends) = states
+    assert s_starts.shape[2] == S // c and bool(s_ends.abs().sum() > 0)
+    assert torch.equal(c_starts, s_starts) and torch.equal(c_ends, s_ends)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_chunked_model_matches_reference_vjp(dtype):
+    """``ref.wkv_bwd_chunked`` (the model's function, u shared over the
+    batch) against ``jax.vjp`` of the reference model's ``_wkv_chunked`` on
+    the inputs rounded to the activations' dtype, at the small shape of
+    ``test_wkv_chunked_grads_match_reference``, with its gates."""
+    B, S, H, K, chunk = 2, 64, 3, 16, 32
+    arrays, dy = _wkv_draw((B, S, H, K), (H, K), 7 * S)
+    js = ([jnp.asarray(a, JDT[dtype]) for a in arrays[:3]]
+          + [jnp.asarray(a, jnp.float32) for a in arrays[3:]])
+    _, vjp = jax.vjp(lambda *a: J6._wkv_chunked(*a, chunk), *js)
+    want = vjp(jnp.asarray(dy, JDT[dtype]))
+    ts = ([torch.from_numpy(np.array(jnp.asarray(a, jnp.float32))).to(TDT[dtype])
+           for a in js[:3]] + [torch.from_numpy(np.array(js[3]))])
+    u = torch.from_numpy(np.array(js[4]))[None]
+    dyt = torch.from_numpy(np.array(jnp.asarray(jnp.asarray(dy, JDT[dtype]), jnp.float32)))
+    got = wkv_bwd_chunked(*ts, u, dyt.to(TDT[dtype]), None, chunk, True)
+    got = list(got[:4]) + [got[4][0]]
+    for g, w in zip(got, want):
+        if dtype == "float32":
+            _assert_bf16_flips_only(g, w)
+        else:
+            _assert_scaled(g, w, BF16_GRAD)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunked_model_matches_reference_vjp(dtype):
+    """``ref.ssd_bwd_chunked`` (the model's function) against ``jax.vjp``
+    of the reference model's ``_ssd_chunked`` at the small shape of
+    ``test_ssd_chunked_grads_match_reference``, with its gates."""
+    B, S, H, P, N, chunk = 2, 64, 3, 8, 4, 32
+    arrays, dy = _ssd_draw((B, S, H, P), (B, S, H, N), (B, S, H), 5 * S)
+    js = ([jnp.asarray(a, JDT[dtype]) for a in arrays[:3]]
+          + [jnp.asarray(arrays[3], jnp.float32)])
+    _, vjp = jax.vjp(lambda *a: JM._ssd_chunked(*a, chunk), *js)
+    want = vjp(jnp.asarray(dy, JDT[dtype]))
+    ts = ([torch.from_numpy(np.array(jnp.asarray(a, jnp.float32))).to(TDT[dtype])
+           for a in js[:3]] + [torch.from_numpy(np.array(js[3]))])
+    dyt = torch.from_numpy(np.array(jnp.asarray(jnp.asarray(dy, JDT[dtype]), jnp.float32)))
+    got = ssd_bwd_chunked(*ts, dyt.to(TDT[dtype]), None, chunk, True)
+    for g, w in zip(got, want):
+        _assert_scaled(g, w, F32 if dtype == "float32" else BF16_GRAD)
