@@ -10,7 +10,8 @@ Phases, in order:
    spill lines; K1's tiled kernel, K2's count and onesweep kernels, K3's
    staged kernel, the fused propose step's Q1 and Q2, the
    wgmma routes of K4, K5 and K6 (at every head dim) and
-   of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64),
+   of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64) and
+   of K9b (dx and dw),
    K11's cluster kernel (every dtype pair), K10's resident kernel (every
    dtype pair and row width) and K7's ring kernel (every dtype, lane count
    and row block) must build with no spill and no serialized wgmma;
@@ -236,9 +237,35 @@ Phases, in order:
     (within two bf16 steps of each gradient's largest magnitude) and upcast
     to float32 in the Pallas kernel's (2e-5), timed by CUDA events beside
     its plain version and its bound; then at small and ragged shapes;
-13. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+13. ``train_moe``: training of mixtral-8x22b at full width, vocab and
+    sequence with its depth cut from 56 to 1 layer (the reckoning that sets
+    the cut is printed), bf16 weights from seed 0, ``attn_impl="flash"``.
+    ``Trainer.run(3)`` on 2 x 4096 tokens, counts reset just before it and
+    read just after: 3 K9 and 6 K9b launches a layer a step, all on their
+    wgmma routes, K4-K6 once a layer a step, K10 and K11 at every norm, no
+    plain call; the first loss within 1 of ln(32768); three steps on one
+    repeated batch, the loss falling; a profiled step; the kernels' route
+    against the plain route (K9, K9b, K10, K11 plain, ``xla``) on one
+    2048-token sequence in float32 activations with the kernel route's
+    expert choices and slots replayed, losses within 1e-2 and every
+    gradient leaf within 5e-2 relative in L2; K9b on the first layer's
+    w_gate-shaped and w_down inputs against its plain version in bf16 (one
+    bf16 step) and upcast to float32 (2e-5), each product timed by CUDA
+    events beside its bound and ``torch.bmm`` on transposed views; then at
+    small and ragged shapes with group sizes (NaN past each) on both routes;
+14. ``mla``: deepseek-v3-671b at full width with its depth cut from 61 to
+    its 3 dense layers and 1 MoE layer (the bf16 weights by part are
+    printed), weights from seed 0: a 2 x 4096 prefill (3 K9 launches at E =
+    256 on the wgmma route, 17 K10 launches at widths 7168, 1536 and 512, no
+    K4: MLA's head dim 192 takes the plain blocked route), the plain route
+    (K9 and K10 plain, routing replayed) within 5e-2 of the largest logit;
+    ``ServingEngine`` on 4 requests and a decode step (3 K9 launches on the
+    decode route, 17 K10); decode teacher-forced against ``forward`` as in
+    ``moe``; a profiled prefill and decode step; K9 at the MoE layer's
+    w_gate shape against its plain version, timed;
+15. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
-14. the seconds of each phase, one JSON line with the kernels' numbers, the
+16. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -289,6 +316,8 @@ HOPPER_KERNELS = {
     "flash_attn_bwd": {"flash_dq_hopper": ("16", "32", "64", "80", "128"),
                        "flash_dkv_hopper": ("16", "32", "64", "80", "128")},
     "moe_gmm": {"gmm_prefill_hopper": ("",), "gmm_decode_hopper": ("16", "32", "64")},
+    # K9b's wgmma route: dx (0) and dw (1)
+    "moe_gmm_bwd": {"gmm_bwd_hopper": ("0", "1")},
     # K10's resident rows: 16-byte vectors a lane by width, at most 16 in
     # float32; K11's cluster route
     "rmsnorm": {"rmsnorm_bwd_cluster": _TYPE_PAIRS,
@@ -2002,6 +2031,8 @@ def kernel_class(name: str) -> str:
         return "state passes of K8, K12, K8b and K12b"
     if "flash_" in name:
         return "attention K4-K6"
+    if "gmm_bwd" in name:
+        return "expert backward K9b"
     if "gmm_" in name:
         return "expert products K9"
     if "rmsnorm_" in name:
@@ -2662,15 +2693,18 @@ def record_routing():
 
 
 @contextlib.contextmanager
-def replay_routing(pick):
+def replay_routing(pick, own_gates: bool = False):
     """While active, the n-th call of ``models.moe.moe_route`` computes its
     own routing but returns ``pick(n, own)``, a recorded one: two runs then
     take the same discrete decisions (experts, slots, drops) and the same
-    gates, and differ by rounding alone. A token whose router scores sit
-    near a tie takes another expert under any rounding difference, and a
-    token kept or dropped at an expert's capacity moves with the tokens
-    before it. The yielded list gets, per call, the number of tokens whose
-    own kept experts differ from the replayed ones."""
+    gates, and differ by rounding alone. With ``own_gates`` the gates are
+    instead the run's own router's at the replayed experts, through the
+    model's ``gates_at``, so a gradient reaches the router as on the
+    recorded run. A token whose router scores sit near a tie takes another
+    expert under any rounding difference, and a token kept or dropped at an
+    expert's capacity moves with the tokens before it. The yielded list
+    gets, per call, the number of tokens whose own kept experts differ from
+    the replayed ones."""
     from repro_torch.models import moe
 
     original = moe.moe_route
@@ -2679,6 +2713,8 @@ def replay_routing(pick):
     def wrapped(router, x, cfg, rt):
         own = original(router, x, cfg, rt)
         route = pick(len(otherwise), own)
+        if own_gates:
+            route = (moe.gates_at(moe.router_probs(router, x), route[1]), *route[1:])
         otherwise.append(int((kept_experts(own) != kept_experts(route)).sum()))
         return route
 
@@ -3405,7 +3441,7 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
           f"err {ep} match={ok11}", flush=True)
     xg, wg = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
     lib_out = F.rms_norm(xg, (D,), wg, eps)
-    f_ms, f_by = bound(nbytes(x, w, out, rstd), 4.0 * N * D)
+    fb_ms, f_by = bound(nbytes(x, w, out, rstd), 4.0 * N * D)
     b_ms, b_by = bound(nbytes(x, w, rstd, do, dx, parts), 10.0 * N * D)
     shape = f"x={tuple(x.shape)} {str(x.dtype)[6:]} w {str(w.dtype)[6:]}"
     fwd_route = ops.rmsnorm_fwd_route(x.dtype, D, x.data_ptr() % 16 == 0)
@@ -3416,7 +3452,7 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
                path_route=fwd_route, match=ok10, max_abs_err=e10,
                ms=f_ms, prior_ms=f_prior, turns_ms=list(f_turns),
                plain_ms=cuda_time_ms(lambda: ops.rmsnorm_fwd_plain(x, w, eps), 20),
-               bound_ms=f_ms, bound_by=f_by,
+               bound_ms=fb_ms, bound_by=f_by,
                library_ms=cuda_time_ms(lambda: F.rms_norm(x, (D,), w, eps), 50),
                library="torch.nn.functional.rms_norm")
     route = ops.rmsnorm_bwd_route(D)
@@ -3442,7 +3478,7 @@ def hold_rmsnorm(x, w, eps: float, launches: int, train_launches: int) -> tuple:
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) launches={n}", flush=True)
     print(f"[ssm] rmsnorm_fwd on the {fwd_route} route: ms={k10['ms']:.6f}, first design "
           f"(two_pass route) ms={k10['prior_ms']:.6f} (turns first, this, this, first: "
-          f"{', '.join(f'{t:.6f}' for t in k10['turns_ms'])}); {f_ms / k10['ms']:.4f} of the "
+          f"{', '.join(f'{t:.6f}' for t in k10['turns_ms'])}); {fb_ms / k10['ms']:.4f} of the "
           f"byte bound", flush=True)
     print(f"[ssm] rmsnorm_bwd on the {route} route: ms={k11['ms']:.6f}, PR 15 design (tile "
           f"route) ms={k11['prior_ms']:.6f} (turns PR 15, this, this, PR 15: "
@@ -4639,6 +4675,582 @@ def run_train_family(device, family: str) -> tuple:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# MoE training (mixtral-8x22b at full width, depth cut to 1 layer) through K9b
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS = 1          # mixtral-8x22b's 56 layers cut to 1 (see run_train_moe)
+K9B_SOURCE = ("src/repro_torch/csrc/moe_gmm_bwd.cu",
+              "none: no Pallas original; the reference's backward is JAX's autodiff of the "
+              "einsums at src/repro/models/moe.py:95-101")
+# the plain route of the train_moe comparison: K9, K9b, K10 and K11 plain
+MOE_TRAIN_PLAIN = (("moe_gmm", "gmm"), ("moe_gmm", "gmm_bwd"), ("rmsnorm", "rmsnorm_fwd"),
+                   ("rmsnorm", "rmsnorm_bwd"))
+# (E, C, D, F) of check_gmm_bwd_small: each K9b route, small and ragged
+GMM_BWD_SMALL = [
+    ((2, 32, 48, 24), "wgmma"), ((3, 130, 96, 200), "wgmma"), ((2, 300, 520, 264), "wgmma"),
+    ((2, 77, 50, 30), "cuda_core_bf16"), ((3, 140, 60, 72), "cuda_core_bf16"),
+]
+
+
+def gmm_bwd_bounds(x, w, dy) -> dict:
+    """{product: (bound_ms, bound_by, flop)} of K9b's two products on these
+    inputs (every row a product: the model passes no group sizes)."""
+    E, C, D = x.shape
+    F = w.shape[-1]
+    flop = 2.0 * E * C * D * F
+    size = x.element_size()
+    return {"dx": (*bound(nbytes(dy, w) + E * C * D * size, flop, BF16_OPS_PER_S), flop),
+            "dw": (*bound(nbytes(x, dy) + E * D * F * size, flop, BF16_OPS_PER_S), flop)}
+
+
+def hold_gmm_bwd(kept, launches: int, by_route: dict) -> dict:
+    """K9b on the first layer's w_gate-shaped (the w_up and w_gate products'
+    shape) and w_down inputs from ``Trainer.run``'s first step against
+    ``gmm_bwd_plain``, in bf16 and upcast to float32; each product timed
+    (CUDA events) beside its bound, the plain version and ``torch.bmm`` on
+    transposed views."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import ops
+
+    match, err = True, 0.0
+    for label, (x, w, dy, gs, _) in (("w_gate", kept[2][0]), ("w_down", kept[0][0])):
+        for kind, args in (("bf16", (x, w, dy, gs)),
+                           ("upcast to float32", (x.float(), w.float(), dy.float(), gs))):
+            got, want = ops.gmm_bwd_cuda(*args), ops.gmm_bwd_plain(*args)
+            torch.cuda.synchronize()
+            for name, g, p in zip(("dx", "dw"), got, want):
+                ok, e, scale = gmm_errs(g, p)
+                print(f"[train_moe] K9b {name} vs plain at the first layer's {label} product "
+                      f"x={tuple(x.shape)} w={tuple(w.shape)}, {kind}, route "
+                      f"{ops.gmm_bwd_route(args[0].dtype, x.shape[2], w.shape[2], True)}: "
+                      f"max|plain| {scale} err {e} match={ok}", flush=True)
+                match, err = match and ok, max(err, e)
+            del got, want, args
+            torch.cuda.empty_cache()
+    x, w, dy, gs, _ = kept[2][0]
+    b = gmm_bwd_bounds(x, w, dy)
+    dx_ms = cuda_time_ms(lambda: ops.gmm_bwd_cuda(x, w, dy, gs, (True, False)), 5)
+    dw_ms = cuda_time_ms(lambda: ops.gmm_bwd_cuda(x, w, dy, gs, (False, True)), 5)
+    lib_dx = cuda_time_ms(lambda: torch.bmm(dy, w.transpose(1, 2)), 5)
+    lib_dw = cuda_time_ms(lambda: torch.bmm(x.transpose(1, 2), dy), 5)
+    row = dict(name="moe_gmm_bwd", source=K9B_SOURCE[0], replaces=K9B_SOURCE[1],
+               shape=f"x={tuple(x.shape)} w={tuple(w.shape)} dy={tuple(dy.shape)} "
+                     f"{str(x.dtype)[6:]} group_sizes=None, both products",
+               path_route=ops.gmm_bwd_route(x.dtype, x.shape[2], w.shape[2], True),
+               match=match, max_abs_err=err,
+               ms=cuda_time_ms(lambda: ops.gmm_bwd_cuda(x, w, dy, gs), 5),
+               plain_ms=cuda_time_ms(lambda: ops.gmm_bwd_plain(x, w, dy, gs), 2),
+               bound_ms=b["dx"][0] + b["dw"][0], bound_by=b["dx"][1],
+               library_ms=lib_dx + lib_dw,
+               library="torch.bmm (cuBLAS, bf16) on transposed views, dx and dw",
+               dx_ms=dx_ms, dx_bound_ms=b["dx"][0], dx_library_ms=lib_dx,
+               dw_ms=dw_ms, dw_bound_ms=b["dw"][0], dw_library_ms=lib_dw,
+               launches_by_route=by_route)
+    xd, wd, dyd, gsd, _ = kept[0][0]
+    bd = gmm_bwd_bounds(xd, wd, dyd)
+    row.update(w_down_shape=f"x={tuple(xd.shape)} w={tuple(wd.shape)}",
+               w_down_dx_ms=cuda_time_ms(lambda: ops.gmm_bwd_cuda(xd, wd, dyd, gsd,
+                                                                  (True, False)), 5),
+               w_down_dw_ms=cuda_time_ms(lambda: ops.gmm_bwd_cuda(xd, wd, dyd, gsd,
+                                                                  (False, True)), 5),
+               w_down_bound_ms=bd["dx"][0] + bd["dw"][0],
+               w_down_library_ms=cuda_time_ms(lambda: torch.bmm(dyd, wd.transpose(1, 2)), 5)
+               + cuda_time_ms(lambda: torch.bmm(xd.transpose(1, 2), dyd), 5))
+    print(f"[train_moe] K9b at the first layer's w_gate-shaped product: {row['shape']} route "
+          f"{row['path_route']} match={match} max_abs_err={err} ms={row['ms']:.6f} (dx "
+          f"{dx_ms:.6f}, dw {dw_ms:.6f}) bound_ms={row['bound_ms']:.6f} (dx {b['dx'][0]:.6f}, dw "
+          f"{b['dw'][0]:.6f}, {b['dx'][1]}, {b['dx'][2]:.4g} flop each) plain_ms="
+          f"{row['plain_ms']:.6f} bmm_ms={row['library_ms']:.6f} (dx {lib_dx:.6f}, dw "
+          f"{lib_dw:.6f}) launches={launches}; its w_down product {row['w_down_shape']}: dx "
+          f"{row['w_down_dx_ms']:.6f} dw {row['w_down_dw_ms']:.6f} ms, bound "
+          f"{row['w_down_bound_ms']:.6f}, bmm {row['w_down_library_ms']:.6f}", flush=True)
+    return row
+
+
+def check_gmm_bwd_small() -> list:
+    """K9b against ``gmm_bwd_plain`` at small and ragged shapes, both dtypes,
+    with and without group sizes (0, a partial tile, past C, NaN in x and dy
+    past each), on the route ``gmm_bwd_route`` picks (asserted from the route
+    counts) and, in bf16, on the CUDA-core route too; returns the cases that
+    disagree."""
+    import torch
+
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops
+
+    bad, worst = [], {}
+    g = torch.Generator(device="cpu").manual_seed(7)
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for (E, C, D, F), bf16_route in GMM_BWD_SMALL:
+            route = bf16_route if dtype == "bfloat16" else "cuda_core_f32"
+            x = torch.randn((E, C, D), generator=g).to("cuda", td)
+            w = (torch.randn((E, D, F), generator=g) / D ** 0.5).to("cuda", td)
+            dy = torch.randn((E, C, F), generator=g).to("cuda", td)
+            for gs in (None, [C] + [C // 2] * (E - 1), [0] + [C + 5] + [min(C, 129)] * (E - 2)):
+                xg, dyg = x.clone(), dy.clone()
+                if gs is not None:
+                    for e, n in enumerate(gs):
+                        xg[e, n:], dyg[e, n:] = float("nan"), float("nan")
+                    gs = torch.tensor(gs, dtype=torch.int32, device="cuda")
+                want = ops.gmm_bwd_plain(x, w, dy, gs)
+                for forced in (None, "cuda_core_bf16") if dtype == "bfloat16" else (None,):
+                    counts.reset()
+                    got = ops.gmm_bwd_cuda(xg, w, dyg, gs, route=forced)
+                    r = forced or route
+                    ok = dict(counts.ROUTE_LAUNCHES) == {f"moe_gmm_bwd/dx/{r}": 1,
+                                                         f"moe_gmm_bwd/dw/{r}": 1}
+                    for a, b in zip(got, want):
+                        o, e, _ = gmm_errs(a, b)
+                        ok = ok and o and bool(torch.isfinite(a).all())
+                        worst[dtype] = max(worst.get(dtype, 0.0), e)
+                    if not ok:
+                        bad.append(f"{dtype} {(E, C, D, F)} group_sizes="
+                                   f"{None if gs is None else gs.tolist()} route {r}")
+    torch.cuda.synchronize()
+    print(f"[train_moe] K9b small shapes x dtypes x group sizes x routes: max abs err {worst} "
+          f"disagree={bad}", flush=True)
+    return bad
+
+
+def run_train_moe(device) -> tuple:
+    """The ``train_moe`` phase; returns (K9b's row, launches by kernel in
+    ``Trainer.run``)."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.models import Runtime, build_param_specs
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    tag = "train_moe"
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    rt = Runtime(attn_impl="flash", remat="none")
+    B, S = TRAIN_BATCH
+    L = cfg.n_layers
+    n_full, n_cut, n_two = (sum(math.prod(s.shape) for s in tree_leaves(build_param_specs(c, rt)))
+                            for c in (full, cfg, dataclasses.replace(full, n_layers=2)))
+    family_reckoning(cfg, n_full, n_cut, tag,
+                     f"at 2 layers {n_two / 1e9:.2f} B x 12 = {n_two * 12 / 1e9:.1f} GB before "
+                     f"about 6 GB a layer of activations at 2 x 4096 tokens (the (8, 2560, "
+                     f"16384) bf16 gate, up and silu products) and the backward's transients")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, rt, seq_len=S, global_batch=B, lr=TRAIN_LR, seed=0, device=device)
+    torch.cuda.synchronize()
+    print(f"[{tag}] weights and AdamW moments on {device} in {time.perf_counter() - t0:.1f}s "
+          f"(weights from seed 0); batch {B} x {S} from SyntheticTokenPipeline(seed=0), lr "
+          f"{trainer.lr}; {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of width "
+          f"{cfg.moe.d_ff_expert}, d_model {cfg.d_model}, capacity factor "
+          f"{cfg.moe.capacity_factor}", flush=True)
+
+    norms = 2 * L + 1
+    want = {"moe_gmm": 3 * L, "moe_gmm_bwd": 6 * L, "flash_attn_fwd": L, "flash_attn_dq": L,
+            "flash_attn_dkv": L, "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}
+    step_s: list = []
+    # the first step's backward runs w_down's product first, then w_up's and
+    # w_gate's (one shape)
+    with keep_calls(gmm_ops, "gmm_bwd_cuda", (0, 2)) as kept:
+        counts.reset()
+        t0 = time.perf_counter()
+        losses = trainer.run(FAMILY_STEPS, log_every=1,
+                             on_metrics=lambda step, m: step_s.append(m["s_per_step"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(counts.LAUNCHES)
+        routes = dict(counts.ROUTE_LAUNCHES)
+        plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    print(f"[{tag}] Trainer.run({FAMILY_STEPS}): losses {losses}; wall_s={wall:.6f}; step_s "
+          f"{step_s} (the first includes warm-up); steady step_ms={steady * 1e3:.3f} "
+          f"tokens_per_s={B * S / steady:.1f}; max_memory_allocated={peak}; launches "
+          f"{ {k: launches[k] for k in want} } plain_calls {plain}", flush=True)
+    print(f"[{tag}] Trainer.run({FAMILY_STEPS}) launches by route: {routes}", flush=True)
+    for name, n in want.items():
+        if launches[name] != FAMILY_STEPS * n:
+            fail(f"{tag}: Trainer.run launched {name} {launches[name]} times (want "
+                 f"{FAMILY_STEPS * n})")
+    by_route = {k: v for k, v in routes.items() if k.startswith("moe_gmm_bwd/")}
+    if by_route != {"moe_gmm_bwd/dx/wgmma": FAMILY_STEPS * 3 * L,
+                    "moe_gmm_bwd/dw/wgmma": FAMILY_STEPS * 3 * L} or routes.get(
+                        "moe_gmm/wgmma") != FAMILY_STEPS * 3 * L:
+        fail(f"{tag}: Trainer.run's K9/K9b launches by route are {routes} (want every one on "
+             f"the wgmma routes)")
+    if plain:
+        fail(f"{tag}: Trainer.run called plain versions {plain} (want none)")
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - ln_v) > LOSS_MARGIN:
+        fail(f"{tag}: losses {losses} are not finite or the first is not within {LOSS_MARGIN} "
+             f"of ln({cfg.vocab}) = {ln_v}")
+
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in trainer.pipeline.batch_at(FAMILY_STEPS).items()}
+    step = make_train_step(cfg, rt, lr=trainer.lr)
+    rep = []
+    for _ in range(3):
+        trainer.params, trainer.opt, m = step(trainer.params, trainer.opt, batch)
+        rep.append(float(m["loss"]))
+    print(f"[{tag}] make_train_step x 3 on one repeated batch: losses {rep}", flush=True)
+    if not rep[-1] < rep[0]:
+        fail(f"{tag}: the loss does not fall on a repeated batch: {rep}")
+
+    def one_step():
+        trainer.params, trainer.opt, _ = step(trainer.params, trainer.opt, batch)
+
+    one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = device_profile(one_step, "one training step", reps=2, tag=tag)
+    step_profile = dict(step_ms=prof["wall_s"] * 1e3, busy_share=prof["busy_share"],
+                        ms_by_class=prof["ms_by_class"],
+                        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # the kernels' route against the plain route (K9, K9b, K10, K11 plain and
+    # xla attention) from the same weights and batch, in float32 activations
+    # on one sequence, the plain route taking the kernel route's expert
+    # choices and slots
+    del trainer.opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    params32 = tree_map(lambda t: t.float(), trainer.params)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt32 = dataclasses.replace(rt, param_dtype="float32", compute_dtype="float32")
+    one = {k: t[:1, :FAMILY_ROUTE_TOKENS] for k, t in batch.items()}
+    counts.reset()
+    with record_routing() as (rec, _):
+        loss_k, g_k = grads_of(params32, cfg, rt32, one)
+    k_launches = {k: v for k, v in counts.LAUNCHES.items() if v}
+    with plain_route(*MOE_TRAIN_PLAIN), \
+            replay_routing(lambda n, own: rec[n], own_gates=True) as otherwise:
+        loss_p, g_p = grads_of(params32, cfg, dataclasses.replace(rt32, attn_impl="xla"), one)
+    names = [".".join(p) for p in _leaf_paths(params32)]
+    route = [rel_l2(a, b) for a, b in zip(g_k, g_p)]
+    del g_k, g_p, params32
+    print(f"[{tag}] loss_fn, kernels' route (launches {k_launches}) vs plain route (routing "
+          f"replayed; its own router would keep other experts for {otherwise} tokens), float32 "
+          f"activations on 1 x {FAMILY_ROUTE_TOKENS}: losses {loss_k} / {loss_p} (diff "
+          f"{abs(loss_k - loss_p)}, bound {ROUTE_LOSS_TOL}); largest |g_kernels - g_plain| / "
+          f"|g_plain| over the leaves {max(route):.6g} (bound {ROUTE_GRAD_TOL})", flush=True)
+    for n, r in zip(names, route):
+        print(f"[{tag}]   grad {n}: {r:.6g}", flush=True)
+    bad = [n for n, r in zip(names, route) if not r <= ROUTE_GRAD_TOL]
+    if abs(loss_k - loss_p) > ROUTE_LOSS_TOL or bad:
+        fail(f"{tag}: the kernels' and plain routes disagree: loss diff "
+             f"{abs(loss_k - loss_p)}, leaves {bad}")
+    del batch, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    row = hold_gmm_bwd(kept, launches["moe_gmm_bwd"], by_route)
+    row.update(step_ms=steady * 1e3, step_tokens_per_s=B * S / steady,
+               step_max_memory_allocated=peak, step_profile=step_profile)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = check_gmm_bwd_small()
+    if not row["match"] or small:
+        fail(f"{tag}: K9b disagrees with its plain version: match={row['match']} small={small}")
+    return row, launches
+
+
+# ---------------------------------------------------------------------------
+# MLA serving (deepseek-v3-671b at full width, depth cut to 4 layers)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4                # deepseek-v3's 61 layers cut to its 3 dense + 1 MoE
+MLA_PREFILL = (2, 4096)
+MLA_PLAIN = (("moe_gmm", "gmm"), ("rmsnorm", "rmsnorm_fwd"))
+# Weights drawn by the reference's rules alone make every token's MoE input
+# nearly one vector: wo's fan-in counts one head's 128 values, not the 16384
+# it sums over 128 heads, so attention adds an output about sqrt(128) times
+# a unit-gain one, alike at positions that attend alike, beside embeddings
+# of rms 0.02; the router then sends most tokens to a few experts (57865 of
+# 65536 assignments dropped at capacity at 2 x 4096 on an H100). The phase
+# draws wo at the fan-in it sums over and the embeddings at rms 1, so tokens
+# stay apart and routing is near balance, as a trained router's is; it fails
+# if more than this share of the prefill's assignments is dropped
+MLA_MAX_DROP_SHARE = 0.25
+
+
+def mla_reckoning(cfg, full, rt) -> None:
+    """Print the bf16 weight bytes by part at the cut depth and at full
+    depth."""
+    import math
+
+    from repro_torch.models import build_param_specs, param_bytes
+    from repro_torch.models.params import tree_leaves
+
+    specs = build_param_specs(cfg, rt)
+
+    def n(tree):
+        return sum(math.prod(s.shape) for s in tree_leaves(tree))
+
+    nd = cfg.moe.first_dense_layers
+    moe = specs["blocks"]["moe"]
+    parts = {
+        "MLA a layer": n(specs["blocks"]["attn"]) / (cfg.n_layers - nd),
+        "dense FFN a layer": n(specs["dense_blocks"]["ffn"]) / nd,
+        "routed experts a MoE layer": n({k: moe[k] for k in ("w_gate", "w_up", "w_down")}),
+        "shared expert a MoE layer": n({k: moe[k] for k in ("ws_gate", "ws_up", "ws_down")}),
+        "embedding and head": n({"embed": specs["embed"], "out": specs["out"]}),
+        "MTP block": n(specs["mtp"]),
+    }
+    b_cut, b_full = param_bytes(specs), param_bytes(build_param_specs(full, rt))
+    print(f"[mla] {cfg.name} cut from {full.n_layers} to {cfg.n_layers} layers (its "
+          f"{nd} dense layers and 1 MoE layer): bf16 weights {b_cut / 1e9:.1f} GB at "
+          f"{cfg.n_layers} layers, {b_full / 1e9:.1f} GB at {full.n_layers}; params by part: "
+          + ", ".join(f"{k} {v / 1e9:.3f} B" for k, v in parts.items())
+          + f". Widths as published: d_model {cfg.d_model}, {cfg.n_heads} heads, q rank "
+          f"{cfg.mla.q_lora_rank}, latent {cfg.mla.kv_lora_rank}, rope "
+          f"{cfg.mla.qk_rope_head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+          f"width {cfg.moe.d_ff_expert}, dense d_ff {cfg.d_ff}, vocab {cfg.vocab}", flush=True)
+
+
+def run_mla(device) -> tuple:
+    """The ``mla`` phase; returns (K9's numbers at E = 256 with its launches
+    in the prefill and a decode step, K10's launches in the prefill, K10's
+    numbers at MLA's q and latent widths in a decode step)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params)
+    from repro_torch.serving import Request, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_arch(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    rt = Runtime(attn_impl="flash")   # MLA takes the plain blocked route whatever it says
+    mla_reckoning(cfg, full, rt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(build_param_specs(cfg, rt), torch.Generator(device=device).manual_seed(0),
+                         device)
+    for stack in ("dense_blocks", "blocks"):
+        params[stack]["attn"]["wo"].mul_(cfg.n_heads ** -0.5)
+    params["embed"].mul_(50.0)
+    torch.cuda.synchronize()
+    print(f"[mla] weights drawn on {device} in {time.perf_counter() - t0:.1f}s (seed 0; wo at "
+          f"the fan-in of its {cfg.n_heads} heads, embeddings x 50: MLA_MAX_DROP_SHARE)",
+          flush=True)
+    L = cfg.n_layers
+    n_moe = L - cfg.moe.first_dense_layers
+    rng = np.random.default_rng(0)
+    B, S = MLA_PREFILL
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (B, S))).to(device)
+    with torch.no_grad():
+        forward(params, cfg, rt, tokens=tokens[:, :256])   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with record_routing() as (routes, _), \
+                keep_calls(gmm_ops, "gmm_cuda", (0,)) as kept:
+            counts.reset()
+            t0 = time.perf_counter()
+            logits = forward(params, cfg, rt, tokens=tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k9, k10, k4 = (counts.LAUNCHES[k] for k in ("moe_gmm", "rmsnorm_fwd",
+                                                        "flash_attn_fwd"))
+            plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+            route_counts = dict(counts.ROUTE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        dropped = [int((r[2] == r[3]).sum()) for r in routes]
+        drop_share = max(d / routes[0][2].numel() for d in dropped)
+        print(f"[mla] prefill {B}x{S}: wall_s={wall:.6f} tokens_per_s={B * S / wall:.1f} "
+              f"max_memory_allocated={peak} K9 launches={k9} K10 launches={k10} K4 launches={k4} "
+              f"routes {route_counts} plain_calls={plain}; capacity {routes[0][3]} a row and "
+              f"expert, assignments dropped by MoE layer: {dropped} of {routes[0][2].numel()} "
+              f"(share {drop_share:.6f}, bound {MLA_MAX_DROP_SHARE})", flush=True)
+        if not drop_share <= MLA_MAX_DROP_SHARE:
+            fail(f"mla: the prefill dropped {drop_share} of its expert assignments at capacity: "
+                 f"routing is far from balance, and K9 would multiply mostly empty rows")
+        want10 = 4 * L + 1   # ln1, ln2, q_norm and kv_norm a layer; the final norm
+        if (k9 != 3 * n_moe or k10 != want10 or k4 or plain
+                or route_counts.get("moe_gmm/wgmma") != 3 * n_moe
+                or route_counts.get("rmsnorm_fwd/resident") != want10):
+            fail(f"mla: the prefill launched K9 {k9} times (want {3 * n_moe} on wgmma), K10 "
+                 f"{k10} (want {want10} on resident), K4 {k4} (want 0: MLA's head dim 192 "
+                 f"takes the plain route), plain calls {plain}: routes {route_counts}")
+        if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"mla: prefill logits of shape {tuple(logits.shape)} are not finite")
+        sample = list(range(0, S, 512)) + [S - 1]
+        k_rows = logits[:, sample].float()
+        del logits
+
+        with plain_route(*MLA_PLAIN), replay_routing(lambda n, own: routes[n]) as otherwise:
+            plain_logits = forward(params, cfg, rt, tokens=tokens)
+            torch.cuda.synchronize()
+        rel, err, pmax = logit_errs(k_rows, plain_logits[:, sample])
+        del plain_logits, routes
+        print(f"[mla] prefill through the plain route (K9 and K10 plain, the kernel route's "
+              f"routing replayed; its own router would keep other experts for {otherwise} "
+              f"tokens): max|logit diff|/max|logit| {rel} (bound {LOGIT_TOL}), softmax max diff "
+              f"{err} beside a largest probability of {pmax}", flush=True)
+        if not rel <= LOGIT_TOL:
+            fail(f"mla: the kernel route and the plain route disagree: logit diff {rel}")
+
+        engine = ServingEngine(params, cfg, rt, batch_size=SERVE_REQS, max_len=SERVE_MAX_LEN)
+        reqs = [Request(prompt=rng.integers(2, cfg.vocab, SERVE_PROMPT).astype(np.int32),
+                        max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        steps = SERVE_PROMPT + SERVE_NEW - 1
+        n_new = sum(len(r.generated) for r in reqs)
+        print(f"[mla] ServingEngine batch {SERVE_REQS} max_len {SERVE_MAX_LEN}: {SERVE_REQS} "
+              f"greedy requests x {SERVE_PROMPT} prompt tokens, {n_new} new tokens in wall_s="
+              f"{swall:.6f} ({steps} decode steps: step_ms={swall / steps * 1e3:.3f}, new "
+              f"tokens_per_s={n_new / swall:.1f}); first request: {reqs[0].generated[:8]}...",
+              flush=True)
+        if any(len(r.generated) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+            fail("mla: not every request got its tokens in range")
+        cache = init_cache(cfg, rt, SERVE_REQS, SERVE_MAX_LEN, device=device)
+        step_toks = torch.full((SERVE_REQS, 1), 7, device=device)
+        for _ in range(SERVE_PROMPT):
+            _, cache = decode_step(params, cfg, rt, cache, step_toks)
+        counts.reset()
+        # the first layer's K10 calls (ln1, q_norm, kv_norm, ln2) and the
+        # MoE layer's first K9 call are kept, to be held against their plain
+        # versions after the count is read
+        with keep_calls(gmm_ops, "gmm_cuda", (0,)) as dec_kept, \
+                keep_calls(rms_ops, "rmsnorm_fwd_cuda", range(4)) as dec_rms:
+            decode_step(params, cfg, rt, cache, step_toks)
+            torch.cuda.synchronize()
+        dec_k9, dec_k10 = counts.LAUNCHES["moe_gmm"], counts.LAUNCHES["rmsnorm_fwd"]
+        dec_routes = dict(counts.ROUTE_LAUNCHES)
+        dec_plain = sum(counts.PLAIN_CALLS.values())
+        print(f"[mla] one decode step of {SERVE_REQS} slots: K9 launches={dec_k9} K10 "
+              f"launches={dec_k10} routes {dec_routes} plain_calls={dec_plain}", flush=True)
+        if (dec_k9 != 3 * n_moe or dec_routes.get("moe_gmm/wgmma_decode") != 3 * n_moe
+                or dec_k10 != want10 or dec_plain):
+            fail(f"mla: a decode step launched K9 {dec_k9} times (want {3 * n_moe} on "
+                 f"wgmma_decode) and K10 {dec_k10} (want {want10}), plain {dec_plain}: "
+                 f"{dec_routes}")
+
+        # decode against forward on a 64-token prompt, each decode step taking
+        # the forward's routing of its token (the moe phase's account)
+        prompt = torch.from_numpy(reqs[0].prompt[None].astype(np.int64)).to(device)
+        with record_routing() as (par_routes, _):
+            par = forward(params, cfg, rt, tokens=prompt)[0].float()
+
+        def token_route(n, own):
+            g, idx, slot, Cr = par_routes[n % n_moe]
+            t, K = n // n_moe, idx.shape[-1]
+            keep = slot.reshape(1, -1, K)[:, t] < Cr
+            return (g[:, t:t + 1], idx[:, t:t + 1], torch.where(keep, 0, own[3]), own[3])
+
+        tf_cache = init_cache(cfg, rt, 1, SERVE_PROMPT, device=device)
+        dec = []
+        with replay_routing(token_route) as d_otherwise:
+            for t in range(SERVE_PROMPT):
+                lg, tf_cache = decode_step(params, cfg, rt, tf_cache, prompt[:, t:t + 1])
+                dec.append(lg[0, 0].float())
+        rel, derr, pmax = logit_errs(torch.stack(dec), par)
+        moved = prompt.clone()
+        moved[0, 0] = 1
+        sens = logit_errs(forward(params, cfg, rt, tokens=moved)[0, -1], par[-1])[0]
+        print(f"[mla] decode_step teacher-forced over {SERVE_PROMPT} tokens vs forward (the "
+              f"forward's routing replayed; decode's own router would keep other experts for "
+              f"{sum(d_otherwise)} token-layers): max|logit diff|/max|logit| {rel} (bound "
+              f"{LOGIT_TOL}), softmax max diff {derr} beside a largest probability of {pmax}; "
+              f"another first token moves the last position's logits by {sens}", flush=True)
+        if not rel <= LOGIT_TOL or not sens > 4 * LOGIT_TOL:
+            fail(f"mla: decode and forward disagree ({rel}) or the bound is not 4x under the "
+                 f"move another context token makes ({sens})")
+        del par, dec, par_routes, tf_cache
+
+        pre = device_profile(lambda: forward(params, cfg, rt, tokens=tokens), f"prefill {B}x{S}",
+                             2, tag="mla")
+        dprof = device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
+                               f"decode step of {SERVE_REQS} slots at position "
+                               f"{SERVE_PROMPT + 1}", 10, tag="mla")
+
+    x, w, gs = kept[0][0]
+    got, want = gmm_ops.gmm_cuda(x, w, gs), gmm_ops.gmm_plain(x, w, gs)
+    ok, e, scale = gmm_errs(got, want)
+    b_ms, b_by, flop = gmm_bound(x, w)
+    k9_mla = dict(
+        mla_shape=f"x={tuple(x.shape)} w={tuple(w.shape)}", mla_match=ok, mla_max_abs_err=e,
+        mla_route=gmm_ops.route_of(x, w),
+        mla_ms=cuda_time_ms(lambda: gmm_ops.gmm_cuda(x, w), 10), mla_bound_ms=b_ms,
+        mla_library_ms=cuda_time_ms(lambda: torch.bmm(x, w), 10), mla_launches=k9,
+        mla_decode_launches=dec_k9, mla_prefill_tokens_per_s=B * S / wall,
+        mla_decode_step_ms=dprof["wall_s"] * 1e3, mla_prefill_busy_share=pre["busy_share"],
+        mla_decode_busy_share=dprof["busy_share"], mla_max_memory_allocated=peak)
+    print(f"[mla] K9 at the MoE layer's w_gate product {k9_mla['mla_shape']} route "
+          f"{k9_mla['mla_route']}: vs plain max|plain| {scale} err {e} match={ok}; ms="
+          f"{k9_mla['mla_ms']:.6f} bmm_ms={k9_mla['mla_library_ms']:.6f} bound_ms={b_ms:.6f} "
+          f"({b_by}, {flop:.4g} flop)", flush=True)
+    del got, want
+    # the counted decode step's own K9 call (the decode route at E = 256)
+    # and K10 calls at MLA's q and latent widths, against their plain versions
+    x, w, gs = dec_kept[0][0]
+    got, want = gmm_ops.gmm_cuda(x, w, gs), gmm_ops.gmm_plain(x, w, gs)
+    d_ok, d_e, d_scale = gmm_errs(got, want)
+    k9_mla.update(mla_decode_shape=f"x={tuple(x.shape)} w={tuple(w.shape)}",
+                  mla_decode_route=gmm_ops.route_of(x, w), mla_decode_match=d_ok,
+                  mla_decode_max_abs_err=d_e)
+    print(f"[mla] K9 at the decode step's w_gate product {k9_mla['mla_decode_shape']} route "
+          f"{k9_mla['mla_decode_route']}: vs plain max|plain| {d_scale} err {d_e} match={d_ok}",
+          flush=True)
+    k10_mla, widths = {}, (cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank)
+    for args, kw in dec_rms.values():
+        width = args[0].shape[-1]
+        if width not in widths or f"mla_{width}_match" in k10_mla:
+            continue
+        out, rstd = rms_ops.rmsnorm_fwd_cuda(*args, **kw)
+        pout, prstd = rms_ops.rmsnorm_fwd_plain(*args, **kw)
+        scale = float(pout.float().abs().max())
+        err = float((out.float() - pout.float()).abs().max())
+        r_err = float(((rstd - prstd).abs() / prstd).max())
+        route = rms_ops.rmsnorm_fwd_route(args[0].dtype, width, args[0].data_ptr() % 16 == 0)
+        k10_mla.update({f"mla_{width}_shape": tuple(args[0].shape), f"mla_{width}_route": route,
+                        f"mla_{width}_max_abs_err": err, f"mla_{width}_rstd_rel_err": r_err,
+                        f"mla_{width}_match": err <= BF16_STEP * scale and r_err <= 2e-6})
+        print(f"[mla] K10 at the decode step's width-{width} norm {tuple(args[0].shape)} "
+              f"{str(args[0].dtype)[6:]} route {route}: vs plain max|plain| {scale} err {err} "
+              f"(bound {BF16_STEP} x max) rstd rel err {r_err} (bound 2e-06) "
+              f"match={k10_mla[f'mla_{width}_match']}", flush=True)
+    del params, engine, cache, kept, dec_kept, dec_rms, x, w, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("mla: K9 disagrees with its plain version at E = 256")
+    if not d_ok:
+        fail("mla: K9's decode route disagrees with its plain version at E = 256")
+    held = [w for w in widths if k10_mla.get(f"mla_{w}_match")]
+    if held != list(widths):
+        fail(f"mla: K10 at the decode step's q and latent widths {widths}: held {held}")
+    return k9_mla, k10, k10_mla
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
@@ -4738,6 +5350,19 @@ def main() -> int:
         launches[bwd_row["name"]] = family_launches[family][bwd_row["name"]]
         main_rows.append(bwd_row)
     t0 = time.perf_counter()
+    k9b_row, moe_train_launches = run_train_moe(device)
+    phase_s["train_moe"] = time.perf_counter() - t0
+    print(f"[train_moe] phase seconds {phase_s['train_moe']:.1f}", flush=True)
+    launches["moe_gmm_bwd"] = moe_train_launches["moe_gmm_bwd"]
+    k9_row["launches_train_moe"] = moe_train_launches["moe_gmm"]
+    main_rows.append(k9b_row)
+    t0 = time.perf_counter()
+    k9_mla, mla_k10, k10_mla = run_mla(device)
+    phase_s["mla"] = time.perf_counter() - t0
+    print(f"[mla] phase seconds {phase_s['mla']:.1f}", flush=True)
+    k9_row.update(k9_mla)
+    main_rows[[r["name"] for r in main_rows].index("rmsnorm_fwd")].update(k10_mla)
+    t0 = time.perf_counter()
     run_agreement()
     phase_s["agree"] = time.perf_counter() - t0
     print("[time] seconds by phase: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()),
@@ -4755,7 +5380,8 @@ def main() -> int:
                                      "w_down_", "with_dw_", "turns_", "split", "long_",
                                      "first_design", "step_", "tuner_", "traced_",
                                      "launch_floor", "design_floor", "staged_", "values_",
-                                     "eval_", "events_", "propose_", "baselines_"))
+                                     "eval_", "events_", "propose_", "baselines_", "dx_",
+                                     "dw_", "mla_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
@@ -4764,7 +5390,7 @@ def main() -> int:
         if r["name"] == "rmsnorm_fwd":
             out["launches_by_phase"] = {"serve": serve_k10, "moe": moe_k10,
                                         "train": train_launches["rmsnorm_fwd"],
-                                        "ssm": n_launches, "hybrid": hyb_k10}
+                                        "ssm": n_launches, "hybrid": hyb_k10, "mla": mla_k10}
         return out
 
     # "kernels": K1-K3 at the largest call of the tuner run, with the run's
@@ -4782,7 +5408,11 @@ def main() -> int:
     # its launches in the train phase's Trainer.run, the path that runs it;
     # K8 at the hybrid phase's first layer with its launches in that
     # prefill; K12b and K8b at the train_ssm and train_hybrid phases' first
-    # layers with their launches in that phase's Trainer.run; K7 at the hybrid engine's decode step (and at caches of 4 x
+    # layers with their launches in that phase's Trainer.run; K9b at the
+    # train_moe phase's first layer (its w_gate-shaped product, both
+    # products) with its launches in that phase's Trainer.run (K9's there
+    # and its numbers at deepseek-v3's E = 256 in the mla phase in K9's
+    # entry); K7 at the hybrid engine's decode step (and at caches of 4 x
     # 4096 keys) with its launches in the hybrid engine run (and per decode
     # step in each phase beside them);
     # K1 and K2 also with their launches in each baseline tuner's 24 h run

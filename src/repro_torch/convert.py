@@ -96,7 +96,9 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> 
 
     ``tree`` is the reference's parameter pytree as nested dicts with numpy
     arrays at the leaves (``jax.tree.map(np.asarray, params)``); bfloat16
-    leaves keep their bits. The result has the same keys and shapes.
+    leaves keep their bits. The result has the same keys and shapes. A
+    decode cache (every family's, MLA's latent ``c_kv`` and ``k_rope``
+    included) is carried the same way.
     """
     dev = resolve_device(device)
 

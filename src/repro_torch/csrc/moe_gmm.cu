@@ -18,18 +18,14 @@
 //
 // bfloat16 where TMA can describe both operands (D and F multiples of 8,
 // x and w 16-byte aligned): wgmma and TMA, built from hopper.cuh.
-// - gmm_prefill_hopper (C > 64): persistent, one block an SM walking 128 x
+// - gmm_prefill_hopper (C > 64): gmm_tiles.cuh's persistent pipeline, which
+//   K9b's backward shares, in its FWD mode: one block an SM walking 128 x
 //   256 output tiles, row tiles fastest, so the blocks at work at one time
-//   share a few column blocks of w and one expert's x. A producer warpgroup
-//   (one thread, setmaxnreg down to 40) keeps four stages of 64-deep K in
-//   flight: x's 128 x 64 tile (K-major A) and w's 64 x 256 tile as it lies
-//   (MN-major B, four 64-column atoms, LBO one atom), each from a 3-D
-//   tensor map (D, C, E) or (F, D, E) that zero-fills past C, D and F
-//   inside each expert, so the ragged edges need no masking loads. Two
-//   consumer warpgroups (setmaxnreg up to 232) take 64 rows each with
-//   wgmma m64n256k16, keep one product group in flight and free its stage
-//   when the next is issued; the producer runs on into the next tile while
-//   they store this one.
+//   share a few column blocks of w and one expert's x; a producer warpgroup
+//   keeping four 64-deep stages in flight, x's 128 x 64 tile (K-major A)
+//   and w's 64 x 256 tile as it lies (MN-major B), each from a 3-D tensor
+//   map (D, C, E) or (F, D, E) that zero-fills past C, D and F inside each
+//   expert; two consumer warpgroups on wgmma m64n256k16.
 // - gmm_decode_hopper (C <= 64): the operands swapped, out^T = w^T . x^T,
 //   so F fills wgmma's 64 rows and the C <= 64 token rows are its N (16, 32
 //   or 64): no tile is mostly empty rows. A block takes 128 columns of w
@@ -59,16 +55,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "gmm_tiles.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // threads per block, both kernels
-
-__device__ __forceinline__ int valid_rows(const int* gs, int e, int C) {
-  if (gs == nullptr) return C;
-  return max(0, min(gs[e], C));
-}
 
 // ---------------------------------------------------------------- bfloat16
 
@@ -297,140 +288,16 @@ __global__ void __launch_bounds__(NT) gmm_f32_kernel(
   }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 // ------------------------------------------- bfloat16: wgmma, TMA, mbarrier
 
 namespace hop {
 
-using namespace hopper;
-
-constexpr int NTH = 384;         // producer warpgroup + two consumer warpgroups
-constexpr int BK = 64;           // K (D) a stage: one 128-byte swizzle atom of bf16
-constexpr int ATOM = 64 * 128;   // 64 K rows x 64 columns of w, swizzled
-constexpr int K16 = 16 * 128;    // a k16 step inside an MN-major atom
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// ---- prefill: 128 x 256 tiles, persistent
-
-constexpr int PM = 128, PN = 256, PSTAGES = 4;
-constexpr int PA_BYTES = PM * 128;          // x: 128 rows x 64 K
-constexpr int PB_BYTES = (PN / 64) * ATOM;  // w: 64 K rows x 256 columns
-constexpr int PSTAGE = PA_BYTES + PB_BYTES;
-constexpr int PSMEM = 1024 + PSTAGES * PSTAGE + 8 * 2 * PSTAGES;
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 <= 65536
+// ---- prefill: gmm_tiles.cuh's persistent 128 x 256 tiles, x . w
 
 __global__ void __launch_bounds__(NTH, 1) gmm_prefill_hopper(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
     const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int E, int C, int D, int F) {
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar = base + PSTAGES * PSTAGE;
-  auto sA = [&](int s) { return base + s * PSTAGE; };
-  auto sB = [&](int s) { return base + s * PSTAGE + PA_BYTES; };
-  auto full = [&](int s) { return bar + 8u * s; };
-  auto empty = [&](int s) { return bar + 8u * (PSTAGES + s); };
-
-  const int mt = (C + PM - 1) / PM, nt = (F + PN - 1) / PN;
-  const int tiles = mt * nt * E;
-  const int kb_n = (D + BK - 1) / BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < PSTAGES; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  // tile t: row tile fastest, then column tile, then expert; block b takes
-  // t = b, b + gridDim.x, ... (ops.persistent_tiles mirrors this order)
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    // ------------------------------------------------------- producer
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
-      tma_prefetch_map(&tx);
-      tma_prefetch_map(&tw);
-      int it = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m = t % mt, n = (t / mt) % nt, e = t / (mt * nt);
-        if (m * PM >= valid_rows(gs, e, C)) continue;
-        for (int kb = 0; kb < kb_n; ++kb, ++it) {
-          const int s = it % PSTAGES;
-          mbar_wait(empty(s), ((it / PSTAGES) & 1) ^ 1);
-          mbar_arrive_expect_tx(full(s), PSTAGE);
-          tma_load_3d(sA(s), &tx, full(s), kb * BK, m * PM, e);
-#pragma unroll
-          for (int a = 0; a < PN / 64; ++a)
-            tma_load_3d(sB(s) + a * ATOM, &tw, full(s), n * PN + 64 * a, kb * BK, e);
-        }
-      }
-    }
-    return;
-  }
-
-  // --------------------------------------------------------- consumers
-  setmaxnreg_inc<CONSUMER_REGS>();
-  const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
-  const int tq = threadIdx.x % 128, warp = tq / 32, lane = tq % 32;
-  float acc[PN / 2];
-  int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m = t % mt, n = (t / mt) % nt, e = t / (mt * nt);
-    const int nv = valid_rows(gs, e, C);
-    const int row0 = m * PM + 64 * cw, n0 = n * PN;
-    __nv_bfloat16* ob = out + (int64_t)e * C * F;
-    if (m * PM >= nv) {  // no valid row in this tile: zeros, nothing loaded
-      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-      for (int i = tq; i < 64 * (PN / 8); i += 128) {
-        const int r = row0 + i / (PN / 8), c = n0 + (i % (PN / 8)) * 8;
-        if (r < C && c < F) *reinterpret_cast<uint4*>(ob + (int64_t)r * F + c) = z;
-      }
-      continue;
-    }
-    for (int kb = 0; kb < kb_n; ++kb, ++it) {
-      const int s = it % PSTAGES;
-      mbar_wait(full(s), (it / PSTAGES) & 1);
-      fence_operands(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)
-        wgmma_ss_t<PN, 0, 1>(acc, desc_sw128(sA(s) + cw * 64 * 128 + ks * 32, 16, 1024),
-                             desc_sw128(sB(s) + ks * K16, ATOM, 1024), kb > 0 || ks > 0);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done: free it
-      fence_operands(acc);
-      if (kb > 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty((it - 1) % PSTAGES));
-      }
-    }
-    wgmma_wait<0>();
-    fence_operands(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty((it - 1) % PSTAGES));
-
-    // acc[4i + {0,1}]: row ra, columns 8i + 2 (lane % 4) + {0,1}; acc[4i +
-    // {2,3}]: row ra + 8; F is a multiple of 8, so a pair is whole or past F
-    const int ra = row0 + 16 * warp + lane / 4, rb = ra + 8;
-    const bool oka = ra < nv, okb = rb < nv;
-#pragma unroll
-    for (int i = 0; i < PN / 8; ++i) {
-      const int c = n0 + 8 * i + 2 * (lane % 4);
-      if (c >= F) continue;
-      if (ra < C)
-        store_pair(ob + (int64_t)ra * F + c, oka ? acc[4 * i] : 0.f, oka ? acc[4 * i + 1] : 0.f);
-      if (rb < C)
-        store_pair(ob + (int64_t)rb * F + c, okb ? acc[4 * i + 2] : 0.f,
-                   okb ? acc[4 * i + 3] : 0.f);
-    }
-  }
+  gmm_tiles<FWD>(tx, tw, gs, out, E, C, D, F);
 }
 
 // ---- decode: out^T = w^T . x^T, 128 columns of w a block
@@ -541,17 +408,11 @@ __global__ void __launch_bounds__(NTH, 2) gmm_decode_hopper(
   }
 }
 
-// TMA reads 16-byte-aligned rows: D and F multiples of 8, aligned bases
-bool tma_ok(const void* x, const void* w, int D, int F) {
-  return D > 0 && D % 8 == 0 && F % 8 == 0 && aligned16(x) && aligned16(w);
-}
-
 int launch_prefill(const void* x, const void* w, const void* gs, void* out, int E, int C, int D,
                    int F, int blocks, cudaStream_t stream) {
   if (!tma_ok(x, w, D, F) || blocks <= 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw;
-  int rc = encode_bf16_3d_sw128(&tx, x, D, C, E, PM);
-  if (rc == 0) rc = encode_bf16_3d_sw128(&tw, w, F, D, E, BK);
+  const int rc = encode_tiles<FWD>(&tx, &tw, x, w, E, C, D, F);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(gmm_prefill_hopper,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, PSMEM);

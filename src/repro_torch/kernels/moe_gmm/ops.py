@@ -7,9 +7,10 @@ stacked expert weights -> (E, C, F) in x's dtype, summed in float32, rows
 the card launch a CUDA kernel of ``csrc/moe_gmm.cu``; tensors on the CPU
 take the plain version in ``ref.py``. There is no other route: a CUDA
 tensor never reaches the plain version, and a build or launch failure
-raises. K9 has no backward yet (it comes with training of the MoE family,
-ROADMAP.md item 10(c)), so ``grouped_matmul`` refuses inputs that need a
-gradient on both devices rather than give them none.
+raises. Where x or w needs a gradient, ``grouped_matmul`` goes through
+``_GmmFunction``, whose backward is kernel K9b (``csrc/moe_gmm_bwd.cu``:
+dx = dy . w^T and dw = x^T . dy per expert, each launched only where its
+input needs it) on the card and ``ref.gmm_bwd_plain`` on the CPU.
 
 On the card :func:`gmm_route` picks one of four hand-written kernels by
 dtype, shape and alignment, and :func:`gmm_plan` its grid:
@@ -29,6 +30,15 @@ dtype, shape and alignment, and :func:`gmm_plan` its grid:
 The reference halves its Pallas blocks (128 rows, 128 columns, 512-deep
 slabs) until they divide C, F and D; the CUDA kernels mask or zero-fill
 their ragged edges instead, so any C, D and F are taken.
+
+K9b's routes, picked by :func:`gmm_bwd_route` and planned by
+:func:`gmm_bwd_plan` (both products take the same route):
+
+- ``wgmma`` (bfloat16, D and F multiples of 8, x, w and dy 16-byte
+  aligned): K9's persistent 128 x 256 design, every operand read as it
+  lies (dx: dy and w both K-major; dw: x and dy both MN-major);
+- ``cuda_core_bf16`` (bfloat16 otherwise) and ``cuda_core_f32`` (float32):
+  one strided fmaf kernel, 64 x 64 tiles, float32 sums.
 """
 
 from __future__ import annotations
@@ -40,10 +50,11 @@ import torch
 
 from ..counts import PLAIN_CALLS
 from ..launch import check, launch
-from .ref import gmm_plain
+from .ref import gmm_bwd_plain, gmm_plain
 
 __all__ = [
-    "ROUTES", "GmmPlan", "gmm_cuda", "gmm_plain", "gmm_plan", "gmm_route", "grouped_matmul",
+    "BWD_ROUTES", "ROUTES", "GmmPlan", "gmm_bwd_cuda", "gmm_bwd_plain", "gmm_bwd_plan",
+    "gmm_bwd_route", "gmm_cuda", "gmm_plain", "gmm_plan", "gmm_route", "grouped_matmul",
     "persistent_tiles", "route_of",
 ]
 
@@ -165,19 +176,82 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: Optional[torch.Tenso
     return out
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
-                   group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (E, C, D), w (E, D, F) -> (E, C, F): K9 on the card, the plain
-    version (counted) on the CPU. group_sizes may be any integer tensor; it
-    is moved to x's device as int32. K9 has no backward yet and its output
-    is a fresh tensor, so inputs that need a gradient are refused on both
-    devices rather than given none."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "moe_gmm: K9 has no backward yet (ROADMAP.md item 10(c), training the MoE "
-            "family); call it under torch.no_grad()")
-    if group_sizes is not None:
-        group_sizes = group_sizes.to(device=x.device, dtype=torch.int32).contiguous()
+# K9b: route -> (C entry point suffix, output tile (rows, columns)); the
+# tiles are the kernels' compile-time constants in csrc/moe_gmm_bwd.cu
+BWD_ROUTES = {
+    "wgmma": ("bf16_wgmma", (128, 256)),
+    "cuda_core_bf16": ("bf16_simt", (64, 64)),
+    "cuda_core_f32": ("f32", (64, 64)),
+}
+
+
+def gmm_bwd_route(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
+    """The K9b route of both backward products of an (E, C, D) x (E, D, F)
+    product in ``dtype``; ``aligned``: x, w and dy start on 16-byte
+    boundaries."""
+    if dtype == torch.float32:
+        return "cuda_core_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"moe_gmm_bwd: dtype {dtype} not supported (bfloat16, float32)")
+    if aligned and D > 0 and F > 0 and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    return "cuda_core_bf16"
+
+
+def gmm_bwd_plan(which: str, route: str, E: int, C: int, D: int, F: int,
+                 n_sms: int) -> GmmPlan:
+    """Tiles and grid of K9b's ``which`` product (``"dx"``: (E, C, D),
+    ``"dw"``: (E, D, F)) on ``route``; the C entry point refuses any other
+    grid."""
+    suffix, (bm, bn) = BWD_ROUTES[route]
+    M, N = (C, D) if which == "dx" else (D, F)
+    mt, nt = _cdiv(M, bm), _cdiv(N, bn)
+    tiles = mt * nt * E
+    symbol = f"moe_gmm_bwd_{which}_{suffix}"
+    if route == "wgmma":   # persistent: at most one block an SM
+        return GmmPlan(route, symbol, tiles, (max(1, min(tiles, n_sms)), 1, 1))
+    return GmmPlan(route, symbol, tiles, (mt, nt, E))
+
+
+def gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                 group_sizes: Optional[torch.Tensor] = None, need: Tuple[bool, bool] = (True, True),
+                 route: Optional[str] = None) -> tuple:
+    """Launch K9b on the card: (dx, dw) of ``grouped_matmul(x, w,
+    group_sizes)`` for the cotangent dy (E, C, F), each None unless ``need``
+    asks for it; by the route :func:`gmm_bwd_route` picks, or ``route``
+    (``wgmma`` raises on what TMA cannot describe)."""
+    E, C, D, F = _check(x, w, group_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm_bwd: the CUDA kernel needs tensors on the card, got {x.device}")
+    check("dy", dy, x.dtype, (E, C, F), x.device)
+    if (D + 63) // 64 > _MAX_GRID:
+        raise ValueError(f"moe_gmm_bwd: {D} columns past the grid's limits")
+    if route is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+        route = gmm_bwd_route(x.dtype, D, F, aligned)
+    elif route not in BWD_ROUTES:
+        raise ValueError(f"moe_gmm_bwd: unknown route {route!r} (one of {sorted(BWD_ROUTES)})")
+    want = "f32" if route == "cuda_core_f32" else "bf16"
+    if _DTYPES[x.dtype] != want:
+        raise TypeError(f"moe_gmm_bwd: route {route} takes {want}, got {x.dtype}")
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    outs = []
+    for which, shape, args in (("dx", (E, C, D), (dy, w)), ("dw", (E, D, F), (x, dy))):
+        if not need[len(outs)]:
+            outs.append(None)
+            continue
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        if 0 in (E, C, D, F):   # an empty sum or an empty output: nothing to launch
+            outs.append(out.zero_())
+            continue
+        plan = gmm_bwd_plan(which, route, E, C, D, F, n_sms)
+        launch("moe_gmm_bwd", plan.symbol, x.device, (*args, group_sizes, out),
+               (E, C, D, F, *plan.grid), route=f"{which}/{route}")
+        outs.append(out)
+    return tuple(outs)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, group_sizes: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cuda":
         return gmm_cuda(x, w, group_sizes)
     if x.device.type != "cpu":
@@ -185,3 +259,40 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, group_sizes)
     PLAIN_CALLS["moe_gmm"] += 1
     return gmm_plain(x, w, group_sizes)
+
+
+class _GmmFunction(torch.autograd.Function):
+    """K9 forward, K9b backward (their plain versions, counted, on the CPU);
+    the backward computes only the gradients ``needs_input_grad`` asks for."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _forward(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        need = tuple(ctx.needs_input_grad[:2])
+        dy = dy.to(x.dtype).contiguous()
+        if x.device.type == "cuda":
+            dx, dw = gmm_bwd_cuda(x, w, dy, group_sizes, need)
+        else:
+            check("dy", dy, x.dtype, (x.shape[0], x.shape[1], w.shape[-1]), x.device)
+            PLAIN_CALLS["moe_gmm_bwd"] += 1
+            dx, dw = gmm_bwd_plain(x, w, dy, group_sizes, need)
+        return dx, dw, None
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E, C, D), w (E, D, F) -> (E, C, F): K9 on the card, the plain
+    version (counted) on the CPU. group_sizes may be any integer tensor; it
+    is moved to x's device as int32. Where x or w needs a gradient the call
+    goes through ``_GmmFunction`` (backward K9b, or its plain version on the
+    CPU)."""
+    if group_sizes is not None:
+        group_sizes = group_sizes.to(device=x.device, dtype=torch.int32).contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GmmFunction.apply(x, w, group_sizes)
+    return _forward(x, w, group_sizes)

@@ -7,7 +7,8 @@ Runs on the CUDA card unless ``--device cpu`` is given. The model is
 ``reduced(get_arch(arch))``, as in the reference's launcher, unless
 ``--full`` asks for the architecture at its published width (llama3-8b:
 16 GB of bf16 weights, drawn on the card; rwkv6-7b: 16.1 GB; zamba2-2.7b:
-7.64 GB; mixtral-8x22b's 281 GB do not fit one card). Prints each request's
+7.64 GB; mixtral-8x22b's 281 GB and deepseek-v3-671b's do not fit one
+card). Prints each request's
 tokens, then the serving time on the host clock.
 """
 

@@ -1,9 +1,9 @@
 """The LM stack's model code, ported from the reference's ``models``
 package: the dense family (``dense`` and the ``vlm`` backbone), the SSM
-family (rwkv6-7b) and the hybrid family (zamba2-2.7b), for inference and
-training (``loss_fn``), and the MoE family without MLA (mixtral-8x22b), for
-inference. The enc-dec family, MLA and the training of the MoE family come
-later (``ROADMAP.md`` item 10(c))."""
+family (rwkv6-7b), the hybrid family (zamba2-2.7b) and the MoE family
+(mixtral-8x22b with GQA, deepseek-v3 with MLA and its multi-token
+prediction), for inference and training (``loss_fn``). The enc-dec family
+comes later (``ROADMAP.md`` item 10(c))."""
 
 from .runtime import Runtime
 from .params import ParamSpec, init_params, param_bytes

@@ -25,8 +25,18 @@ attend step has the same two routes: ``"flash"`` runs kernel K7 through
 the cache, where the reference's model computes the same function in jnp;
 any other value runs the reference's inline code, which rounds the
 probabilities to V's dtype before the P.V product.
-MLA (``mla_*``) comes with the MoE family and cross-attention (the
-reference's ``kv_x``) with the enc-dec family.
+
+MLA (``mla_*``, deepseek-v3) is the reference's: low-rank projections of q
+and of a 512-wide latent ``c_kv`` beside a shared 64-wide rotary key
+``k_rope``. Its prefill and training path materialises per-head K (192
+wide: 128 from the latent, 64 rotary) and V (128 wide) and always takes the
+plain blocked route ``flash_attention_xla``, as the reference's
+``mla_apply`` does whatever ``rt.attn_impl`` says (K4 takes head dims up to
+128). Its decode step caches only (c_kv, k_rope), absorbs ``w_uk`` into q
+and attends in the latent; it writes the cache in place as the GQA step
+does. Both norms of ``_mla_qkv`` take RMSNorm's default eps 1e-5, not
+``cfg.norm_eps``, as the reference's do. Cross-attention (the reference's
+``kv_x``) comes with the enc-dec family.
 """
 
 from __future__ import annotations
@@ -39,12 +49,13 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attn import ops as flash_ops
 from ..kernels.flash_decode import ops as decode_ops
 from ..kernels.flash_attn.ref import positional_mask
-from .blocks import apply_rope
+from .blocks import apply_rope, rmsnorm
 from .params import ParamSpec
 from .runtime import Runtime, torch_dtype
 
 __all__ = [
     "attention_specs", "attention_apply", "attention_decode_apply", "flash_attention_xla",
+    "mla_specs", "mla_apply", "mla_decode_apply",
 ]
 
 NEG_INF = -1e30
@@ -294,3 +305,97 @@ def attention_decode_apply(
     o = torch.einsum("bhgk,bkhd->bhgd", a, vc).reshape(B, 1, hq, hd)
     out = torch.einsum("bshe,hed->bsd", o, p["wo"])
     return out, {"k": kc, "v": vc, "pos": pos + 1}
+
+
+# ----------------------------------------------------------------------- MLA
+
+
+def mla_specs(cfg: ArchConfig, stacked: Optional[int] = None,
+              dtype: torch.dtype = torch.bfloat16) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    lead = (stacked,) if stacked else ()
+    lx = ("layers",) if stacked else ()
+    return {
+        "w_dq": ParamSpec(lead + (d, m.q_lora_rank), lx + ("embed", "rank"), dtype, "scaled"),
+        "q_norm": ParamSpec(lead + (m.q_lora_rank,), lx + ("rank",), dtype, "ones"),
+        "w_uq": ParamSpec(lead + (m.q_lora_rank, h, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                          lx + ("rank", "heads", "qk"), dtype, "scaled", fan_in_axis=-3),
+        "w_dkv": ParamSpec(lead + (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           lx + ("embed", "rank"), dtype, "scaled"),
+        "kv_norm": ParamSpec(lead + (m.kv_lora_rank,), lx + ("rank",), dtype, "ones"),
+        "w_uk": ParamSpec(lead + (m.kv_lora_rank, h, m.qk_nope_head_dim),
+                          lx + ("rank", "heads", "qk"), dtype, "scaled", fan_in_axis=-3),
+        "w_uv": ParamSpec(lead + (m.kv_lora_rank, h, m.v_head_dim),
+                          lx + ("rank", "heads", "qk"), dtype, "scaled", fan_in_axis=-3),
+        "wo": ParamSpec(lead + (h, m.v_head_dim, d), lx + ("heads", "qk", "embed"), dtype,
+                        "scaled", fan_in_axis=-2),
+    }
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,rkv), k_rope
+    (B,S,1,rope)); both norms at the default eps, as the reference's."""
+    m = cfg.mla
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm"])                         # (B,S,rq)
+    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"])                 # (B,S,H,nope+rope)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions)
+    ckv_full = x @ p["w_dkv"]                                        # (B,S,rkv+rope)
+    c_kv, k_rope = ckv_full[..., :m.kv_lora_rank], ckv_full[..., m.kv_lora_rank:]
+    c_kv = rmsnorm(c_kv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions)            # (B,S,1,rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+              positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Prefill/train MLA: per-head K/V materialised from the latent, the
+    plain blocked attention whatever ``rt.attn_impl`` says."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)                          # (B,S,H,192)
+    k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)], dim=-1)
+    qg = q.reshape(B, S, h, 1, q.shape[-1])                          # Hkv = H
+    o = flash_attention_xla(
+        qg, k, v, causal=causal, q_chunk=rt.attn_chunk, kv_chunk=rt.attn_chunk,
+        softmax_dtype=torch_dtype(rt.softmax_dtype),
+    ).reshape(B, S, h, m.v_head_dim)
+    return torch.einsum("bshe,hed->bsd", o, p["wo"])
+
+
+def mla_decode_apply(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, 1, D)
+    cache: Dict[str, torch.Tensor],      # {"c_kv": (B, S, rkv), "k_rope": (B, S, rope), "pos"}
+    cfg: ArchConfig,
+    rt: Runtime,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-matmul MLA decode: the new latent and rotary key written into
+    the cache in place, attention in the latent space, the softmax cast to
+    the cache's dtype before the context product."""
+    m = cfg.mla
+    B = x.shape[0]
+    pos = cache["pos"]
+    ckv, krope = cache["c_kv"], cache["k_rope"]
+    S = ckv.shape[1]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, pos[:, None])
+    slot = torch.clamp(pos, max=S - 1).long()
+    bidx = torch.arange(B, device=x.device)
+    ckv[bidx, slot] = c_kv_new[:, 0]
+    krope[bidx, slot] = k_rope_new[:, 0, 0]
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])       # (B,1,H,rkv)
+    s = torch.einsum("bhr,bkr->bhk", q_lat[:, 0], ckv)
+    s = s + torch.einsum("bhe,bke->bhk", q_rope[:, 0], krope)
+    s = s.float() / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    a = torch.softmax(s, dim=-1).to(ckv.dtype)
+    ctx = torch.einsum("bhk,bkr->bhr", a, ckv)                       # latent context
+    o = torch.einsum("bhr,rhe->bhe", ctx, p["w_uv"])                 # (B,H,v_dim)
+    out = torch.einsum("bhe,hed->bd", o, p["wo"])[:, None, :]
+    return out, {"c_kv": ckv, "k_rope": krope, "pos": pos + 1}

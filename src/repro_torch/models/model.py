@@ -1,7 +1,7 @@
 """Model assembly: param specs, forward, cache and decode for the dense
 family (``dense``, and the ``vlm`` backbone, which shares its code path),
-the MoE family without MLA (mixtral-8x22b: leading dense blocks, if any,
-then blocks whose FFN is ``moe_apply``), the SSM family (rwkv6-7b: a
+the MoE family (mixtral-8x22b with GQA, deepseek-v3 with MLA: leading
+dense blocks, if any, then blocks whose FFN is ``moe_apply``), the SSM family (rwkv6-7b: a
 time-mix block, ``rwkv6_apply``, and a channel-mix block, ``_rwkv_cmix``,
 each behind an RMSNorm) and the hybrid family (zamba2-2.7b: groups of
 ``attn_every`` Mamba2 blocks, ``mamba2_apply`` behind an RMSNorm, each
@@ -11,14 +11,16 @@ group reuses).
 Layer stacks are *stacked* (leading "layers" axis) as in the reference,
 which scans over them; the port runs a Python loop over layer slices, and
 autograd sums each slice's gradient into the stacked leaf. What is not
-ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: MLA
-(deepseek-v3), the enc-dec family, and training of the MoE family.
+ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: the
+enc-dec family.
 
 The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
-over the hidden states that ``forward(..., return_hidden=True)`` returns.
-Only ``Runtime.remat == "none"`` is taken (the value the reference's
-training launcher uses); DeepSeek's multi-token prediction comes with
-MLA.
+over the hidden states that ``forward(..., return_hidden=True)`` returns,
+plus, where the config has ``mtp_depth`` and the tree an ``mtp`` subtree
+(deepseek-v3), 0.3 times the reference's multi-token-prediction loss: one
+extra block on the token embeddings and the next token's, predicting the
+token after next. Only ``Runtime.remat == "none"`` is taken (the value the
+reference's training launcher uses).
 
 The decode path operates on a cache dict stacked over layers: K and V of
 shape (L, B, S, Hkv, hd) and ``pos`` (B,); for the SSM family the float32
@@ -26,10 +28,11 @@ WKV states ``wkv`` (L, B, H, K, K) and the two token-shift carries
 ``shift1``, ``shift2`` (L, B, 1, D); for the hybrid family the float32
 SSM states ``ssm`` (L, B, H, P, N), the conv carries ``conv`` (L, B, K - 1,
 d_inner + 2HN) and the shared block's K and V, ``attn_k``, ``attn_v`` (one
-per group, (G, B, S, Hkv, hd)). ``decode_step`` writes the new entries
-into those tensors in place and returns the same tensors with ``pos``
-advanced (the reference returns new arrays); do not reuse a cache after
-passing it on.
+per group, (G, B, S, Hkv, hd)); for MLA the latent ``c_kv`` (L, B, S,
+kv_lora_rank) and the rotary key ``k_rope`` (L, B, S, qk_rope_head_dim).
+``decode_step`` writes the new entries into those tensors in place and
+returns the same tensors with ``pos`` advanced (the reference returns new
+arrays); do not reuse a cache after passing it on.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from .attention import attention_apply, attention_decode_apply, attention_specs
+from .attention import (attention_apply, attention_decode_apply, attention_specs, mla_apply,
+                        mla_decode_apply, mla_specs)
 from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm, sigmoid
 from .mamba2 import mamba2_apply, mamba2_decode_apply, mamba2_specs
 from .moe import moe_apply, moe_specs
@@ -55,21 +59,17 @@ _DENSE = ("dense", "vlm")
 _TODO = {
     "encdec": "10(c) (the enc-dec family)",
 }
-_MLA = "10(c) (MLA and deepseek-v3)"
-# families that serve but do not train yet: what their training needs
-_UNTRAINED = {"moe": ("MoE", "K9")}
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     """Raise unless the inference path of ``cfg``'s family is ported."""
-    if cfg.family in _DENSE or cfg.family in ("ssm", "hybrid") or (
-            cfg.family == "moe" and cfg.mla is None):
+    if cfg.family in _DENSE or cfg.family in ("ssm", "hybrid", "moe"):
         return
-    item = _MLA if cfg.family == "moe" else _TODO.get(cfg.family)
+    item = _TODO.get(cfg.family)
     if item is None:
         raise ValueError(f"unknown family {cfg.family!r}")
-    what = "MLA attention" if cfg.family == "moe" else f"family {cfg.family!r}"
-    raise NotImplementedError(f"{cfg.name}: {what} is not ported yet (ROADMAP.md item {item})")
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md item {item})")
 
 
 def _ln(stacked: Optional[int], d: int, dtype: torch.dtype) -> ParamSpec:
@@ -95,6 +95,11 @@ def _stacks(params):
     return [(dense, 0), (params["blocks"], _depth(dense))]
 
 
+def _attn(cfg: ArchConfig):
+    """The prefill/train attention of ``cfg``: MLA or GQA."""
+    return mla_apply if cfg.mla is not None else attention_apply
+
+
 def _ffn(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
     if "moe" in p:
         return moe_apply(p["moe"], x, cfg, rt)
@@ -104,10 +109,15 @@ def _ffn(p, x: torch.Tensor, cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
 # =========================================================== param specs
 
 
+def _attn_specs(cfg: ArchConfig, stacked: Optional[int], dt: torch.dtype):
+    fn = mla_specs if cfg.mla is not None else attention_specs
+    return fn(cfg, stacked=stacked, dtype=dt)
+
+
 def _dense_blocks(cfg: ArchConfig, n: int, dt: torch.dtype) -> Dict[str, Any]:
     d = cfg.d_model
     return {
-        "attn": attention_specs(cfg, stacked=n, dtype=dt),
+        "attn": _attn_specs(cfg, n, dt),
         "ffn": ffn_specs(d, cfg.d_ff, cfg.act, stacked=n, dtype=dt),
         "ln1": _ln(n, d, dt),
         "ln2": _ln(n, d, dt),
@@ -157,11 +167,21 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
     if nd:
         specs["dense_blocks"] = _dense_blocks(cfg, nd, dt)
     specs["blocks"] = {
-        "attn": attention_specs(cfg, stacked=L - nd, dtype=dt),
+        "attn": _attn_specs(cfg, L - nd, dt),
         "moe": moe_specs(cfg, stacked=L - nd, dtype=dt),
         "ln1": _ln(L - nd, d, dt),
         "ln2": _ln(L - nd, d, dt),
     }
+    if cfg.mtp_depth:
+        specs["mtp"] = {
+            "proj": ParamSpec((2 * d, d), ("embed", "embed"), dt, "scaled"),
+            "attn": _attn_specs(cfg, None, dt),
+            "ffn": ffn_specs(d, cfg.moe.d_ff_expert, cfg.act, stacked=None, dtype=dt),
+            "ln1": _ln(None, d, dt),
+            "ln2": _ln(None, d, dt),
+            "ln_h": _ln(None, d, dt),
+            "ln_e": _ln(None, d, dt),
+        }
     return specs
 
 
@@ -205,8 +225,8 @@ def _stacked_forward(params, cfg: ArchConfig, rt: Runtime, x: torch.Tensor,
                 x = x + rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt)
                 x = x + _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], cfg.norm_eps))
                 continue
-            x = x + attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
-                                    positions, causal)
+            x = x + _attn(cfg)(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
+                               positions, causal)
             x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
     return x
 
@@ -335,27 +355,42 @@ def chunked_ce(x: torch.Tensor, out_w: torch.Tensor, labels: torch.Tensor,
     return tot / (B * S)
 
 
+def _mtp_loss(params, cfg: ArchConfig, rt: Runtime, tokens: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """DeepSeek's multi-token-prediction loss (depth 1), the reference's: the
+    normed token embeddings beside the next token's, projected, through one
+    attention + FFN block, predicting the token after next."""
+    m = params["mtp"]
+    h = params["embed"][tokens.long()].to(rt.cdtype)
+    e_next = params["embed"][torch.roll(tokens, -1, dims=1).long()].to(rt.cdtype)
+    hm = torch.cat([rmsnorm(h, m["ln_h"], cfg.norm_eps),
+                    rmsnorm(e_next, m["ln_e"], cfg.norm_eps)], dim=-1) @ m["proj"]
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=hm.device)[None].expand(B, S)
+    hm = hm + _attn(cfg)(m["attn"], rmsnorm(hm, m["ln1"], cfg.norm_eps), cfg, rt, pos, True)
+    hm = hm + ffn_apply(m["ffn"], rmsnorm(hm, m["ln2"], cfg.norm_eps), cfg.act)
+    return chunked_ce(hm, _head(params, cfg), torch.roll(labels, -1, dims=1))
+
+
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token CE of the ``dense``, ``vlm``, ``ssm`` and ``hybrid``
-    families (the SSM's and hybrid's scans differentiate through K12b and
-    K8b)."""
+    """Next-token CE of every ported family (the SSM's and hybrid's scans
+    differentiate through K12b and K8b, the MoE expert products through
+    K9b), plus 0.3 times the MTP loss where the config asks for it and the
+    tree has its ``mtp`` subtree (a config without one ignores
+    ``mtp_depth``, as the reference does)."""
     _require_ported(cfg)
-    if cfg.family in _UNTRAINED:
-        name, kernel = _UNTRAINED[cfg.family]
-        raise NotImplementedError(
-            f"{cfg.name}: training the {name} family is not ported yet (ROADMAP.md item "
-            f"10(c) (training the {name} family, with {kernel}'s backward, the next slice))")
     if rt.remat != "none":
         raise NotImplementedError(
             f"Runtime.remat={rt.remat!r} is not ported yet (ROADMAP.md item 11, with the "
             f"memory scheduling of the distribution work); use remat='none'")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is not ported yet (ROADMAP.md item {_MLA})")
-    x = forward(params, cfg, rt, tokens=batch.get("tokens"),
+    tokens, labels = batch.get("tokens"), batch["labels"]
+    x = forward(params, cfg, rt, tokens=tokens,
                 inputs_embeds=batch.get("inputs_embeds"), positions=batch.get("positions"),
                 return_hidden=True)
-    return chunked_ce(x, _head(params, cfg), batch["labels"])
+    loss = chunked_ce(x, _head(params, cfg), labels)
+    if cfg.mtp_depth and "mtp" in params and tokens is not None:
+        loss = loss + 0.3 * _mtp_loss(params, cfg, rt, tokens, labels)
+    return loss
 
 
 # ================================================================ decode
@@ -383,6 +418,15 @@ def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: 
             "pos": pos,
         }
     S = _cache_len(cfg, max_len)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "c_kv": torch.zeros((cfg.n_layers, batch, S, m.kv_lora_rank), dtype=rt.cdtype,
+                                device=dev),
+            "k_rope": torch.zeros((cfg.n_layers, batch, S, m.qk_rope_head_dim), dtype=rt.cdtype,
+                                  device=dev),
+            "pos": pos,
+        }
     if cfg.family == "hybrid":
         di, P, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.head_dim, cfg.ssm.d_state
         H = di // P
@@ -415,15 +459,18 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Ten
         return _ssm_decode_step(params, cfg, rt, cache, x)
     if cfg.family == "hybrid":
         return _hybrid_decode_step(params, cfg, rt, cache, x)
+    # the layers' cache entries (views, written in place) and their step
+    keys, attend = (("c_kv", "k_rope"), mla_decode_apply) if cfg.mla is not None else (
+        ("k", "v"), attention_decode_apply)
     for blocks, first in _stacks(params):
         for i in range(_depth(blocks)):
             p = _layer(blocks, i)
-            sub = {"k": cache["k"][first + i], "v": cache["v"][first + i], "pos": pos}
-            a, _ = attention_decode_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), sub,
-                                          cfg, rt)
+            sub = {k: cache[k][first + i] for k in keys}
+            sub["pos"] = pos
+            a, _ = attend(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), sub, cfg, rt)
             x = x + a
             x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
-    return _logits(params, cfg, x), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return _logits(params, cfg, x), {**{k: cache[k] for k in keys}, "pos": pos + 1}
 
 
 def _ssm_decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],

@@ -37,7 +37,7 @@ from .blocks import silu
 from .params import ParamSpec
 from .runtime import Runtime
 
-__all__ = ["moe_apply", "moe_route", "moe_specs"]
+__all__ = ["capacity_slots", "gates_at", "moe_apply", "moe_route", "moe_specs", "router_probs"]
 
 
 def moe_specs(cfg: ArchConfig, stacked: Optional[int] = None,
@@ -67,31 +67,43 @@ def moe_specs(cfg: ArchConfig, stacked: Optional[int] = None,
     return specs
 
 
+def router_probs(router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The router's float32 probabilities (B, S, E) for x (B, S, D)."""
+    return torch.softmax(torch.einsum("bsd,de->bse", x.float(), router.float()), dim=-1)
+
+
+def gates_at(probs: torch.Tensor, expert_idx: torch.Tensor) -> torch.Tensor:
+    """The gates (B, S, K) of the chosen experts: ``probs`` at ``expert_idx``,
+    renormalised to sum to 1."""
+    gates = probs.gather(-1, expert_idx)
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def capacity_slots(expert_idx: torch.Tensor, n_experts: int, Cr: int) -> torch.Tensor:
+    """Per batch row, the capacity slot (B, S*K) of each (token, choice): its
+    position among the row's earlier assignments to the same expert, or
+    ``Cr`` (dropped) from the capacity on."""
+    B = expert_idx.shape[0]
+    row_expert = expert_idx.reshape(B, -1)
+    onehot = F.one_hot(row_expert, n_experts)
+    prior = torch.cumsum(onehot, dim=1) - onehot
+    pos_in_expert = prior.gather(2, row_expert[..., None])[..., 0]
+    return torch.where(pos_in_expert < Cr, pos_in_expert, Cr)
+
+
 def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig, rt: Runtime
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Routing of x (B, S, D): (gate_vals (B, S, K) float32, expert_idx
     (B, S, K) int64, slot (B, S*K) int64 with ``Cr`` for a dropped
     assignment, Cr the per-row capacity)."""
     e = cfg.moe
-    B, S, _ = x.shape
-    logits = torch.einsum("bsd,de->bse", x.float(), router.float())
-    probs = torch.softmax(logits, dim=-1)
+    S = x.shape[1]
+    probs = router_probs(router, x)
     # top-k with ties to the lower index, as jax.lax.top_k
-    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_idx = gate_vals[..., :e.top_k], expert_idx[..., :e.top_k]
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-
+    expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :e.top_k]
     cf = rt.capacity_factor if rt.capacity_factor is not None else e.capacity_factor
     Cr = max(int(S * e.top_k * cf / e.n_experts), 4)
-
-    # per-row capacity assignment: the position of each (token, choice)
-    # among the row's earlier assignments to the same expert
-    row_expert = expert_idx.reshape(B, S * e.top_k)
-    onehot = F.one_hot(row_expert, e.n_experts)
-    prior = torch.cumsum(onehot, dim=1) - onehot
-    pos_in_expert = prior.gather(2, row_expert[..., None])[..., 0]
-    slot = torch.where(pos_in_expert < Cr, pos_in_expert, Cr)
-    return gate_vals, expert_idx, slot, Cr
+    return gates_at(probs, expert_idx), expert_idx, capacity_slots(expert_idx, e.n_experts, Cr), Cr
 
 
 def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,

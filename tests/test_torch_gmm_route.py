@@ -114,13 +114,29 @@ def _constexpr(source: str, name: str) -> int:
 def test_gmm_host_tiles_are_the_kernels():
     """The tiles the host plans with are the kernels' constants."""
     src = "moe_gmm.cu"
-    assert ops.ROUTES["wgmma"][1] == (_constexpr(src, "PM"), _constexpr(src, "PN"))
+    assert ops.ROUTES["wgmma"][1] == (_constexpr("gmm_tiles.cuh", "PM"),
+                                      _constexpr("gmm_tiles.cuh", "PN"))
     assert ops.ROUTES["wgmma_decode"][1][1] == _constexpr(src, "SF")
     assert ops.ROUTES["mma_sync"][1] == (_constexpr(src, "HM"), _constexpr(src, "HN"))
     assert ops.ROUTES["cuda_core_f32"][1] == (_constexpr(src, "FM"), _constexpr(src, "FN"))
     text = (CSRC / src).read_text()
     for symbol, _ in ops.ROUTES.values():
         assert f'extern "C" int {symbol}(' in text
+
+
+def test_gmm_bwd_host_tiles_are_the_kernels():
+    """K9b's wgmma route plans with the pipeline it shares with K9's prefill,
+    its CUDA-core routes with its own tiles; every entry point exists."""
+    src = "moe_gmm_bwd.cu"
+    assert ops.BWD_ROUTES["wgmma"][1] == ops.ROUTES["wgmma"][1]
+    for route in ("cuda_core_bf16", "cuda_core_f32"):
+        assert ops.BWD_ROUTES[route][1] == (_constexpr(src, "FM"), _constexpr(src, "FN"))
+    text = (CSRC / src).read_text()
+    assert '#include "gmm_tiles.cuh"' in text and "gmm_tiles<" in text
+    assert "gmm_tiles<FWD>" in (CSRC / "moe_gmm.cu").read_text()
+    for which in ("dx", "dw"):
+        for suffix, _ in ops.BWD_ROUTES.values():
+            assert f'extern "C" int moe_gmm_bwd_{which}_{suffix}(' in text
 
 
 def test_gmm_cuda_refuses_cpu_tensors():

@@ -977,23 +977,114 @@ def test_gmm_group_sizes_past_the_ends(cuda):
 
 
 def test_gmm_refuses_inputs_that_need_a_gradient_on_the_card(cuda):
-    """K9 writes a fresh tensor and has no backward: ``grouped_matmul``
-    refuses an input that needs a gradient rather than drop it, and takes
-    it under ``torch.no_grad()``."""
+    """K9 had no backward, so an input that needed a gradient was refused;
+    now ``grouped_matmul`` takes it through K9 and gives the gradient
+    through K9b (dx only: w needs none), and under ``torch.no_grad()``
+    launches K9 alone."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.moe_gmm import ops
 
     x = torch.ones((2, 32, 64), device=cuda, dtype=torch.bfloat16, requires_grad=True)
     w = torch.ones((2, 64, 48), device=cuda, dtype=torch.bfloat16)
     counts.reset()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\)"):
-        ops.grouped_matmul(x, w)
-    assert counts.LAUNCHES["moe_gmm"] == 0
+    out = ops.grouped_matmul(x, w)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["moe_gmm"] == 1 and counts.LAUNCHES["moe_gmm_bwd"] == 1
+    assert counts.ROUTE_LAUNCHES.get("moe_gmm_bwd/dx/wgmma") == 1
+    assert sum(counts.PLAIN_CALLS.values()) == 0
+    assert bool((out.float() == 64).all()) and bool((x.grad.float() == 48).all())
+    counts.reset()
     with torch.no_grad():
         out = ops.grouped_matmul(x, w)
     torch.cuda.synchronize()
-    assert counts.LAUNCHES["moe_gmm"] == 1 and not out.requires_grad
-    assert bool((out.float() == 64).all())
+    assert counts.LAUNCHES["moe_gmm"] == 1 and counts.LAUNCHES["moe_gmm_bwd"] == 0
+    assert not out.requires_grad
+
+
+# K9b's routes (ops.gmm_bwd_route) at small, ragged and masked shapes: each
+# case on the route it must take, and on the CUDA-core route too
+GMM_BWD_CASES = [
+    ((2, 32, 48, 24), "wgmma"), ((3, 130, 96, 200), "wgmma"), ((2, 300, 520, 264), "wgmma"),
+    ((2, 10, 64, 136), "wgmma"), ((2, 77, 50, 30), "cuda_core_bf16"),
+    ((3, 140, 60, 72), "cuda_core_bf16"),
+]
+
+
+@pytest.mark.parametrize("shape,route", GMM_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes", ["none", "partial", "edges"])
+def test_gmm_bwd_matches_plain(cuda, shape, route, dtype, sizes):
+    """dx and dw against ``gmm_bwd_plain`` on the route ``gmm_bwd_route``
+    picks (and in bf16 on the CUDA-core route too), with NaN in x and dy
+    past every group size, which must reach neither; launches by route."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops
+
+    E, C, D, F = shape
+    x, w = _gmm_inputs(E, C, D, F, dtype, cuda, seed=3)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    dy = torch.randn((E, C, F), generator=g).to(device=cuda, dtype=dtype)
+    gs = {"none": None, "partial": [C] + [C // 2] * (E - 1),
+          "edges": [0] + [C + 5] + [min(C, 129)] * (E - 2)}[sizes]
+    xn, dyn = x.clone(), dy.clone()
+    if gs is not None:
+        for e, n in enumerate(gs):
+            xn[e, n:], dyn[e, n:] = float("nan"), float("nan")
+        gs = torch.tensor(gs, dtype=torch.int32, device=cuda)
+    want = ops.gmm_bwd_plain(x, w, dy, gs)
+    taken = "cuda_core_f32" if dtype == torch.float32 else route
+    for forced in (None, "cuda_core_bf16") if dtype == torch.bfloat16 else (None,):
+        counts.reset()
+        got = ops.gmm_bwd_cuda(xn, w, dyn, gs, route=forced)
+        torch.cuda.synchronize()
+        r = forced or taken
+        assert counts.ROUTE_LAUNCHES == {f"moe_gmm_bwd/dx/{r}": 1, f"moe_gmm_bwd/dw/{r}": 1}
+        for a, b in zip(got, want):
+            assert bool(torch.isfinite(a).all())
+            _gmm_close(a, b)
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)])
+def test_gmm_autograd_launches_what_is_needed(cuda, need):
+    """``_GmmFunction`` on the card: K9 forward, K9b backward for the inputs
+    that need a gradient alone, the plain backward's values, no plain call."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(3, 140, 64, 72, torch.bfloat16, cuda, seed=5)
+    gs = torch.tensor([140, 0, 77], dtype=torch.int32, device=cuda)
+    dy = torch.randn((3, 140, 72), device=cuda).to(torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(need[0]), w.clone().requires_grad_(need[1])
+    counts.reset()
+    ops.grouped_matmul(xg, wg, gs).backward(dy)
+    torch.cuda.synchronize()
+    routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("moe_gmm_bwd")}
+    assert routes == {f"moe_gmm_bwd/{n}/wgmma": 1 for n, on in zip(("dx", "dw"), need) if on}
+    assert sum(counts.PLAIN_CALLS.values()) == 0
+    dx, dw = ops.gmm_bwd_plain(x, w, dy, gs)
+    for t, want, on in ((xg, dx, need[0]), (wg, dw, need[1])):
+        if on:
+            _gmm_close(t.grad, want)
+        else:
+            assert t.grad is None
+
+
+def test_gmm_bwd_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.moe_gmm import ops
+
+    x, w = _gmm_inputs(2, 8, 16, 8, torch.bfloat16, cuda)
+    dy = torch.zeros((2, 8, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shape"):
+        ops.gmm_bwd_cuda(x, w, dy[:, :4].contiguous())
+    with pytest.raises(TypeError, match="takes f32"):
+        ops.gmm_bwd_cuda(x, w, dy, route="cuda_core_f32")
+    with pytest.raises(ValueError, match="unknown route"):
+        ops.gmm_bwd_cuda(x, w, dy, route="mma_sync")
+    with pytest.raises(RuntimeError, match="CUDA error"):   # TMA cannot take F = 6
+        xo, wo = _gmm_inputs(2, 8, 16, 6, torch.bfloat16, cuda)
+        ops.gmm_bwd_cuda(xo, wo, torch.zeros((2, 8, 6), device=cuda, dtype=torch.bfloat16),
+                         route="wgmma")
 
 
 def test_gmm_refuses_what_it_does_not_take(cuda):

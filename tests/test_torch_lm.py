@@ -174,6 +174,28 @@ def test_other_families_are_refused_with_their_roadmap_item(family_arch):
         assert bool(torch.isfinite(loss))
         assert all(bool(torch.isfinite(g).all()) for g in grads)
         return
+    if cfg.mla is not None:
+        # deepseek-v3's MLA and its MTP loss serve and train: a gradient
+        # flows into every leaf, the mtp subtree's included, through K9b
+        # (plain here); tests/test_torch_mla.py holds it to the reference
+        from repro_torch.models import loss_fn as p_loss_fn
+        from repro_torch.models.params import tree_leaves
+
+        params = p_init_params(p_specs(cfg, PRuntime()), torch.Generator().manual_seed(0), CPU)
+        batch = {"tokens": torch.arange(2, 10, dtype=torch.int32)[None],
+                 "labels": torch.arange(3, 11, dtype=torch.int32)[None]}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        counts.reset()
+        loss = p_loss_fn(params, cfg, PRuntime(), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+        assert counts.PLAIN_CALLS["moe_gmm_bwd"] == 3 * n_moe
+        assert "mtp" in params and bool(torch.isfinite(loss))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        assert set(p_init_cache(cfg, PRuntime(), 1, 8, device="cpu")) == {"c_kv", "k_rope", "pos"}
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
         p_specs(cfg, PRuntime())
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):

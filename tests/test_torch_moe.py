@@ -55,7 +55,8 @@ from repro_torch.models import loss_fn as p_loss_fn
 from repro_torch.models import param_bytes as p_param_bytes
 from repro_torch.models.moe import moe_apply as p_moe_apply
 from repro_torch.models.moe import moe_route as p_moe_route
-from repro_torch.models.params import tree_leaves
+from repro_torch.models import init_params as p_init_params
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.serving import Request as PRequest
 from repro_torch.serving import ServingEngine as PEngine
 
@@ -361,27 +362,41 @@ def test_serve_launcher_runs_mixtral_on_the_cpu(capsys):
     assert out.count("generated 3 tokens") == 2 and "mixtral-8x22b (reduced)" in out
 
 
-# -------------------------------------------------------- what stays closed
+# ------------------------------------------- what this slice opened (MLA, training)
 
 
 def test_mla_is_refused_with_its_roadmap_item():
+    """MLA was refused until deepseek-v3 was ported: its specs, cache,
+    forward and decode now run at the reduced model (held against the
+    reference in ``tests/test_torch_mla.py``)."""
     cfg = PC.reduced(PC.get_arch("deepseek-v3-671b"))
-    rt = PRuntime()
-    with pytest.raises(NotImplementedError, match=r"MLA.*ROADMAP.md item 10\(c\)"):
-        p_specs(cfg, rt)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\) \(MLA"):
-        p_init_cache(cfg, rt, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\) \(MLA"):
-        p_forward({}, cfg, rt, tokens=torch.zeros((1, 4), dtype=torch.int32))
+    rt = PRuntime(param_dtype="float32", compute_dtype="float32", attn_chunk=16)
+    params = p_init_params(p_specs(cfg, rt), torch.Generator().manual_seed(0), CPU)
+    assert "mtp" in params and "w_uk" in params["blocks"]["attn"]
+    cache = p_init_cache(cfg, rt, 1, 8, device="cpu")
+    assert set(cache) == {"c_kv", "k_rope", "pos"}
+    tokens = torch.arange(2, 6, dtype=torch.int32)[None]
+    logits = p_forward(params, cfg, rt, tokens=tokens)
+    step, cache = p_decode(params, cfg, rt, cache, tokens[:, :1])
+    assert logits.shape == (1, 4, cfg.vocab) and step.shape == (1, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()) and int(cache["pos"][0]) == 1
 
 
 def test_moe_training_is_refused_with_its_roadmap_item():
+    """Training the MoE family was refused until K9 had a backward: the loss
+    now trains every leaf through K9b's plain version (held against the
+    reference in ``tests/test_torch_train_moe.py``)."""
     (_, pcfg), _, pp = _model("float32")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError,
-                       match=r"training the MoE family.*ROADMAP.md item 10\(c\)"):
-        p_loss_fn(pp, pcfg, PRuntime(), batch)
+    batch = {"tokens": torch.arange(2, 10, dtype=torch.int32)[None],
+             "labels": torch.arange(3, 11, dtype=torch.int32)[None]}
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), pp)
+    leaves = tree_leaves(params)
+    counts.reset()
+    loss = p_loss_fn(params, pcfg, _runtimes("float32")[1], batch)
+    grads = torch.autograd.grad(loss, leaves)
+    assert counts.PLAIN_CALLS["moe_gmm_bwd"] == 3 * pcfg.n_layers
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    assert all(bool(g.abs().max() > 0) for g in grads)
 
 
 def test_gmm_checks_its_arguments_on_both_routes():
@@ -397,13 +412,21 @@ def test_gmm_checks_its_arguments_on_both_routes():
 
 
 def test_gmm_refuses_inputs_that_need_a_gradient():
-    """K9 has no backward and its card route writes a fresh tensor, so an
-    input that needs a gradient is refused on the CPU as on the card, and
-    taken under ``torch.no_grad()``."""
+    """K9 had no backward, so inputs that needed a gradient were refused; now
+    ``grouped_matmul`` gives them one through K9b's plain version on the
+    CPU, and under ``torch.no_grad()`` returns a tensor without a graph."""
     x, w = torch.ones((2, 4, 8)), torch.ones((2, 8, 3))
-    for xg, wg in ((x.requires_grad_(True), w), (x.detach(), w.requires_grad_(True))):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\)"):
-            gmm_ops.grouped_matmul(xg, wg)
+    for xg, wg in ((x.clone().requires_grad_(True), w), (x, w.clone().requires_grad_(True))):
+        counts.reset()
+        out = gmm_ops.grouped_matmul(xg, wg, torch.tensor([4, 2]))
+        out.sum().backward()
+        assert counts.PLAIN_CALLS["moe_gmm_bwd"] == 1
+        if xg.requires_grad:
+            assert torch.equal(xg.grad[0], torch.full((4, 8), 3.0))
+            assert torch.equal(xg.grad[1, :2], torch.full((2, 8), 3.0))
+            assert not xg.grad[1, 2:].any() and wg.grad is None
+        else:
+            assert torch.equal(wg.grad[0], torch.full((8, 3), 4.0))
+            assert torch.equal(wg.grad[1], torch.full((8, 3), 2.0))
         with torch.no_grad():
-            out = gmm_ops.grouped_matmul(xg, wg)
-        assert out.shape == (2, 4, 3) and not out.requires_grad
+            assert not gmm_ops.grouped_matmul(xg, wg).requires_grad

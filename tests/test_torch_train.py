@@ -338,8 +338,13 @@ def test_loss_fn_refuses_what_is_not_ported():
              "labels": torch.zeros((1, 8), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
         p_loss_fn(params, cfg, PRuntime(remat="full"), batch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 10\(c\)"):
-        p_loss_fn(params, dataclasses.replace(cfg, mtp_depth=1), PRuntime(), batch)
+    # a config without an mtp subtree ignores mtp_depth, as the reference does
+    jcfg = dataclasses.replace(_cfgs()[0], mtp_depth=1)
+    jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    want = float(j_loss_fn(_ref_params("float32"), jcfg, _runtimes("float32")[0], jb))
+    got = float(p_loss_fn(params, dataclasses.replace(cfg, mtp_depth=1), _runtimes("float32")[1],
+                          batch))
+    assert abs(got - want) <= F32 * want
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
         make_train_step(cfg, PRuntime(grad_compression="int8"))
 
