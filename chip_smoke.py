@@ -11,7 +11,7 @@ Phases, in order:
    staged kernel, the fused propose step's Q1 and Q2, the
    wgmma routes of K4, K5 and K6 (at every head dim) and
    of K9 (its prefill kernel and its decode kernel at N = 16, 32 and 64) and
-   of K9b (dx and dw),
+   of K9b (dx and dw on its wgmma_overlap and wgmma routes),
    K11's cluster kernel (every dtype pair), K10's resident kernel (every
    dtype pair and row width) and K7's ring kernel (every dtype, lane count
    and row block) must build with no spill and no serialized wgmma;
@@ -241,8 +241,9 @@ Phases, in order:
     sequence with its depth cut from 56 to 1 layer (the reckoning that sets
     the cut is printed), bf16 weights from seed 0, ``attn_impl="flash"``.
     ``Trainer.run(3)`` on 2 x 4096 tokens, counts reset just before it and
-    read just after: 3 K9 and 6 K9b launches a layer a step, all on their
-    wgmma routes, K4-K6 once a layer a step, K10 and K11 at every norm, no
+    read just after: 3 K9 and 6 K9b launches a layer a step, K9's on its
+    wgmma route and K9b's on wgmma_overlap, K4-K6 once a layer a step, K10
+    and K11 at every norm, no
     plain call; the first loss within 1 of ln(32768); three steps on one
     repeated batch, the loss falling; a profiled step; the kernels' route
     against the plain route (K9, K9b, K10, K11 plain, ``xla``) on one
@@ -250,9 +251,12 @@ Phases, in order:
     expert choices and slots replayed, losses within 1e-2 and every
     gradient leaf within 5e-2 relative in L2; K9b on the first layer's
     w_gate-shaped and w_down inputs against its plain version in bf16 (one
-    bf16 step) and upcast to float32 (2e-5), each product timed by CUDA
-    events beside its bound and ``torch.bmm`` on transposed views; then at
-    small and ragged shapes with group sizes (NaN past each) on both routes;
+    bf16 step; on wgmma_overlap and on the register-epilogue wgmma route)
+    and upcast to float32 (2e-5), each product at both shapes timed by CUDA
+    events on both
+    wgmma routes in turns beside its bound and ``torch.bmm`` on transposed
+    views; then at small and ragged shapes with group sizes (NaN past each)
+    on every route;
 14. ``mla``: deepseek-v3-671b at full width with its depth cut from 61 to
     its 3 dense layers and 1 MoE layer (the bf16 weights by part are
     printed), weights from seed 0: a 2 x 4096 prefill (3 K9 launches at E =
@@ -316,8 +320,8 @@ HOPPER_KERNELS = {
     "flash_attn_bwd": {"flash_dq_hopper": ("16", "32", "64", "80", "128"),
                        "flash_dkv_hopper": ("16", "32", "64", "80", "128")},
     "moe_gmm": {"gmm_prefill_hopper": ("",), "gmm_decode_hopper": ("16", "32", "64")},
-    # K9b's wgmma route: dx (0) and dw (1)
-    "moe_gmm_bwd": {"gmm_bwd_hopper": ("0", "1")},
+    # K9b's wgmma_overlap route and its register-epilogue wgmma route: dx (0) and dw (1)
+    "moe_gmm_bwd": {"gmm_bwd_overlap": ("0", "1"), "gmm_bwd_hopper": ("0", "1")},
     # K10's resident rows: 16-byte vectors a lane by width, at most 16 in
     # float32; K11's cluster route
     "rmsnorm": {"rmsnorm_bwd_cluster": _TYPE_PAIRS,
@@ -4686,9 +4690,14 @@ K9B_SOURCE = ("src/repro_torch/csrc/moe_gmm_bwd.cu",
 # the plain route of the train_moe comparison: K9, K9b, K10 and K11 plain
 MOE_TRAIN_PLAIN = (("moe_gmm", "gmm"), ("moe_gmm", "gmm_bwd"), ("rmsnorm", "rmsnorm_fwd"),
                    ("rmsnorm", "rmsnorm_bwd"))
-# (E, C, D, F) of check_gmm_bwd_small: each K9b route, small and ragged
+# (E, C, D, F) of check_gmm_bwd_small: each K9b route, small and ragged; odd
+# row-tile counts (C = 320: dx 3; D = 328: dw 3), edges that are not whole
+# tiles, and more tiles than SMs (dw 180, dx 200), so that a block reuses its
+# epilogue buffer
 GMM_BWD_SMALL = [
-    ((2, 32, 48, 24), "wgmma"), ((3, 130, 96, 200), "wgmma"), ((2, 300, 520, 264), "wgmma"),
+    ((2, 32, 48, 24), "wgmma_overlap"), ((3, 130, 96, 200), "wgmma_overlap"),
+    ((2, 300, 520, 264), "wgmma_overlap"), ((3, 320, 328, 72), "wgmma_overlap"),
+    ((4, 520, 1040, 1032), "wgmma_overlap"), ((8, 600, 1032, 256), "wgmma_overlap"),
     ((2, 77, 50, 30), "cuda_core_bf16"), ((3, 140, 60, 72), "cuda_core_bf16"),
 ]
 
@@ -4704,37 +4713,61 @@ def gmm_bwd_bounds(x, w, dy) -> dict:
             "dw": (*bound(nbytes(x, dy) + E * D * F * size, flop, BF16_OPS_PER_S), flop)}
 
 
+def gmm_bwd_turns(x, w, dy, gs, prefix: str) -> dict:
+    """K9b's dx and dw of (x, w, dy) timed (CUDA events) on the route
+    ``gmm_bwd_route`` picks and on the first design's ``wgmma`` route in turns (wgmma,
+    picked, picked, wgmma), beside ``torch.bmm`` on transposed views and the
+    bound; keys ``<prefix><product>_ms``, ``..._prior_ms`` (wgmma),
+    ``..._turns``, ``..._library_ms``, ``..._bound_ms``."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import ops
+
+    b = gmm_bwd_bounds(x, w, dy)
+    out = {}
+    for which, need, lib in (("dx", (True, False), lambda: torch.bmm(dy, w.transpose(1, 2))),
+                             ("dw", (False, True), lambda: torch.bmm(x.transpose(1, 2), dy))):
+        prior, new, turns = in_turns(
+            lambda: ops.gmm_bwd_cuda(x, w, dy, gs, need, route="wgmma"),
+            lambda: ops.gmm_bwd_cuda(x, w, dy, gs, need), 5)
+        out.update({f"{prefix}{which}_ms": new, f"{prefix}{which}_prior_ms": prior,
+                    f"{prefix}{which}_turns": turns,
+                    f"{prefix}{which}_library_ms": cuda_time_ms(lib, 5),
+                    f"{prefix}{which}_bound_ms": b[which][0]})
+    return out
+
+
 def hold_gmm_bwd(kept, launches: int, by_route: dict) -> dict:
     """K9b on the first layer's w_gate-shaped (the w_up and w_gate products'
     shape) and w_down inputs from ``Trainer.run``'s first step against
-    ``gmm_bwd_plain``, in bf16 and upcast to float32; each product timed
-    (CUDA events) beside its bound, the plain version and ``torch.bmm`` on
-    transposed views."""
+    ``gmm_bwd_plain``, in bf16 and upcast to float32 on the route
+    ``gmm_bwd_route`` picks, and in bf16 on the first design's ``wgmma`` route; each
+    product at both shapes timed on both routes in turns
+    (:func:`gmm_bwd_turns`) beside its bound, and the pair beside the plain
+    version and ``torch.bmm`` on transposed views."""
     import torch
 
     from repro_torch.kernels.moe_gmm import ops
 
     match, err = True, 0.0
     for label, (x, w, dy, gs, _) in (("w_gate", kept[2][0]), ("w_down", kept[0][0])):
-        for kind, args in (("bf16", (x, w, dy, gs)),
-                           ("upcast to float32", (x.float(), w.float(), dy.float(), gs))):
-            got, want = ops.gmm_bwd_cuda(*args), ops.gmm_bwd_plain(*args)
+        for kind, args, route in (
+                ("bf16", (x, w, dy, gs), None),
+                ("upcast to float32", (x.float(), w.float(), dy.float(), gs), None),
+                ("bf16", (x, w, dy, gs), "wgmma")):
+            got, want = ops.gmm_bwd_cuda(*args, route=route), ops.gmm_bwd_plain(*args)
             torch.cuda.synchronize()
+            taken = route or ops.gmm_bwd_route(args[0].dtype, x.shape[2], w.shape[2], True)
             for name, g, p in zip(("dx", "dw"), got, want):
                 ok, e, scale = gmm_errs(g, p)
                 print(f"[train_moe] K9b {name} vs plain at the first layer's {label} product "
-                      f"x={tuple(x.shape)} w={tuple(w.shape)}, {kind}, route "
-                      f"{ops.gmm_bwd_route(args[0].dtype, x.shape[2], w.shape[2], True)}: "
+                      f"x={tuple(x.shape)} w={tuple(w.shape)}, {kind}, route {taken}: "
                       f"max|plain| {scale} err {e} match={ok}", flush=True)
                 match, err = match and ok, max(err, e)
             del got, want, args
             torch.cuda.empty_cache()
     x, w, dy, gs, _ = kept[2][0]
     b = gmm_bwd_bounds(x, w, dy)
-    dx_ms = cuda_time_ms(lambda: ops.gmm_bwd_cuda(x, w, dy, gs, (True, False)), 5)
-    dw_ms = cuda_time_ms(lambda: ops.gmm_bwd_cuda(x, w, dy, gs, (False, True)), 5)
-    lib_dx = cuda_time_ms(lambda: torch.bmm(dy, w.transpose(1, 2)), 5)
-    lib_dw = cuda_time_ms(lambda: torch.bmm(x.transpose(1, 2), dy), 5)
     row = dict(name="moe_gmm_bwd", source=K9B_SOURCE[0], replaces=K9B_SOURCE[1],
                shape=f"x={tuple(x.shape)} w={tuple(w.shape)} dy={tuple(dy.shape)} "
                      f"{str(x.dtype)[6:]} group_sizes=None, both products",
@@ -4743,29 +4776,27 @@ def hold_gmm_bwd(kept, launches: int, by_route: dict) -> dict:
                ms=cuda_time_ms(lambda: ops.gmm_bwd_cuda(x, w, dy, gs), 5),
                plain_ms=cuda_time_ms(lambda: ops.gmm_bwd_plain(x, w, dy, gs), 2),
                bound_ms=b["dx"][0] + b["dw"][0], bound_by=b["dx"][1],
-               library_ms=lib_dx + lib_dw,
                library="torch.bmm (cuBLAS, bf16) on transposed views, dx and dw",
-               dx_ms=dx_ms, dx_bound_ms=b["dx"][0], dx_library_ms=lib_dx,
-               dw_ms=dw_ms, dw_bound_ms=b["dw"][0], dw_library_ms=lib_dw,
-               launches_by_route=by_route)
+               launches_by_route=by_route, **gmm_bwd_turns(x, w, dy, gs, ""))
+    row["library_ms"] = row["dx_library_ms"] + row["dw_library_ms"]
     xd, wd, dyd, gsd, _ = kept[0][0]
-    bd = gmm_bwd_bounds(xd, wd, dyd)
     row.update(w_down_shape=f"x={tuple(xd.shape)} w={tuple(wd.shape)}",
-               w_down_dx_ms=cuda_time_ms(lambda: ops.gmm_bwd_cuda(xd, wd, dyd, gsd,
-                                                                  (True, False)), 5),
-               w_down_dw_ms=cuda_time_ms(lambda: ops.gmm_bwd_cuda(xd, wd, dyd, gsd,
-                                                                  (False, True)), 5),
-               w_down_bound_ms=bd["dx"][0] + bd["dw"][0],
-               w_down_library_ms=cuda_time_ms(lambda: torch.bmm(dyd, wd.transpose(1, 2)), 5)
-               + cuda_time_ms(lambda: torch.bmm(xd.transpose(1, 2), dyd), 5))
+               **gmm_bwd_turns(xd, wd, dyd, gsd, "w_down_"))
+    row["w_down_bound_ms"] = row["w_down_dx_bound_ms"] + row["w_down_dw_bound_ms"]
+    row["w_down_library_ms"] = row["w_down_dx_library_ms"] + row["w_down_dw_library_ms"]
     print(f"[train_moe] K9b at the first layer's w_gate-shaped product: {row['shape']} route "
-          f"{row['path_route']} match={match} max_abs_err={err} ms={row['ms']:.6f} (dx "
-          f"{dx_ms:.6f}, dw {dw_ms:.6f}) bound_ms={row['bound_ms']:.6f} (dx {b['dx'][0]:.6f}, dw "
-          f"{b['dw'][0]:.6f}, {b['dx'][1]}, {b['dx'][2]:.4g} flop each) plain_ms="
-          f"{row['plain_ms']:.6f} bmm_ms={row['library_ms']:.6f} (dx {lib_dx:.6f}, dw "
-          f"{lib_dw:.6f}) launches={launches}; its w_down product {row['w_down_shape']}: dx "
-          f"{row['w_down_dx_ms']:.6f} dw {row['w_down_dw_ms']:.6f} ms, bound "
-          f"{row['w_down_bound_ms']:.6f}, bmm {row['w_down_library_ms']:.6f}", flush=True)
+          f"{row['path_route']} match={match} max_abs_err={err} ms={row['ms']:.6f} "
+          f"bound_ms={row['bound_ms']:.6f} ({b['dx'][1]}, {b['dx'][2]:.4g} flop a product) "
+          f"plain_ms={row['plain_ms']:.6f} bmm_ms={row['library_ms']:.6f} launches={launches}",
+          flush=True)
+    for prefix, label in (("", "w_gate"), ("w_down_", f"w_down {row['w_down_shape']}")):
+        for which in ("dx", "dw"):
+            k = f"{prefix}{which}"
+            print(f"[train_moe] K9b {which} at {label}: {row['path_route']} "
+                  f"{row[k + '_ms']:.6f} ms, wgmma (first design) {row[k + '_prior_ms']:.6f} (turns "
+                  f"wgmma, {row['path_route']}, {row['path_route']}, wgmma: "
+                  f"{[round(t, 6) for t in row[k + '_turns']]}), bmm "
+                  f"{row[k + '_library_ms']:.6f}, bound {row[k + '_bound_ms']:.6f}", flush=True)
     return row
 
 
@@ -4773,8 +4804,8 @@ def check_gmm_bwd_small() -> list:
     """K9b against ``gmm_bwd_plain`` at small and ragged shapes, both dtypes,
     with and without group sizes (0, a partial tile, past C, NaN in x and dy
     past each), on the route ``gmm_bwd_route`` picks (asserted from the route
-    counts) and, in bf16, on the CUDA-core route too; returns the cases that
-    disagree."""
+    counts) and, in bf16, on the CUDA-core route and the first design's ``wgmma`` route
+    too; returns the cases that disagree."""
     import torch
 
     from repro_torch.kernels import counts
@@ -4796,7 +4827,11 @@ def check_gmm_bwd_small() -> list:
                         xg[e, n:], dyg[e, n:] = float("nan"), float("nan")
                     gs = torch.tensor(gs, dtype=torch.int32, device="cuda")
                 want = ops.gmm_bwd_plain(x, w, dy, gs)
-                for forced in (None, "cuda_core_bf16") if dtype == "bfloat16" else (None,):
+                forced_routes = (None,)
+                if dtype == "bfloat16":
+                    forced_routes = (None, "cuda_core_bf16") + (
+                        ("wgmma",) if route == "wgmma_overlap" else ())
+                for forced in forced_routes:
                     counts.reset()
                     got = ops.gmm_bwd_cuda(xg, w, dyg, gs, route=forced)
                     r = forced or route
@@ -4884,11 +4919,11 @@ def run_train_moe(device) -> tuple:
             fail(f"{tag}: Trainer.run launched {name} {launches[name]} times (want "
                  f"{FAMILY_STEPS * n})")
     by_route = {k: v for k, v in routes.items() if k.startswith("moe_gmm_bwd/")}
-    if by_route != {"moe_gmm_bwd/dx/wgmma": FAMILY_STEPS * 3 * L,
-                    "moe_gmm_bwd/dw/wgmma": FAMILY_STEPS * 3 * L} or routes.get(
+    if by_route != {"moe_gmm_bwd/dx/wgmma_overlap": FAMILY_STEPS * 3 * L,
+                    "moe_gmm_bwd/dw/wgmma_overlap": FAMILY_STEPS * 3 * L} or routes.get(
                         "moe_gmm/wgmma") != FAMILY_STEPS * 3 * L:
-        fail(f"{tag}: Trainer.run's K9/K9b launches by route are {routes} (want every one on "
-             f"the wgmma routes)")
+        fail(f"{tag}: Trainer.run's K9/K9b launches by route are {routes} (want K9 on wgmma "
+             f"and every K9b launch on wgmma_overlap)")
     if plain:
         fail(f"{tag}: Trainer.run called plain versions {plain} (want none)")
     ln_v = math.log(cfg.vocab)

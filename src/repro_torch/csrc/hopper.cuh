@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's hand-written sm_90a kernels:
-// shared-memory addresses, mbarriers, TMA tensor loads and their tensor
-// maps, wgmma descriptors and instructions, and setmaxnreg.
+// shared-memory addresses, mbarriers, TMA tensor loads and stores and their
+// tensor maps, stmatrix, wgmma descriptors and instructions, and setmaxnreg.
 //
 // Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so a
@@ -94,6 +94,53 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// a box of the 3-D tensor map at coordinates (c0, c1, c2) from shared memory
+// at `src` (laid out as a load of the same map would leave it), in this
+// thread's current bulk group; elements outside the tensor are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// closes this thread's current bulk group of TMA stores
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 b16 matrices from the warp's registers to shared memory: lane
+// l holds (row l / 4, columns 2 (l % 4) + {0, 1}) of matrix i in r_i, low
+// half first, and gives the address of row l % 8 of matrix l / 8 (16
+// contiguous bytes).
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// two float32 values as one bf16x2 register, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -22,15 +22,26 @@
 // 1.61 GB, and a layer-step has six of these products, so a transposed copy
 // would cost more than the product's bytes.
 //
-// Two routes; kernels/moe_gmm/ops.py picks one (gmm_bwd_route) and plans
-// its grid (gmm_bwd_plan):
+// Routes; kernels/moe_gmm/ops.py picks one (gmm_bwd_route) and plans its
+// grid (gmm_bwd_plan):
 //
 // bfloat16 where TMA can describe every operand (D and F multiples of 8,
-// 16-byte aligned bases): gmm_bwd_hopper<0|1>, K9's persistent prefill
-// pipeline (gmm_tiles.cuh, one copy for the three products: 128 x 256
-// output tiles, four 64-deep TMA stages, two consumer warpgroups on wgmma
-// m64n256k16) in its DX and DW modes, the operands' majorness taken from
-// the descriptors:
+// 16-byte aligned bases): K9's persistent prefill pipeline (gmm_tiles.cuh,
+// one copy for the three products: 128 x 256 output tiles, 64-deep TMA
+// stages, two consumer warpgroups on wgmma m64n256k16) in its DX and DW
+// modes, on one of two epilogues:
+// - `wgmma_overlap` (gmm_bwd_overlap<0|1>, the route ops picks): the
+//   EPI_HALVES epilogue, each tile's sums through a swizzled shared buffer
+//   (stmatrix) and TMA stores, so the consumers go on to the next tile's
+//   products while the stores drain; tiles in the raster groups that
+//   ops.raster_group plans, so that a group's A operand stays in L2. At
+//   mixtral's shapes the two products on the register epilogue, of equal
+//   flops, differ by about 7.9 us for each tile an SM that dw computes more
+//   than dx (186 tiles of 40 k-steps against 29 of 256): the tensor cores
+//   idle while a tile is stored.
+// - `wgmma` (gmm_bwd_hopper<0|1>, forced only): the epilogue from registers
+//   (EPI_REGS), four stages.
+// The operands' majorness is taken from the descriptors:
 // - dx (MODE 0): M = C, N = D, K = F. dy's tile and w's tile as it lies,
 //   (D, F) with F contiguous, are both K-major. dy's rows past the group
 //   size reach only their own output row, written as 0.
@@ -166,18 +177,57 @@ __global__ void __launch_bounds__(NTH, 1) gmm_bwd_hopper(
   gmm_tiles<MODE == 0 ? DX : DW>(ta, tb, gs, out, E, C, D, F);
 }
 
+// the same with the overlapped epilogue, in raster groups of `group` row
+// tiles; `to` maps out (N, M, E)
 template <int MODE>
+__global__ void __launch_bounds__(NTH, 1) gmm_bwd_overlap(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+    const __grid_constant__ CUtensorMap to, const int* __restrict__ gs,
+    __nv_bfloat16* __restrict__ out, int E, int C, int D, int F, int group) {
+  gmm_tiles<MODE == 0 ? DX : DW, EPI_HALVES>(ta, tb, gs, out, E, C, D, F, &to, group);
+}
+
+// cudaFuncSetAttribute of `kernel`'s dynamic shared memory on the current
+// device, once a device: `done` is the caller's flag for that kernel
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t smem_attr_once(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// MODE's product on the epilogue EPI (EPI_REGS: gmm_bwd_hopper, which walks
+// the plain order, `group` 0; EPI_HALVES: gmm_bwd_overlap)
+template <int MODE, int EPI>
 int launch(const void* p, const void* q, const void* gs, void* out, int E, int C, int D, int F,
-           int blocks, cudaStream_t stream) {
-  if (!tma_ok(p, q, D, F) || blocks <= 0) return (int)cudaErrorInvalidValue;
+           int blocks, int group, cudaStream_t stream) {
+  if (!tma_ok(p, q, D, F) || !aligned16(out) || blocks <= 0 || group < 0)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  const int rc = encode_tiles<MODE == 0 ? DX : DW>(&ta, &tb, p, q, E, C, D, F);
+  int rc = encode_tiles<MODE == 0 ? DX : DW>(&ta, &tb, p, q, E, C, D, F);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(gmm_bwd_hopper<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, PSMEM);
-  if (err != cudaSuccess) return (int)err;
-  gmm_bwd_hopper<MODE><<<blocks, NTH, PSMEM, stream>>>(ta, tb, (const int*)gs,
-                                                       (__nv_bfloat16*)out, E, C, D, F);
+  static bool smem_set[kMaxDevices] = {};  // one flag array per instantiation: one kernel
+  if constexpr (EPI == EPI_REGS) {
+    cudaError_t err = smem_attr_once(gmm_bwd_hopper<MODE>, PSMEM, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    gmm_bwd_hopper<MODE><<<blocks, NTH, PSMEM, stream>>>(ta, tb, (const int*)gs,
+                                                         (__nv_bfloat16*)out, E, C, D, F);
+  } else {
+    static_assert(EPI == EPI_HALVES, "gmm_bwd_overlap is built for EPI_HALVES");
+    const int M = MODE == 0 ? C : D, N = MODE == 0 ? D : F;
+    CUtensorMap to;
+    rc = encode_bf16_3d_sw128(&to, out, N, M, E, EPI_BOX);
+    if (rc != 0) return rc;
+    constexpr int smem = Pipe<EPI>::SMEM;
+    cudaError_t err = smem_attr_once(gmm_bwd_overlap<MODE>, smem, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    gmm_bwd_overlap<MODE><<<blocks, NTH, smem, stream>>>(ta, tb, to, (const int*)gs,
+                                                         (__nv_bfloat16*)out, E, C, D, F, group);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -205,14 +255,32 @@ int launch_simt(const void* p, const void* q, const void* gs, void* out, int E, 
 
 // dx entries take (dy, w, group_sizes, dx); dw entries (x, dy, group_sizes,
 // dw); then E, C, D, F and the grid that ops.gmm_bwd_plan planned, which
-// each entry checks.
+// each entry checks, and on the overlap route the plan's raster group.
+
+extern "C" int moe_gmm_bwd_dx_bf16_wgmma_overlap(const void* dy, const void* w, const void* gs,
+                                                 void* dx, int E, int C, int D, int F, int gx,
+                                                 int gy, int gz, int group, void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0) return 0;
+  if (gy != 1 || gz != 1) return (int)cudaErrorInvalidConfiguration;
+  return hop::launch<0, hop::EPI_HALVES>(dy, w, gs, dx, E, C, D, F, gx, group,
+                                         (cudaStream_t)stream);
+}
+
+extern "C" int moe_gmm_bwd_dw_bf16_wgmma_overlap(const void* x, const void* dy, const void* gs,
+                                                 void* dw, int E, int C, int D, int F, int gx,
+                                                 int gy, int gz, int group, void* stream) {
+  if (E <= 0 || D <= 0 || F <= 0) return 0;
+  if (gy != 1 || gz != 1) return (int)cudaErrorInvalidConfiguration;
+  return hop::launch<1, hop::EPI_HALVES>(x, dy, gs, dw, E, C, D, F, gx, group,
+                                         (cudaStream_t)stream);
+}
 
 extern "C" int moe_gmm_bwd_dx_bf16_wgmma(const void* dy, const void* w, const void* gs, void* dx,
                                          int E, int C, int D, int F, int gx, int gy, int gz,
                                          void* stream) {
   if (E <= 0 || C <= 0 || D <= 0) return 0;
   if (gy != 1 || gz != 1) return (int)cudaErrorInvalidConfiguration;
-  return hop::launch<0>(dy, w, gs, dx, E, C, D, F, gx, (cudaStream_t)stream);
+  return hop::launch<0, hop::EPI_REGS>(dy, w, gs, dx, E, C, D, F, gx, 0, (cudaStream_t)stream);
 }
 
 extern "C" int moe_gmm_bwd_dw_bf16_wgmma(const void* x, const void* dy, const void* gs, void* dw,
@@ -220,7 +288,7 @@ extern "C" int moe_gmm_bwd_dw_bf16_wgmma(const void* x, const void* dy, const vo
                                          void* stream) {
   if (E <= 0 || D <= 0 || F <= 0) return 0;
   if (gy != 1 || gz != 1) return (int)cudaErrorInvalidConfiguration;
-  return hop::launch<1>(x, dy, gs, dw, E, C, D, F, gx, (cudaStream_t)stream);
+  return hop::launch<1, hop::EPI_REGS>(x, dy, gs, dw, E, C, D, F, gx, 0, (cudaStream_t)stream);
 }
 
 extern "C" int moe_gmm_bwd_dx_bf16_simt(const void* dy, const void* w, const void* gs, void* dx,

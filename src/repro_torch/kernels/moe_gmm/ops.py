@@ -34,9 +34,16 @@ their ragged edges instead, so any C, D and F are taken.
 K9b's routes, picked by :func:`gmm_bwd_route` and planned by
 :func:`gmm_bwd_plan` (both products take the same route):
 
-- ``wgmma`` (bfloat16, D and F multiples of 8, x, w and dy 16-byte
+- ``wgmma_overlap`` (bfloat16, D and F multiples of 8, x, w and dy 16-byte
   aligned): K9's persistent 128 x 256 design, every operand read as it
-  lies (dx: dy and w both K-major; dw: x and dy both MN-major);
+  lies (dx: dy and w both K-major; dw: x and dy both MN-major), with an
+  overlapped epilogue: each tile's sums go through a swizzled shared
+  buffer, in two halves of 128 columns, and TMA stores while the consumers
+  start the next tile (``ref.epilogue_byte``/``ref.box_element`` model
+  it); tiles are walked in the raster groups that :func:`raster_group`
+  plans and the entry point takes (:func:`gmm_bwd_tiles`);
+- ``wgmma`` (forced only, the same gates): the same pipeline with the
+  epilogue from registers, the first design;
 - ``cuda_core_bf16`` (bfloat16 otherwise) and ``cuda_core_f32`` (float32):
   one strided fmaf kernel, 64 x 64 tiles, float32 sums.
 """
@@ -53,9 +60,10 @@ from ..launch import check, launch
 from .ref import gmm_bwd_plain, gmm_plain
 
 __all__ = [
-    "BWD_ROUTES", "ROUTES", "GmmPlan", "gmm_bwd_cuda", "gmm_bwd_plain", "gmm_bwd_plan",
-    "gmm_bwd_route", "gmm_cuda", "gmm_plain", "gmm_plan", "gmm_route", "grouped_matmul",
-    "persistent_tiles", "route_of",
+    "BWD_ROUTES", "EPI_FILLS", "PIPE_STAGES", "RASTER_MIB", "ROUTES", "SMEM_LIMIT", "GmmPlan",
+    "gmm_bwd_cuda", "gmm_bwd_plain", "gmm_bwd_plan", "gmm_bwd_route", "gmm_bwd_tiles", "gmm_cuda",
+    "gmm_plain", "gmm_plan", "gmm_route", "grouped_matmul", "persistent_tiles", "pipe_smem",
+    "raster_group", "route_of",
 ]
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -95,6 +103,7 @@ class GmmPlan:
     symbol: str
     tiles: int                   # output tiles the kernel computes
     grid: Tuple[int, int, int]   # the launch's (x, y, z)
+    group: int = 0               # K9b's wgmma_overlap: row tiles a raster group
 
 
 def gmm_plan(route: str, E: int, C: int, F: int, n_sms: int) -> GmmPlan:
@@ -179,10 +188,43 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: Optional[torch.Tenso
 # K9b: route -> (C entry point suffix, output tile (rows, columns)); the
 # tiles are the kernels' compile-time constants in csrc/moe_gmm_bwd.cu
 BWD_ROUTES = {
+    "wgmma_overlap": ("bf16_wgmma_overlap", (128, 256)),
     "wgmma": ("bf16_wgmma", (128, 256)),
     "cuda_core_bf16": ("bf16_simt", (64, 64)),
     "cuda_core_f32": ("f32", (64, 64)),
 }
+_PERSISTENT = ("wgmma", "wgmma_overlap")
+
+# The persistent pipeline (csrc/gmm_tiles.cuh): its stages, and the fills of
+# the ``wgmma_overlap`` route's epilogue buffer a tile (two halves of 128
+# columns; the ``wgmma`` route stores from registers, with no buffer)
+PIPE_STAGES, EPI_FILLS = 4, 2
+# the L2 that one raster group's A operand may fill on ``wgmma_overlap``: at
+# mixtral's w_down shape dw's A (x of an expert, 84 MB) is past the 50 MB
+# L2, and walking every row tile of a column tile read it again from device
+# memory for every wave of blocks
+RASTER_MIB = 24
+SMEM_LIMIT = 232448   # dynamic shared memory a block may have on the H100
+
+
+def raster_group(which: str, C: int, F: int) -> int:
+    """Row tiles a raster group of the ``wgmma_overlap`` route's ``which``
+    product (the plan's ``group``, which the kernel takes): as many as keep
+    one group's A operand, 128 rows times the product's depth (dx: F; dw:
+    C) in bf16, within :data:`RASTER_MIB` MiB."""
+    tile_bytes = BWD_ROUTES["wgmma_overlap"][1][0] * (F if which == "dx" else C) * 2
+    return max(1, (RASTER_MIB << 20) // tile_bytes)
+
+
+def pipe_smem(route: str) -> int:
+    """Dynamic shared memory of the persistent pipeline on ``route``
+    (``wgmma`` or ``wgmma_overlap``): a 1024-byte alignment pad, the stages
+    (a 128 x 64 and a 256 x 64 bf16 tile each), the overlap route's
+    epilogue buffer (128 rows x 256 / EPI_FILLS columns of bf16), a full
+    and an empty barrier a stage."""
+    bm, bn = BWD_ROUTES[route][1]
+    buf = bm * (bn // EPI_FILLS) * 2 if route == "wgmma_overlap" else 0
+    return 1024 + PIPE_STAGES * (bm + bn) * 128 + buf + 16 * PIPE_STAGES
 
 
 def gmm_bwd_route(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
@@ -194,7 +236,7 @@ def gmm_bwd_route(dtype: torch.dtype, D: int, F: int, aligned: bool) -> str:
     if dtype != torch.bfloat16:
         raise TypeError(f"moe_gmm_bwd: dtype {dtype} not supported (bfloat16, float32)")
     if aligned and D > 0 and F > 0 and D % 8 == 0 and F % 8 == 0:
-        return "wgmma"
+        return "wgmma_overlap"
     return "cuda_core_bf16"
 
 
@@ -202,15 +244,43 @@ def gmm_bwd_plan(which: str, route: str, E: int, C: int, D: int, F: int,
                  n_sms: int) -> GmmPlan:
     """Tiles and grid of K9b's ``which`` product (``"dx"``: (E, C, D),
     ``"dw"``: (E, D, F)) on ``route``; the C entry point refuses any other
-    grid."""
+    grid; ``wgmma_overlap``'s plan carries its raster group."""
     suffix, (bm, bn) = BWD_ROUTES[route]
     M, N = (C, D) if which == "dx" else (D, F)
     mt, nt = _cdiv(M, bm), _cdiv(N, bn)
     tiles = mt * nt * E
     symbol = f"moe_gmm_bwd_{which}_{suffix}"
-    if route == "wgmma":   # persistent: at most one block an SM
-        return GmmPlan(route, symbol, tiles, (max(1, min(tiles, n_sms)), 1, 1))
+    if route in _PERSISTENT:   # at most one block an SM
+        group = raster_group(which, C, F) if route == "wgmma_overlap" else 0
+        return GmmPlan(route, symbol, tiles, (max(1, min(tiles, n_sms)), 1, 1), group)
     return GmmPlan(route, symbol, tiles, (mt, nt, E))
+
+
+def gmm_bwd_tiles(which: str, block: int, n_blocks: int, E: int, C: int, D: int, F: int,
+                  group: int = 0) -> List[Tuple[int, int, int]]:
+    """The (row tile, column tile, expert) of each output tile of K9b's
+    ``which`` product over dx's (C, D) or dw's (D, F) that block ``block``
+    of a persistent route's grid of ``n_blocks`` computes, in order (the
+    kernel's loop): tile t = block, block + n_blocks, ...; tiles run in
+    raster groups of ``group`` row tiles (row tiles fastest, then column
+    tiles), group after group, then experts. ``group`` 0 is the prefill's
+    order (:func:`persistent_tiles`, the ``wgmma`` route's);
+    ``wgmma_overlap`` takes its plan's ``group``."""
+    M, N = (C, D) if which == "dx" else (D, F)
+    bm, bn = BWD_ROUTES["wgmma_overlap"][1]
+    mt, nt = _cdiv(M, bm), _cdiv(N, bn)
+    g = group if 0 < group < mt else mt
+    whole = mt // g
+    out = []
+    for t in range(block, mt * nt * E, n_blocks):
+        e, r = divmod(t, mt * nt)
+        if r < whole * g * nt:
+            n, m = (r % (g * nt)) // g, r // (g * nt) * g + r % g
+        else:   # the last group, of mt % g row tiles
+            rem, rr = mt - whole * g, r - whole * g * nt
+            n, m = rr // rem, whole * g + rr % rem
+        out.append((m, n, e))
+    return out
 
 
 def gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -219,7 +289,7 @@ def gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     """Launch K9b on the card: (dx, dw) of ``grouped_matmul(x, w,
     group_sizes)`` for the cotangent dy (E, C, F), each None unless ``need``
     asks for it; by the route :func:`gmm_bwd_route` picks, or ``route``
-    (``wgmma`` raises on what TMA cannot describe)."""
+    (``wgmma_overlap`` and ``wgmma`` raise on what TMA cannot describe)."""
     E, C, D, F = _check(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm_bwd: the CUDA kernel needs tensors on the card, got {x.device}")
@@ -245,8 +315,9 @@ def gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
             outs.append(out.zero_())
             continue
         plan = gmm_bwd_plan(which, route, E, C, D, F, n_sms)
+        group = (plan.group,) if route == "wgmma_overlap" else ()
         launch("moe_gmm_bwd", plan.symbol, x.device, (*args, group_sizes, out),
-               (E, C, D, F, *plan.grid), route=f"{which}/{route}")
+               (E, C, D, F, *plan.grid, *group), route=f"{which}/{route}")
         outs.append(out)
     return tuple(outs)
 

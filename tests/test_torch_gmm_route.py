@@ -18,7 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels.moe_gmm import ops
+from repro_torch.kernels.moe_gmm import ops, ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -137,6 +137,153 @@ def test_gmm_bwd_host_tiles_are_the_kernels():
     for which in ("dx", "dw"):
         for suffix, _ in ops.BWD_ROUTES.values():
             assert f'extern "C" int moe_gmm_bwd_{which}_{suffix}(' in text
+
+
+# ------------------------------------------------ K9b's overlapped epilogue
+
+@pytest.mark.parametrize("dtype,D,F,aligned,want", [
+    (BF16, 6144, 16384, True, "wgmma_overlap"),        # mixtral-8x22b training, w_gate
+    (BF16, 16384, 6144, True, "wgmma_overlap"),        # its w_down
+    (BF16, 48, 24, True, "wgmma_overlap"),
+    (BF16, 50, 30, True, "cuda_core_bf16"),             # D, F not multiples of 8
+    (BF16, 48, 30, True, "cuda_core_bf16"),
+    (BF16, 6144, 16384, False, "cuda_core_bf16"),      # an unaligned base
+    (BF16, 0, 16, True, "cuda_core_bf16"),
+    (F32, 6144, 16384, True, "cuda_core_f32"),
+])
+def test_gmm_bwd_route_picks_the_overlapped_epilogue_for_aligned_bf16(dtype, D, F, aligned, want):
+    assert ops.gmm_bwd_route(dtype, D, F, aligned) == want
+
+
+@pytest.mark.parametrize("route", ["wgmma_overlap", "wgmma"])
+@pytest.mark.parametrize("which,E,C,D,F,tiles", [
+    ("dx", 8, 2560, 6144, 16384, 20 * 24 * 8), ("dw", 8, 2560, 6144, 16384, 48 * 64 * 8),
+    ("dx", 8, 2560, 16384, 6144, 20 * 64 * 8), ("dw", 8, 2560, 16384, 6144, 128 * 24 * 8),
+    ("dx", 3, 130, 96, 200, 2 * 1 * 3),
+])
+def test_gmm_bwd_plan_of_both_persistent_routes(route, which, E, C, D, F, tiles):
+    """Both wgmma routes (the overlapped one ``gmm_bwd_route`` picks, and the
+    first design's, which ``route=`` still takes) plan a persistent grid of at most
+    one block an SM, each with its own entry point."""
+    plan = ops.gmm_bwd_plan(which, route, E, C, D, F, 132)
+    assert (plan.route, plan.tiles, plan.grid) == (route, tiles, (min(tiles, 132), 1, 1))
+    assert plan.symbol == f"moe_gmm_bwd_{which}_{ops.BWD_ROUTES[route][0]}"
+    assert f'extern "C" int {plan.symbol}(' in (CSRC / "moe_gmm_bwd.cu").read_text()
+
+
+@pytest.mark.parametrize("group", [0, 1, 3, 38])
+@pytest.mark.parametrize("which", ["dx", "dw"])
+@pytest.mark.parametrize("E,C,F,n_blocks", [
+    (8, 2560, 16384, 132), (8, 2560, 6144, 132), (3, 130, 200, 6), (2, 300, 264, 7),
+    (1, 1, 1, 1), (5, 1000, 1000, 131), (2, 320, 72, 5),   # C = 320: three row tiles
+])
+def test_gmm_bwd_schedule_covers_each_tile_once(which, E, C, F, n_blocks, group):
+    """The overlap route's grid (at most the SMs) and its tile order cover
+    each tile once, in raster groups of 1, 3 or 38 row tiles (the last
+    group shorter, or one group where there are fewer) or in the plain
+    order, with odd row-tile counts (C = 1, 130, 300, 1000 or 320 in dx)."""
+    D = 520
+    bm, bn = ops.BWD_ROUTES["wgmma_overlap"][1]
+    M, N = (C, D) if which == "dx" else (D, F)
+    mt, nt = -(-M // bm), -(-N // bn)
+    grid = ops.gmm_bwd_plan(which, "wgmma_overlap", E, C, D, F, n_blocks).grid[0]
+    assert 1 <= grid <= n_blocks
+    seen = [t for b in range(grid) for t in ops.gmm_bwd_tiles(which, b, grid, E, C, D, F, group)]
+    assert len(seen) == mt * nt * E
+    assert sorted(seen) == [(m, n, e) for m in range(mt) for n in range(nt) for e in range(E)]
+
+
+def test_gmm_bwd_schedule_without_groups_is_the_prefills():
+    for b in range(7):
+        assert (ops.gmm_bwd_tiles("dw", b, 7, 2, 300, 520, 264)
+                == ops.persistent_tiles(b, 7, 2, 520, 264))
+
+
+def test_gmm_bwd_raster_group_walks_a_group_before_the_next():
+    """In raster groups of 3 row tiles, the first tiles walk row tiles 0-2
+    of every column tile of the expert before row tile 3; the group size
+    keeps a group's A operand within the budget."""
+    order = [t for b in range(12) for t in ops.gmm_bwd_tiles("dw", b, 1000, 1, 2560, 1000, 1000,
+                                                              3)]
+    assert order == [(m, n, 0) for n in range(4) for m in range(3)]
+    # dw's A tile is 128 rows x C = 2560 of x (655360 bytes): 38 in 24 MiB;
+    # dx's 128 x F = 16384 of dy: 6
+    assert ops.RASTER_MIB == 24
+    assert ops.raster_group("dw", 2560, 6144) == 38
+    assert ops.raster_group("dx", 2560, 16384) == 6
+    assert ops.raster_group("dx", 8, 1 << 20) == 1   # A past the budget: a row tile a group
+
+
+@pytest.mark.parametrize("which,E,C,D,F", [
+    ("dx", 8, 2560, 6144, 16384), ("dw", 8, 2560, 6144, 16384), ("dw", 8, 2560, 16384, 6144),
+    ("dx", 3, 130, 96, 200),
+])
+def test_gmm_bwd_overlap_entry_takes_the_plans_raster_group(which, E, C, D, F):
+    """The host plans the raster group once and the overlap route's C entry
+    takes it after the grid (the ``wgmma`` route walks the plain order and
+    takes none), so the schedule the CPU tests check is the one launched."""
+    plan = ops.gmm_bwd_plan(which, "wgmma_overlap", E, C, D, F, 132)
+    assert plan.group == ops.raster_group(which, C, F) >= 1
+    assert ops.gmm_bwd_plan(which, "wgmma", E, C, D, F, 132).group == 0
+    text = (CSRC / "moe_gmm_bwd.cu").read_text()
+    for route, tail in (("wgmma_overlap", "int gz, int group, void* stream"),
+                        ("wgmma", "int gy, int gz, void* stream")):
+        symbol = ops.gmm_bwd_plan(which, route, E, C, D, F, 132).symbol
+        sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+        assert sig and " ".join(sig.group(1).split()).endswith(tail), symbol
+    assert "int raster_group(" not in text   # one formula, the host's
+
+
+def test_epilogue_layout_is_a_bijection_equal_to_the_register_layout():
+    """Each sum of a 128 x 256 tile goes, through stmatrix and the 128-byte
+    swizzle, to one byte of one fill of the shared buffer, and the TMA
+    store boxes carry that byte to the row and column the wgmma register
+    layout gives it: every byte pair of the buffer once a fill."""
+    fills = ops.EPI_FILLS
+    bm, bn = ops.BWD_ROUTES["wgmma_overlap"][1]
+    buf = bm * (bn // fills) * 2
+    where = {}
+    for cw in range(2):
+        for tq in range(128):
+            for k in range(bn // 2):
+                h, byte = ref.epilogue_byte(cw, tq, k)
+                assert 0 <= h < fills and 0 <= byte < buf and byte % 2 == 0
+                assert ref.box_element(h, byte) == ref.acc_element(cw, tq, k)
+                where[(h, byte)] = ref.acc_element(cw, tq, k)
+    assert len(where) == fills * buf // 2 == bm * bn
+    assert sorted(where.values()) == [(r, c) for r in range(bm) for c in range(bn)]
+
+
+def test_epilogue_model_sees_an_unswizzled_store():
+    """The model is not trivially true: a store that left out the XOR of the
+    row into the 16-byte chunk would put every sum of a row not a multiple
+    of 8 where the TMA store reads another element."""
+    wrong = 0
+    for tq in range(128):
+        for k in range(128):
+            h, byte = ref.epilogue_byte(0, tq, k)
+            row, chunk = (byte % (64 * 128)) // 128, (byte % 128) // 16
+            plain = byte + 16 * ((chunk ^ (row % 8)) - chunk)
+            wrong += ref.box_element(h, plain) != ref.acc_element(0, tq, k)
+    assert wrong == 128 * 128 * 7 // 8
+
+
+def test_gmm_bwd_pipeline_sizes_are_the_sources():
+    """Tile, stages, store box and epilogue buffer the host plans with are
+    the constants of csrc/gmm_tiles.cuh; both persistent routes' dynamic
+    shared memory fits a block; the overlap route's kernel takes the
+    halves' epilogue."""
+    src = "gmm_tiles.cuh"
+    assert ops.BWD_ROUTES["wgmma_overlap"][1] == (_constexpr(src, "PM"), _constexpr(src, "PN"))
+    assert ops.PIPE_STAGES == _constexpr(src, "PSTAGES")
+    text = (CSRC / src).read_text()
+    assert re.search(r"constexpr int EPI_HN = PN / (\d+);", text).group(1) == str(ops.EPI_FILLS)
+    assert ops.SMEM_LIMIT == _constexpr(src, "SMEM_LIMIT") == 232448
+    assert _constexpr(src, "EPI_BOX") == 64
+    # the register epilogue's pipeline, and the overlapped one
+    assert [ops.pipe_smem(r) for r in ("wgmma", "wgmma_overlap")] == [197696, 230464]
+    assert all(ops.pipe_smem(r) <= ops.SMEM_LIMIT for r in ("wgmma", "wgmma_overlap"))
+    assert "gmm_tiles<MODE == 0 ? DX : DW, EPI_HALVES>" in (CSRC / "moe_gmm_bwd.cu").read_text()
 
 
 def test_gmm_cuda_refuses_cpu_tensors():

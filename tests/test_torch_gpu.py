@@ -991,7 +991,7 @@ def test_gmm_refuses_inputs_that_need_a_gradient_on_the_card(cuda):
     out.sum().backward()
     torch.cuda.synchronize()
     assert counts.LAUNCHES["moe_gmm"] == 1 and counts.LAUNCHES["moe_gmm_bwd"] == 1
-    assert counts.ROUTE_LAUNCHES.get("moe_gmm_bwd/dx/wgmma") == 1
+    assert counts.ROUTE_LAUNCHES.get("moe_gmm_bwd/dx/wgmma_overlap") == 1
     assert sum(counts.PLAIN_CALLS.values()) == 0
     assert bool((out.float() == 64).all()) and bool((x.grad.float() == 48).all())
     counts.reset()
@@ -1003,11 +1003,17 @@ def test_gmm_refuses_inputs_that_need_a_gradient_on_the_card(cuda):
 
 
 # K9b's routes (ops.gmm_bwd_route) at small, ragged and masked shapes: each
-# case on the route it must take, and on the CUDA-core route too
+# case on the route it must take, and on the CUDA-core route too (and, where
+# that is wgmma_overlap, on the first design's wgmma route). Odd row-tile counts: C =
+# 320 (dx, 3 row tiles) and D = 328 (dw, 3); edges that are not whole tiles
+# in every product; more tiles than the card's SMs, so that a block reuses
+# its epilogue buffer (dw: 180 tiles; dx: 200).
 GMM_BWD_CASES = [
-    ((2, 32, 48, 24), "wgmma"), ((3, 130, 96, 200), "wgmma"), ((2, 300, 520, 264), "wgmma"),
-    ((2, 10, 64, 136), "wgmma"), ((2, 77, 50, 30), "cuda_core_bf16"),
-    ((3, 140, 60, 72), "cuda_core_bf16"),
+    ((2, 32, 48, 24), "wgmma_overlap"), ((3, 130, 96, 200), "wgmma_overlap"),
+    ((2, 300, 520, 264), "wgmma_overlap"), ((2, 10, 64, 136), "wgmma_overlap"),
+    ((3, 320, 328, 72), "wgmma_overlap"), ((2, 200, 136, 520), "wgmma_overlap"),
+    ((4, 520, 1040, 1032), "wgmma_overlap"), ((8, 600, 1032, 256), "wgmma_overlap"),
+    ((2, 77, 50, 30), "cuda_core_bf16"), ((3, 140, 60, 72), "cuda_core_bf16"),
 ]
 
 
@@ -1016,8 +1022,9 @@ GMM_BWD_CASES = [
 @pytest.mark.parametrize("sizes", ["none", "partial", "edges"])
 def test_gmm_bwd_matches_plain(cuda, shape, route, dtype, sizes):
     """dx and dw against ``gmm_bwd_plain`` on the route ``gmm_bwd_route``
-    picks (and in bf16 on the CUDA-core route too), with NaN in x and dy
-    past every group size, which must reach neither; launches by route."""
+    picks (and in bf16 on the CUDA-core route too, and on ``wgmma`` where
+    the pick is ``wgmma_overlap``), with NaN in x and dy past every group
+    size, which must reach neither; launches by route."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.moe_gmm import ops
 
@@ -1034,7 +1041,10 @@ def test_gmm_bwd_matches_plain(cuda, shape, route, dtype, sizes):
         gs = torch.tensor(gs, dtype=torch.int32, device=cuda)
     want = ops.gmm_bwd_plain(x, w, dy, gs)
     taken = "cuda_core_f32" if dtype == torch.float32 else route
-    for forced in (None, "cuda_core_bf16") if dtype == torch.bfloat16 else (None,):
+    forced_routes = (None,)
+    if dtype == torch.bfloat16:
+        forced_routes = (None, "cuda_core_bf16") + (("wgmma",) if route == "wgmma_overlap" else ())
+    for forced in forced_routes:
         counts.reset()
         got = ops.gmm_bwd_cuda(xn, w, dyn, gs, route=forced)
         torch.cuda.synchronize()
@@ -1060,7 +1070,8 @@ def test_gmm_autograd_launches_what_is_needed(cuda, need):
     ops.grouped_matmul(xg, wg, gs).backward(dy)
     torch.cuda.synchronize()
     routes = {k: v for k, v in counts.ROUTE_LAUNCHES.items() if k.startswith("moe_gmm_bwd")}
-    assert routes == {f"moe_gmm_bwd/{n}/wgmma": 1 for n, on in zip(("dx", "dw"), need) if on}
+    assert routes == {f"moe_gmm_bwd/{n}/wgmma_overlap": 1
+                      for n, on in zip(("dx", "dw"), need) if on}
     assert sum(counts.PLAIN_CALLS.values()) == 0
     dx, dw = ops.gmm_bwd_plain(x, w, dy, gs)
     for t, want, on in ((xg, dx, need[0]), (wg, dw, need[1])):
@@ -1081,10 +1092,11 @@ def test_gmm_bwd_refuses_what_it_does_not_take(cuda):
         ops.gmm_bwd_cuda(x, w, dy, route="cuda_core_f32")
     with pytest.raises(ValueError, match="unknown route"):
         ops.gmm_bwd_cuda(x, w, dy, route="mma_sync")
-    with pytest.raises(RuntimeError, match="CUDA error"):   # TMA cannot take F = 6
-        xo, wo = _gmm_inputs(2, 8, 16, 6, torch.bfloat16, cuda)
-        ops.gmm_bwd_cuda(xo, wo, torch.zeros((2, 8, 6), device=cuda, dtype=torch.bfloat16),
-                         route="wgmma")
+    xo, wo = _gmm_inputs(2, 8, 16, 6, torch.bfloat16, cuda)
+    for route in ("wgmma_overlap", "wgmma"):
+        with pytest.raises(RuntimeError, match="CUDA error"):   # TMA cannot take F = 6
+            ops.gmm_bwd_cuda(xo, wo, torch.zeros((2, 8, 6), device=cuda, dtype=torch.bfloat16),
+                             route=route)
 
 
 def test_gmm_refuses_what_it_does_not_take(cuda):
