@@ -267,9 +267,36 @@ Phases, in order:
     decode route, 17 K10); decode teacher-forced against ``forward`` as in
     ``moe``; a profiled prefill and decode step; K9 at the MoE layer's
     w_gate shape against its plain version, timed;
-15. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+15. ``encdec``: seamless-m4t-medium at its full width and depth (12
+    encoder and 12 decoder layers, 0.98 B parameters, bf16 weights from seed
+    0), its encoder input ``enc_embeds`` (2 x 4096 x 1024, N(0, 1) from a
+    numpy generator at seed 0) standing in for the audio frontend: a prefill
+    of 2 x 2048 decoder tokens that must launch K4 36 times (12 encoder, 12
+    decoder, 12 cross-attention at Sq 2048 != Sk 4096) and K10 62 times, the
+    plain route (``xla``, K10 plain) within 5e-2 of the largest logit;
+    ``ServingEngine`` on 4 requests over its zero encoder cache and a decode
+    step (24 K7 and 37 K10 launches); decode teacher-forced against
+    ``forward`` with the encoder cache filled from the encoder's output;
+    ``make_train_step`` on the prefill's batch, 3 steps, counts of the
+    first (K4, K5, K6 36 each, K11 62), the first loss within 1 of
+    ln(256206), the loss falling; K5/K6 at the first cross layer against
+    their plain versions and timed, then at ragged cross shapes (Sk = 1000);
+    the flash route against ``xla`` (K10/K11 plain) in float32 activations
+    (losses within 1e-2, every gradient leaf within 5e-2 in L2) and in
+    bf16 (the losses within 1e-2; each leaf within 5e-2, or, where a leaf's
+    bf16 gradient sits under bf16's resolution in both routes, the flash
+    route's no farther from the float32 gradient than the xla route's,
+    ``ENC_NOISE_RATIO``); one step under
+    ``remat="full"`` and one under ``"dots"`` (the loss within 1e-2 of
+    ``"none"``'s at the same weights, K4 recomputed, peak memory, ``"full"``'s
+    below ``"none"``'s); one step with each gradient compression, whose
+    result on the ``xattn.wq`` and ``embed`` gradients must equal the CPU
+    port's bit for bit; K4 at the encoder's and the cross-attention's first
+    call and K7 at the cross decode, each against its plain version and
+    timed beside SDPA;
+16. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
-16. the seconds of each phase, one JSON line with the kernels' numbers, the
+17. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -2327,28 +2354,30 @@ def bwd_errs(got, want) -> tuple:
     return ok, err, scale
 
 
-def sdpa_bwd_yardstick(q, k, v, do, batch: int):
-    """The backward of one ``scaled_dot_product_attention(is_causal=True)``
-    on K5's inputs with KV expanded to every query head: delta, dq, dk and
-    dv in one library call (timed beside K5 and K6, never used)."""
+def sdpa_bwd_yardstick(q, k, v, do, batch: int, causal: bool = True):
+    """The backward of one ``scaled_dot_product_attention`` on K5's inputs
+    with KV expanded to every query head: delta, dq, dk and dv in one
+    library call (timed beside K5 and K6, never used)."""
     import torch
     import torch.nn.functional as F
 
-    BHkv, S, G, D = q.shape
+    BHkv, Sq, G, D = q.shape
+    Sk = k.shape[1]
     Hkv = BHkv // batch
 
     def heads(t):
-        return t.reshape(batch, Hkv, S, G, D).permute(0, 1, 3, 2, 4).reshape(batch, Hkv * G, S, D)
+        return t.reshape(batch, Hkv, Sq, G, D).permute(0, 1, 3, 2, 4).reshape(
+            batch, Hkv * G, Sq, D)
 
     def expand(t):
-        return t.reshape(batch, Hkv, 1, S, D).expand(batch, Hkv, G, S, D).reshape(
-            batch, Hkv * G, S, D)
+        return t.reshape(batch, Hkv, 1, Sk, D).expand(batch, Hkv, G, Sk, D).reshape(
+            batch, Hkv * G, Sk, D)
 
     qs = heads(q).contiguous().requires_grad_(True)
     ks = expand(k).contiguous().requires_grad_(True)
     vs = expand(v).contiguous().requires_grad_(True)
     dos = heads(do).contiguous()
-    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     return lambda: torch.autograd.grad(o, (qs, ks, vs), dos, retain_graph=True)
 
 
@@ -2373,7 +2402,7 @@ def bwd_simt(name: str, q, k, v, do, lse, delta, causal: bool, window, q_offset:
     return outs
 
 
-def hold_bwd(call, launches: dict) -> list:
+def hold_bwd(call, launches: dict, tag: str = "train", batch: int = TRAIN_BATCH[0]) -> list:
     """K5 and K6 on the first layer's inputs from the training step (``call``,
     the (args, kwargs) of K5's launch there) against their plain versions,
     in bf16 and upcast to float32 (the float32 route, timed too), then each
@@ -2397,7 +2426,7 @@ def hold_bwd(call, launches: dict) -> list:
         torch.cuda.synchronize()
         checks[label] = (bwd_errs((dq,), (pdq,)), bwd_errs((dk, dv), (pdk, pdv)))
         (ok5, e5, s5), (ok6, e6, s6) = checks[label]
-        print(f"[train] K5/K6 vs plain at the first layer's inputs, {label}: dq max|plain| {s5} "
+        print(f"[{tag}] K5/K6 vs plain at the first layer's inputs, {label}: dq max|plain| {s5} "
               f"err {e5} match={ok5}; dk/dv max|plain| {s6} err {e6} match={ok6}", flush=True)
         del dq, pdq, dk, dv, pdk, pdv
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
@@ -2409,7 +2438,7 @@ def hold_bwd(call, launches: dict) -> list:
     BH, Sq, G, D = q.shape
     pairs = visible_pairs(Sq, k.shape[1], kw["causal"], kw["window"], kw["q_offset"])
     in_bytes = nbytes(q, k, v, do, lse, delta)
-    library_ms = cuda_time_ms(sdpa_bwd_yardstick(q, k, v, do, TRAIN_BATCH[0]), 10)
+    library_ms = cuda_time_ms(sdpa_bwd_yardstick(q, k, v, do, batch, kw["causal"]), 10)
     shape = f"q={tuple(q.shape)} kv={tuple(k.shape)} {str(q.dtype)[6:]} causal={kw['causal']}"
     # (name, source, the function's products, the kernel's products with
     # p and ds split, output bytes, the wrapper, its plain version, checks)
@@ -2434,7 +2463,7 @@ def hold_bwd(call, launches: dict) -> list:
                            "in one call, KV expanded to every head)",
                    simt_ms=simt_ms, simt_turns=list(turns), floor_ms=floor_ms,
                    float32_ms=f32_ms[name])
-        print(f"[train] {name} at the first layer's inputs: {shape} match={match} "
+        print(f"[{tag}] {name} at the first layer's inputs: {shape} match={match} "
               f"max_abs_err={row['max_abs_err']} ms={row['ms']:.6f} CUDA-core design "
               f"ms={row['simt_ms']:.6f} (turns CUDA cores, wgmma, wgmma, CUDA cores: "
               f"{', '.join(f'{t:.6f}' for t in turns)}) plain_ms="
@@ -3936,7 +3965,7 @@ def decode_need(q, k, lengths) -> tuple:
     return n_bytes, 2.0 * (k_keys + v_keys) * Hkv * G * D
 
 
-def hold_decode_one(q, k, v, lengths, label: str) -> dict:
+def hold_decode_one(q, k, v, lengths, label: str, tag: str = "hybrid") -> dict:
     """K7 on one set of inputs on both routes, each against its plain
     version at the reference's plan (o within one bf16 step of its largest
     magnitude in bfloat16, 2e-5 in float32); then the ring route timed in
@@ -3973,7 +4002,7 @@ def hold_decode_one(q, k, v, lengths, label: str) -> dict:
              plain_ms=cuda_time_ms(lambda: ops.decode_plain(q, k, v, lengths, splits, block), 5),
              bound_ms=b_ms, bound_by=b_by,
              library_ms=cuda_time_ms(decode_sdpa(q, k, v, lengths), 50))
-    print(f"[hybrid] K7 {label}: {r['shape']} match={match} max_abs_err={errs} (max|o| {scale}) "
+    print(f"[{tag}] K7 {label}: {r['shape']} match={match} max_abs_err={errs} (max|o| {scale}) "
           f"{route} route, {plan[0]} splits of {plan[1]} keys: ms={r['ms']:.6f}, first design "
           f"ms={r['prior_ms']:.6f} (turns first, {route}, {route}, first: "
           f"{', '.join(f'{t:.6f}' for t in r['turns_ms'])}); plain_ms={r['plain_ms']:.6f} sdpa_ms="
@@ -5286,6 +5315,469 @@ def run_mla(device) -> tuple:
     return k9_mla, k10, k10_mla
 
 
+# ---------------------------------------------------------------------------
+# Enc-dec path (seamless-m4t-medium at full width and depth)
+# ---------------------------------------------------------------------------
+
+ENC_ARCH = "seamless-m4t-medium"
+ENC_FRAMES = (2, 4096)        # encoder input: batch x frames of the audio stand-in
+ENC_TOKENS = (2, 2048)        # decoder tokens, so that cross-attention has Sq != Sk
+ENC_PROMPT = 64               # decoder tokens of the decode-against-forward check
+# one step of each compression on the card against the CPU port on the
+# step's own gradients, bit for bit, on these leaves (first layer of xattn.wq)
+ENC_COMPRESSED = (("blocks", "xattn", "wq"), ("embed",))
+# a bf16 gradient leaf farther than ROUTE_GRAD_TOL from the xla route's
+# passes where the flash route's is at most this many times as far from the
+# float32-activation gradient as the xla route's (both under bf16's
+# resolution there)
+ENC_NOISE_RATIO = 1.25
+
+
+def enc_reckoning(cfg, rt) -> None:
+    """Print the parameters by part and the bytes of training at full depth."""
+    import math
+
+    from repro_torch.models import build_param_specs, param_bytes
+    from repro_torch.models.params import tree_leaves
+
+    specs = build_param_specs(cfg, rt)
+
+    def n(tree):
+        return sum(math.prod(s.shape) for s in tree_leaves(tree))
+
+    total = n(specs)
+    print(f"[encdec] {cfg.name} at full width and depth: {cfg.n_encoder_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.act}, vocab "
+          f"{cfg.vocab}, rope {cfg.rope}; params {total} (encoder {n(specs['enc_blocks'])}, "
+          f"decoder {n(specs['blocks'])}, embedding and head "
+          f"{n({'embed': specs['embed'], 'out': specs['out']})}): bf16 weights "
+          f"{param_bytes(specs) / 1e9:.2f} GB; training x (2 weight + 2 grad + 8 AdamW "
+          f"moment) bytes = {total * 12 / 1e9:.1f} GB before activations: nothing cut",
+          flush=True)
+
+
+@contextlib.contextmanager
+def keep_compressed(paths):
+    """While active, each ``compress_grads`` call of a train step keeps the
+    gradient leaves at ``paths`` as it got them and as it returned them,
+    and its seconds on the card (synchronised before and after)."""
+    import torch
+
+    from repro_torch.distributed import compression
+
+    kept: list = []
+    original = compression.compress_grads
+
+    def leaf(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def wrapped(grads, scheme, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(grads, scheme, *args, **kwargs)
+        torch.cuda.synchronize()
+        kept.append((scheme, time.perf_counter() - t0,
+                     [(leaf(grads, p).clone(), leaf(out, p).clone()) for p in paths]))
+        return out
+
+    compression.compress_grads = wrapped
+    try:
+        yield kept
+    finally:
+        compression.compress_grads = original
+
+
+def check_cross_small() -> list:
+    """K4, K5 and K6 against their plain versions at a ragged cross shape
+    (non-causal, Sq 100 != Sk 1000, G 1, D 64) and its transpose, both
+    dtypes; returns the cases that disagree."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops
+
+    bad = []
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for BH, Sq, Sk in ((4, 100, 1000), (3, 1000, 100)):
+            q, do = (torch.randn((BH, Sq, 1, 64), generator=g).to("cuda", td) for _ in range(2))
+            k, v = (torch.randn((BH, Sk, 64), generator=g).to("cuda", td) for _ in range(2))
+            kw = dict(causal=False, window=None, q_offset=0)
+            pkw = dict(q_block=Sq, kv_block=Sk, **kw)
+            o, lse = ops.flash_fwd_cuda(q, k, v, **kw)
+            po, plse = ops.flash_fwd_plain(q, k, v, **pkw)
+            ok4 = k4_errs(o, lse, po, plse)[0]
+            delta = (do.float() * o.float()).sum(-1)
+            ok5 = bwd_errs((ops.flash_dq_cuda(q, k, v, do, lse, delta, **kw),),
+                           (ops.flash_dq_plain(q, k, v, do, lse, delta, **pkw),))[0]
+            ok6 = bwd_errs(ops.flash_dkv_cuda(q, k, v, do, lse, delta, **kw),
+                           ops.flash_dkv_plain(q, k, v, do, lse, delta, **pkw))[0]
+            if not (ok4 and ok5 and ok6):
+                bad.append(f"{dtype} {(BH, Sq, Sk)} K4={ok4} K5={ok5} K6={ok6}")
+    print(f"[encdec] K4-K6 at ragged cross shapes (Sq, Sk) = (100, 1000), (1000, 100), "
+          f"non-causal, G 1, D 64, both dtypes: disagree={bad}", flush=True)
+    return bad
+
+
+def fill_encoder_cache(params, cfg, rt, cache, enc_embeds) -> None:
+    """The encoder's output through each decoder layer's ``xattn`` wk and wv
+    into the cache's ``enc_k`` and ``enc_v`` (the reference has no function
+    for it: its engine serves over zeros)."""
+    import torch
+
+    from repro_torch.models.model import _encode
+
+    e = _encode(params, cfg, rt, enc_embeds)
+    xa = params["blocks"]["xattn"]
+    for i in range(cfg.n_layers):
+        cache["enc_k"][i] = torch.einsum("bsd,dhe->bshe", e, xa["wk"][i])
+        cache["enc_v"][i] = torch.einsum("bsd,dhe->bshe", e, xa["wv"][i])
+
+
+def run_encdec(device) -> dict:
+    """The ``encdec`` phase; returns its launch counts and the entries it adds
+    to the rows of K4-K7 and K10/K11."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.compression import compress_grads
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params)
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(ENC_ARCH)
+    rt = Runtime(attn_impl="flash")
+    xla = dataclasses.replace(rt, attn_impl="xla")
+    enc_reckoning(cfg, rt)
+    Le, L = cfg.n_encoder_layers, cfg.n_layers
+    n_attn, n_norm, n_dec_norm = Le + 2 * L, 2 * Le + 3 * L + 2, 3 * L + 1
+    t0 = time.perf_counter()
+    params = init_params(build_param_specs(cfg, rt), torch.Generator(device=device).manual_seed(0),
+                         device)
+    rng = np.random.default_rng(0)
+    B, Se = ENC_FRAMES
+    enc = torch.from_numpy(rng.standard_normal((B, Se, cfg.d_model)).astype(np.float32)).to(
+        device, torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (B, ENC_TOKENS[1] + 1))).to(device)
+    tokens, labels = toks[:, :-1], toks[:, 1:]
+    S = tokens.shape[1]
+    torch.cuda.synchronize()
+    print(f"[encdec] weights (seed 0) and inputs (numpy seed 0: enc_embeds {tuple(enc.shape)} "
+          f"N(0, 1) in bf16, decoder tokens {tuple(tokens.shape)}) on {device} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    with torch.no_grad():
+        forward(params, cfg, rt, tokens=tokens[:, :256], enc_embeds=enc[:, :512])   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the encoder's first K4 call, the decoder's first self-attention and
+        # its first cross-attention
+        with keep_calls(flash_ops, "flash_fwd_cuda", (0, Le, Le + 1)) as kept4:
+            counts.reset()
+            t0 = time.perf_counter()
+            logits = forward(params, cfg, rt, tokens=tokens, enc_embeds=enc)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k4, k10 = counts.LAUNCHES["flash_attn_fwd"], counts.LAUNCHES["rmsnorm_fwd"]
+            plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+            routes = dict(counts.ROUTE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[encdec] prefill of {B} x {S} decoder tokens over {B} x {Se} encoder frames: "
+              f"wall_s={wall:.6f} decoder tokens_per_s={B * S / wall:.1f} (encoder frames and "
+              f"decoder tokens {B * (S + Se) / wall:.1f}/s) max_memory_allocated={peak} K4 "
+              f"launches={k4} K10 launches={k10} routes {routes} plain_calls={plain}", flush=True)
+        if (k4 != n_attn or k10 != n_norm or plain
+                or routes.get("rmsnorm_fwd/resident") != n_norm):
+            fail(f"encdec: the prefill launched K4 {k4} times (want {n_attn}: {Le} encoder, {L} "
+                 f"decoder, {L} cross) and K10 {k10} (want {n_norm} on resident), plain calls "
+                 f"{plain}: routes {routes}")
+        if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"encdec: prefill logits of shape {tuple(logits.shape)} are not finite")
+        sample = list(range(0, S, 256)) + [S - 1]
+        k_rows = logits[:, sample].float()
+        del logits
+        with plain_route(("rmsnorm", "rmsnorm_fwd")):
+            plain_logits = forward(params, cfg, xla, tokens=tokens, enc_embeds=enc)
+            torch.cuda.synchronize()
+        rel, err, pmax = logit_errs(k_rows, plain_logits[:, sample])
+        del plain_logits
+        print(f"[encdec] prefill through the plain route (xla attention, K10 plain): max|logit "
+              f"diff|/max|logit| {rel} (bound {LOGIT_TOL}), softmax max diff {err} beside a "
+              f"largest probability of {pmax}", flush=True)
+        if not rel <= LOGIT_TOL:
+            fail(f"encdec: the kernel route and the plain route disagree: logit diff {rel}")
+        pre = device_profile(lambda: forward(params, cfg, rt, tokens=tokens, enc_embeds=enc),
+                             f"prefill {B}x{S} over {B}x{Se} frames", 2, tag="encdec")
+
+        # serving, as the reference serves: over a zero encoder cache of
+        # max_len rows
+        engine = ServingEngine(params, cfg, rt, batch_size=SERVE_REQS, max_len=SERVE_MAX_LEN)
+        reqs = [Request(prompt=rng.integers(2, cfg.vocab, SERVE_PROMPT).astype(np.int32),
+                        max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        steps = SERVE_PROMPT + SERVE_NEW - 1
+        n_new = sum(len(r.generated) for r in reqs)
+        print(f"[encdec] ServingEngine batch {SERVE_REQS} max_len {SERVE_MAX_LEN} (encoder cache "
+              f"of {SERVE_MAX_LEN} zero rows): {SERVE_REQS} greedy requests x {SERVE_PROMPT} prompt "
+              f"tokens, {n_new} new tokens in wall_s={swall:.6f} ({steps} decode steps: step_ms="
+              f"{swall / steps * 1e3:.3f}, new tokens_per_s={n_new / swall:.1f}); first request: "
+              f"{reqs[0].generated[:8]}...", flush=True)
+        if any(len(r.generated) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in r.generated)
+               for r in reqs):
+            fail("encdec: not every request got its tokens in range")
+        cache = init_cache(cfg, rt, SERVE_REQS, SERVE_MAX_LEN, enc_len=SERVE_MAX_LEN,
+                           device=device)
+        step_toks = torch.full((SERVE_REQS, 1), 7, device=device)
+        for _ in range(SERVE_PROMPT):
+            _, cache = decode_step(params, cfg, rt, cache, step_toks)
+        torch.cuda.synchronize()
+        counts.reset()
+        decode_step(params, cfg, rt, cache, step_toks)
+        torch.cuda.synchronize()
+        dec_k7, dec_k10 = counts.LAUNCHES["flash_decode"], counts.LAUNCHES["rmsnorm_fwd"]
+        dec_routes = dict(counts.ROUTE_LAUNCHES)
+        dec_plain = sum(counts.PLAIN_CALLS.values())
+        print(f"[encdec] one decode step of {SERVE_REQS} slots: K7 launches={dec_k7} K10 "
+              f"launches={dec_k10} routes {dec_routes} plain_calls={dec_plain}", flush=True)
+        if (dec_k7 != 2 * L or dec_routes.get("flash_decode/ring") != 2 * L
+                or dec_k10 != n_dec_norm or dec_plain):
+            fail(f"encdec: a decode step launched K7 {dec_k7} times (want {2 * L} on ring: "
+                 f"{L} self, {L} cross) and K10 {dec_k10} (want {n_dec_norm}), plain "
+                 f"{dec_plain}: {dec_routes}")
+        dprof = device_profile(lambda: decode_step(params, cfg, rt, cache, step_toks),
+                               f"decode step of {SERVE_REQS} slots at position "
+                               f"{SERVE_PROMPT + 1}", 10, tag="encdec")
+        del engine, cache
+
+        # decode teacher-forced against forward, the encoder cache filled from
+        # the encoder's output; the first decode step's first cross K7 call
+        # (layer 0's, after its self-attention) is kept
+        prompt = tokens[:, :ENC_PROMPT]
+        par = forward(params, cfg, rt, tokens=prompt, enc_embeds=enc).float()
+        tf_cache = init_cache(cfg, rt, B, ENC_PROMPT, enc_len=Se, device=device)
+        fill_encoder_cache(params, cfg, rt, tf_cache, enc)
+        dec = []
+        with keep_calls(decode_ops, "decode_cuda", (1,)) as kept7:
+            for t in range(ENC_PROMPT):
+                lg, tf_cache = decode_step(params, cfg, rt, tf_cache, prompt[:, t:t + 1])
+                dec.append(lg[:, 0].float())
+        rel, derr, pmax = logit_errs(torch.stack(dec, 1), par)
+        moved = prompt.clone()
+        moved[:, 0] = 1
+        sens = logit_errs(forward(params, cfg, rt, tokens=moved, enc_embeds=enc)[:, -1],
+                          par[:, -1])[0]
+        # the encoder's 4096 frames weigh more than the decoder's context, so
+        # another first token moves the last logits less than in the decoder-
+        # only phases: the difference must also sit 4x under that move
+        print(f"[encdec] decode_step teacher-forced over {ENC_PROMPT} tokens vs forward, the "
+              f"encoder cache of {Se} rows filled from the encoder's output: max|logit diff|/"
+              f"max|logit| {rel} (bounds {LOGIT_TOL} and a quarter of {sens}, the move another "
+              f"first token makes to the last position's logits), softmax max diff {derr} "
+              f"beside a largest probability of {pmax}", flush=True)
+        if not (rel <= LOGIT_TOL and 4 * rel <= sens):
+            fail(f"encdec: decode and forward disagree ({rel}) or the difference is not 4x under "
+                 f"the move another context token makes ({sens})")
+        del par, dec, tf_cache
+
+    k4_paths = [hold_k4_path("encdec_encoder", *kept4[0], k4),
+                hold_k4_path("encdec_cross", *kept4[Le + 1], k4)]
+    q, k, v, lengths = kept7[1][0][:4]
+    k7_cross = hold_decode_one(q, k, v, lengths, "at the cross decode (every row full)",
+                               tag="encdec")
+    k7_cross.update(path="encdec_cross", launches_per_step=dec_k7)
+    del kept4, kept7, q, k, v, lengths
+    if not all(r["match"] for r in k4_paths) or not k7_cross["match"]:
+        fail(f"encdec: K4 or K7 disagrees with its plain version at the enc-dec shapes: "
+             f"{[(r['path'], r['match']) for r in k4_paths]} K7 {k7_cross['match']}")
+
+    # training at full depth on the prefill's batch
+    torch.cuda.empty_cache()
+    batch = {"tokens": tokens, "labels": labels, "enc_embeds": enc}
+    opt = adamw_init(params)
+    step = make_train_step(cfg, rt, lr=TRAIN_LR)
+    # K5's inputs at the first cross layer: the backward runs the decoder
+    # from its last layer, cross before self in each
+    first_cross = 2 * (L - 1)
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with keep_calls(flash_ops, "flash_dq_cuda", (first_cross,)) as kept5:
+        for i in range(TRAIN_STEPS):
+            if i == 0:
+                counts.reset()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = dict(counts.LAUNCHES)
+                tplain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
+    peak_none = torch.cuda.max_memory_allocated()
+    steady = sum(step_s[1:]) / (len(step_s) - 1)
+    want = {"flash_attn_fwd": n_attn, "flash_attn_dq": n_attn, "flash_attn_dkv": n_attn,
+            "rmsnorm_fwd": n_norm, "rmsnorm_bwd": n_norm}
+    print(f"[encdec] make_train_step x {TRAIN_STEPS} on the prefill's batch ({B} x {S} tokens "
+          f"over {B} x {Se} frames, lr {TRAIN_LR}): losses {losses}; step_s {step_s} (the first "
+          f"includes warm-up); steady step_ms={steady * 1e3:.3f} decoder tokens_per_s="
+          f"{B * S / steady:.1f}; max_memory_allocated={peak_none}; first step's launches "
+          f"{ {k: launches[k] for k in want} } plain_calls {tplain}", flush=True)
+    bad = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    if bad or tplain:
+        fail(f"encdec: a training step launched {bad} (want {want}), plain calls {tplain}")
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - ln_v) > LOSS_MARGIN:
+        fail(f"encdec: losses {losses} are not finite or the first is not within "
+             f"{LOSS_MARGIN} of ln({cfg.vocab}) = {ln_v}")
+    if not losses[-1] < losses[0]:
+        fail(f"encdec: the loss does not fall on a repeated batch: {losses}")
+
+    # K5 and K6 on the first cross layer's inputs, then at ragged cross shapes
+    if kept5[first_cross][0][1].shape[1] != Se:
+        fail(f"encdec: K5's launch {first_cross} of the first step is not the first cross layer's: "
+             f"k {tuple(kept5[first_cross][0][1].shape)}")
+    bwd_rows = hold_bwd(kept5[first_cross], launches, tag="encdec", batch=B)
+    del kept5
+    bad = check_cross_small()
+    if not all(r["match"] for r in bwd_rows) or bad:
+        fail(f"encdec: K5/K6 disagree with their plain versions: "
+             f"{[(r['name'], r['match']) for r in bwd_rows]} small={bad}")
+
+    # the flash route against the plain xla route (K10/K11 plain beside it)
+    # from the same weights and batch, in float32 activations (the bf16
+    # weights upcast) and in bf16. In bf16 the gradients of some leaves sit
+    # under bf16's resolution in both routes (the cross-attention's wq, wk
+    # and ln3: their scores barely move the loss, so ds is a difference of
+    # near-equal bf16 terms), and the routes differ there by O(1); such a
+    # leaf passes where the flash route's bf16 gradient is no farther from
+    # the float32 one than the xla route's (ENC_NOISE_RATIO)
+    names = [".".join(p) for p in _leaf_paths(params)]
+    params32 = tree_map(lambda t: t.float(), params)
+    rt32 = dataclasses.replace(rt, param_dtype="float32", compute_dtype="float32")
+    norms = (("rmsnorm", "rmsnorm_fwd"), ("rmsnorm", "rmsnorm_bwd"))
+    with plain_route(*norms):
+        loss_x32, g_x32 = grads_of(params32, cfg, dataclasses.replace(rt32, attn_impl="xla"),
+                                   batch)
+    loss_f32, g_f32 = grads_of(params32, cfg, rt32, batch)
+    route32 = [rel_l2(a, b) for a, b in zip(g_f32, g_x32)]
+    del g_f32, params32
+    with plain_route(*norms):
+        loss_x, g_x = grads_of(params, cfg, xla, batch)
+    err_x = [rel_l2(a, b) for a, b in zip(g_x, g_x32)]
+    loss_f, g_f = grads_of(params, cfg, rt, batch)
+    err_f = [rel_l2(a, b) for a, b in zip(g_f, g_x32)]
+    route = [rel_l2(a, b) for a, b in zip(g_f, g_x)]
+    del g_x, g_f, g_x32
+    torch.cuda.empty_cache()
+    print(f"[encdec] loss_fn flash vs xla (K10/K11 plain): float32 activations: losses "
+          f"{loss_f32} / {loss_x32} (diff {abs(loss_f32 - loss_x32)}); bf16: losses {loss_f} / "
+          f"{loss_x} (diff {abs(loss_f - loss_x)}; bound {ROUTE_LOSS_TOL} each)", flush=True)
+    for n, r32, r, ef, ex in zip(names, route32, route, err_f, err_x):
+        print(f"[encdec]   grad {n}: |g_flash - g_xla| / |g_xla| float32 activations {r32:.6g}, "
+              f"bf16 {r:.6g}; bf16 against float32 flash {ef:.6g}, xla {ex:.6g}", flush=True)
+    bad32 = [n for n, r in zip(names, route32) if not r <= ROUTE_GRAD_TOL]
+    bad16 = [n for n, r, ef, ex in zip(names, route, err_f, err_x)
+             if not (r <= ROUTE_GRAD_TOL or ef <= ENC_NOISE_RATIO * ex)]
+    under = [n for n, r in zip(names, route) if r > ROUTE_GRAD_TOL]
+    print(f"[encdec] leaves beyond {ROUTE_GRAD_TOL} in bf16, held by their distance to the "
+          f"float32 gradient: {under}", flush=True)
+    if (abs(loss_f - loss_x) > ROUTE_LOSS_TOL or abs(loss_f32 - loss_x32) > ROUTE_LOSS_TOL
+            or bad32 or bad16):
+        fail(f"encdec: flash and xla routes disagree: loss diffs {abs(loss_f - loss_x)} (bf16), "
+             f"{abs(loss_f32 - loss_x32)} (float32 activations), leaves {bad32} (float32), "
+             f"{bad16} (bf16)")
+
+    # remat: one step under each policy from the weights a remat="none"
+    # loss is taken at
+    remat = {}
+    for policy in ("full", "dots"):
+        loss_n = grads_of(params, cfg, rt, batch)[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        t0 = time.perf_counter()
+        params, opt, m = make_train_step(cfg, dataclasses.replace(rt, remat=policy),
+                                         lr=TRAIN_LR)(params, opt, batch)
+        torch.cuda.synchronize()
+        remat[policy] = dict(loss=float(m["loss"]), loss_none=loss_n,
+                             step_ms=(time.perf_counter() - t0) * 1e3,
+                             peak=torch.cuda.max_memory_allocated(),
+                             k4=counts.LAUNCHES["flash_attn_fwd"],
+                             k5=counts.LAUNCHES["flash_attn_dq"])
+        r = remat[policy]
+        print(f"[encdec] a step under remat={policy!r}: loss {r['loss']} (remat='none' at the "
+              f"same weights: {loss_n}, diff {abs(r['loss'] - loss_n)}, bound {ROUTE_LOSS_TOL}); "
+              f"step_ms={r['step_ms']:.3f}; max_memory_allocated={r['peak']} (remat='none' "
+              f"steps: {peak_none}); K4 launches {r['k4']} (each layer's once more in the "
+              f"backward), K5 {r['k5']}", flush=True)
+        if abs(r["loss"] - loss_n) > ROUTE_LOSS_TOL or r["k4"] != 2 * n_attn or r["k5"] != n_attn:
+            fail(f"encdec: remat={policy!r} gives loss {r['loss']} against {loss_n}, K4 "
+                 f"{r['k4']} launches (want {2 * n_attn}), K5 {r['k5']} (want {n_attn})")
+    if not remat["full"]["peak"] < peak_none:
+        fail(f"encdec: remat='full' peaks at {remat['full']['peak']} bytes, not below "
+             f"remat='none''s {peak_none}")
+
+    # gradient compression: a step with each scheme; the card's compression
+    # of the step's gradients against the CPU port's on the same gradients
+    compressed = {}
+    for scheme in ("int8", "topk"):
+        with keep_compressed(ENC_COMPRESSED) as kept_c:
+            params, opt, m = make_train_step(
+                cfg, dataclasses.replace(rt, grad_compression=scheme), lr=TRAIN_LR)(
+                params, opt, batch)
+            torch.cuda.synchronize()
+        (_, secs, leaves), = kept_c
+        same = []
+        for path, (g, out) in zip(ENC_COMPRESSED, leaves):
+            want_out = compress_grads({"g": g.cpu()}, scheme)["g"]
+            if path[-1] == "wq":
+                out, want_out = out[0], want_out[0]
+            same.append(bool(torch.equal(out.cpu().view(torch.int16),
+                                         want_out.view(torch.int16))))
+        compressed[scheme] = dict(loss=float(m["loss"]), compress_ms=secs * 1e3,
+                                  bit_identical=same)
+        print(f"[encdec] a step with grad_compression={scheme!r}: loss {float(m['loss'])}; "
+              f"compress_grads over every leaf {secs * 1e3:.3f} ms on the card; the card's "
+              f"against the CPU port's on {['.'.join(p) for p in ENC_COMPRESSED]} (wq's first "
+              f"layer): bit-identical {same}", flush=True)
+        if not all(same) or not math.isfinite(float(m["loss"])):
+            fail(f"encdec: compression {scheme!r} on the card differs from the CPU port's: "
+                 f"{same}")
+        del kept_c, leaves
+    del opt, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        prefill=dict(k4=k4, k10=k10), decode=dict(k7=dec_k7, k10=dec_k10), train=launches,
+        k4_by_path=k4_paths, k7_cross=k7_cross,
+        bwd_by_path={r["name"]: dict(r, path="encdec_cross") for r in bwd_rows},
+        numbers=dict(prefill_tokens_per_s=B * S / wall, prefill_busy_share=pre["busy_share"],
+                     prefill_max_memory_allocated=peak, decode_step_ms=dprof["wall_s"] * 1e3,
+                     decode_busy_share=dprof["busy_share"], train_step_ms=steady * 1e3,
+                     train_tokens_per_s=B * S / steady, train_max_memory_allocated=peak_none,
+                     losses=losses, remat=remat, compression=compressed))
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
@@ -5398,6 +5890,21 @@ def main() -> int:
     k9_row.update(k9_mla)
     main_rows[[r["name"] for r in main_rows].index("rmsnorm_fwd")].update(k10_mla)
     t0 = time.perf_counter()
+    encdec = run_encdec(device)
+    phase_s["encdec"] = time.perf_counter() - t0
+    print(f"[encdec] phase seconds {phase_s['encdec']:.1f}", flush=True)
+    k4_row["by_path"] += encdec["k4_by_path"]
+    k4_row["launches_encdec"] = {"prefill": encdec["prefill"]["k4"],
+                                 "train_step": encdec["train"]["flash_attn_fwd"]}
+    for r in main_rows:
+        if r["name"] in encdec["bwd_by_path"]:
+            r.setdefault("by_path", []).append(encdec["bwd_by_path"][r["name"]])
+        if r["name"] in ("flash_attn_dq", "flash_attn_dkv", "rmsnorm_bwd"):
+            r["launches_encdec"] = {"train_step": encdec["train"][r["name"]]}
+        if r["name"] == "flash_decode":
+            r["launches_encdec"] = {"decode_step": encdec["decode"]["k7"]}
+            r["encdec_cross"] = encdec["k7_cross"]
+    t0 = time.perf_counter()
     run_agreement()
     phase_s["agree"] = time.perf_counter() - t0
     print("[time] seconds by phase: " + " ".join(f"{k}={v:.1f}" for k, v in phase_s.items()),
@@ -5416,7 +5923,7 @@ def main() -> int:
                                      "first_design", "step_", "tuner_", "traced_",
                                      "launch_floor", "design_floor", "staged_", "values_",
                                      "eval_", "events_", "propose_", "baselines_", "dx_",
-                                     "dw_", "mla_"))
+                                     "dw_", "mla_", "encdec_"))
                     and k not in out})
         if r["name"] == "flash_attn_fwd" and n_launches is not None:
             out["train_launches"] = train_launches["flash_attn_fwd"]
@@ -5425,7 +5932,9 @@ def main() -> int:
         if r["name"] == "rmsnorm_fwd":
             out["launches_by_phase"] = {"serve": serve_k10, "moe": moe_k10,
                                         "train": train_launches["rmsnorm_fwd"],
-                                        "ssm": n_launches, "hybrid": hyb_k10, "mla": mla_k10}
+                                        "ssm": n_launches, "hybrid": hyb_k10, "mla": mla_k10,
+                                        "encdec": encdec["prefill"]["k10"],
+                                        "encdec_decode_step": encdec["decode"]["k10"]}
         return out
 
     # "kernels": K1-K3 at the largest call of the tuner run, with the run's
@@ -5450,6 +5959,10 @@ def main() -> int:
     # entry); K7 at the hybrid engine's decode step (and at caches of 4 x
     # 4096 keys) with its launches in the hybrid engine run (and per decode
     # step in each phase beside them);
+    # the encdec phase adds K4's encoder and cross calls to its "by_path" and
+    # its counts a prefill and a training step ("launches_encdec"), K5's and
+    # K6's entries at the first cross layer ("by_path"), K7's cross decode
+    # ("encdec_cross", its launches a decode step), K10's and K11's counts;
     # K1 and K2 also with their launches in each baseline tuner's 24 h run
     # and their largest call there ("baselines_launches", "baselines_largest");
     # "at_scale": K1 and K2 at 131072 candidates, which the tuner run does
@@ -5457,7 +5970,7 @@ def main() -> int:
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],
                       "at_scale": [line(r, None) for r in scale_rows],
                       "propose": {"tuner": fused, "step": step_numbers},
-                      "baselines": baselines_phase}), flush=True)
+                      "baselines": baselines_phase, "encdec": encdec["numbers"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

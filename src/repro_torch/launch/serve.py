@@ -2,14 +2,17 @@
 
     python -m repro_torch.launch.serve --arch llama3-8b [--full] [--device cpu]
     python -m repro_torch.launch.serve --arch zamba2-2.7b [--full] [--device cpu]
+    python -m repro_torch.launch.serve --arch seamless-m4t-medium [--full] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given. The model is
 ``reduced(get_arch(arch))``, as in the reference's launcher, unless
 ``--full`` asks for the architecture at its published width (llama3-8b:
 16 GB of bf16 weights, drawn on the card; rwkv6-7b: 16.1 GB; zamba2-2.7b:
-7.64 GB; mixtral-8x22b's 281 GB and deepseek-v3-671b's do not fit one
-card). Prints each request's
-tokens, then the serving time on the host clock.
+7.64 GB; seamless-m4t-medium: 1.96 GB; mixtral-8x22b's 281 GB and
+deepseek-v3-671b's do not fit one card). An enc-dec model is served as the
+reference serves it: its decoder attends over an encoder cache of
+``max_len`` zero rows. Prints each request's tokens, then the serving time
+on the host clock.
 """
 
 from __future__ import annotations

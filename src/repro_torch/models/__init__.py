@@ -2,8 +2,8 @@
 package: the dense family (``dense`` and the ``vlm`` backbone), the SSM
 family (rwkv6-7b), the hybrid family (zamba2-2.7b) and the MoE family
 (mixtral-8x22b with GQA, deepseek-v3 with MLA and its multi-token
-prediction), for inference and training (``loss_fn``). The enc-dec family
-comes later (``ROADMAP.md`` item 10(c))."""
+prediction) and the enc-dec family (seamless-m4t-medium), for inference and
+training (``loss_fn``, with the reference's ``Runtime.remat`` policies)."""
 
 from .runtime import Runtime
 from .params import ParamSpec, init_params, param_bytes

@@ -35,8 +35,15 @@ plain blocked route ``flash_attention_xla``, as the reference's
 128). Its decode step caches only (c_kv, k_rope), absorbs ``w_uk`` into q
 and attends in the latent; it writes the cache in place as the GQA step
 does. Both norms of ``_mla_qkv`` take RMSNorm's default eps 1e-5, not
-``cfg.norm_eps``, as the reference's do. Cross-attention (the reference's
-``kv_x``) comes with the enc-dec family.
+``cfg.norm_eps``, as the reference's do.
+
+Cross-attention is the reference's ``kv_x``: ``attention_apply(...,
+kv_x=e)`` takes K and V from the encoder output ``e`` (B, Se, D), applies
+rope nowhere, and masks nothing, on both routes (K4 at Sq != Sk on
+``"flash"``). Its decode step, ``cross_decode_apply``, attends over a
+filled encoder cache (B, Se, Hkv, hd): on ``"flash"`` through K7 with every
+row at full length, otherwise the reference's inline softmax, rounded step
+by step as its ``decode_step`` rounds it.
 """
 
 from __future__ import annotations
@@ -54,8 +61,8 @@ from .params import ParamSpec
 from .runtime import Runtime, torch_dtype
 
 __all__ = [
-    "attention_specs", "attention_apply", "attention_decode_apply", "flash_attention_xla",
-    "mla_specs", "mla_apply", "mla_decode_apply",
+    "attention_specs", "attention_apply", "attention_decode_apply", "cross_decode_apply",
+    "flash_attention_xla", "mla_specs", "mla_apply", "mla_decode_apply",
 ]
 
 NEG_INF = -1e30
@@ -198,7 +205,10 @@ def flash_attention_xla(
 
 
 def attention_specs(cfg: ArchConfig, stacked: Optional[int] = None,
-                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, ParamSpec]:
+                    dtype: torch.dtype = torch.bfloat16, cross: bool = False
+                    ) -> Dict[str, ParamSpec]:
+    """The GQA block's weights; ``cross`` (an enc-dec decoder's
+    cross-attention) takes the same shapes, as in the reference."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = (stacked,) if stacked else ()
     lax_ = ("layers",) if stacked else ()
@@ -216,13 +226,16 @@ def _rope(x, positions, cfg: ArchConfig):
     return apply_rope(x, positions)
 
 
-def _project_qkv(p, x, cfg: ArchConfig, positions):
+def _project_qkv(p, x, cfg: ArchConfig, positions, kv_x=None, rope: bool = True):
+    """q (B, S, Hkv, G, hd) from ``x``; k, v (B, Sk, Hkv, hd) from ``kv_x``
+    (cross-attention) or ``x``; rope on q and k where ``rope`` says so."""
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
+    src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
-    v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
-    if cfg.rope != "none":
+    k = torch.einsum("bsd,dhe->bshe", src, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", src, p["wv"])
+    if rope and cfg.rope != "none":
         q = _rope(q, positions, cfg)
         k = _rope(k, positions, cfg)
     B, S = x.shape[:2]
@@ -237,8 +250,10 @@ def attention_apply(
     rt: Runtime,
     positions: torch.Tensor,
     causal: bool = True,
+    kv_x: Optional[torch.Tensor] = None,   # cross-attention source
 ) -> torch.Tensor:
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, kv_x=kv_x, rope=kv_x is None)
+    causal = causal and kv_x is None
     if rt.attn_impl == "flash":
         o = flash_ops.flash_attention(
             q, k, v, causal=causal, window=cfg.window,
@@ -305,6 +320,33 @@ def attention_decode_apply(
     o = torch.einsum("bhgk,bkhd->bhgd", a, vc).reshape(B, 1, hq, hd)
     out = torch.einsum("bshe,hed->bsd", o, p["wo"])
     return out, {"k": kc, "v": vc, "pos": pos + 1}
+
+
+def cross_decode_apply(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, 1, D), normed
+    enc_k: torch.Tensor,                 # (B, Se, Hkv, hd), the encoder's K
+    enc_v: torch.Tensor,
+    cfg: ArchConfig,
+    rt: Runtime,
+) -> torch.Tensor:
+    """One decode step of cross-attention over a filled encoder cache: no
+    rope, no mask, nothing written. ``"flash"`` runs K7 with every row at
+    length Se; otherwise the reference's inline code: the bf16 score
+    product, float32 divided by sqrt(hd), the softmax, cast to V's dtype,
+    then the P.V product."""
+    B = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    qg = q.reshape(B, hkv, hq // hkv, hd)
+    if rt.attn_impl == "flash":
+        lengths = torch.full((B,), enc_k.shape[1], dtype=torch.int32, device=x.device)
+        o = decode_ops.decode_attention(qg, enc_k, enc_v, lengths)
+    else:
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, enc_k).float() / (hd ** 0.5)
+        a = torch.softmax(s, dim=-1).to(enc_v.dtype)
+        o = torch.einsum("bhgk,bkhd->bhgd", a, enc_v)
+    return torch.einsum("bshe,hed->bsd", o.reshape(B, 1, hq, hd), p["wo"])
 
 
 # ----------------------------------------------------------------------- MLA

@@ -6,21 +6,27 @@ time-mix block, ``rwkv6_apply``, and a channel-mix block, ``_rwkv_cmix``,
 each behind an RMSNorm) and the hybrid family (zamba2-2.7b: groups of
 ``attn_every`` Mamba2 blocks, ``mamba2_apply`` behind an RMSNorm, each
 group followed by one shared attention + FFN block whose parameters every
-group reuses).
+group reuses) and the enc-dec family (seamless-m4t-medium: a bidirectional
+encoder stack over ``enc_embeds``, the audio frontend's stand-in, then
+``enc_ln``; a decoder stack whose layers run causal self-attention,
+cross-attention on ``ln3`` over the encoder output, then the FFN).
 
 Layer stacks are *stacked* (leading "layers" axis) as in the reference,
 which scans over them; the port runs a Python loop over layer slices, and
-autograd sums each slice's gradient into the stacked leaf. What is not
-ported raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: the
-enc-dec family.
+autograd sums each slice's gradient into the stacked leaf. Each layer of
+every stack runs under ``Runtime.remat``'s policy, as the reference's
+``_scan_stack`` wraps its body: ``"none"`` as it is, ``"dots"`` under
+``torch.utils.checkpoint`` keeping the results of matrix products and
+recomputing the rest, any other value under a full recomputation; the
+hybrid's shared block and the MTP block are not wrapped. The kernels'
+autograd functions inside a wrapped layer run again in the backward.
 
 The loss (``loss_fn``) is the next-token cross-entropy of ``chunked_ce``
 over the hidden states that ``forward(..., return_hidden=True)`` returns,
 plus, where the config has ``mtp_depth`` and the tree an ``mtp`` subtree
 (deepseek-v3), 0.3 times the reference's multi-token-prediction loss: one
 extra block on the token embeddings and the next token's, predicting the
-token after next. Only ``Runtime.remat == "none"`` is taken (the value the
-reference's training launcher uses).
+token after next.
 
 The decode path operates on a cache dict stacked over layers: K and V of
 shape (L, B, S, Hkv, hd) and ``pos`` (B,); for the SSM family the float32
@@ -29,7 +35,10 @@ WKV states ``wkv`` (L, B, H, K, K) and the two token-shift carries
 SSM states ``ssm`` (L, B, H, P, N), the conv carries ``conv`` (L, B, K - 1,
 d_inner + 2HN) and the shared block's K and V, ``attn_k``, ``attn_v`` (one
 per group, (G, B, S, Hkv, hd)); for MLA the latent ``c_kv`` (L, B, S,
-kv_lora_rank) and the rotary key ``k_rope`` (L, B, S, qk_rope_head_dim).
+kv_lora_rank) and the rotary key ``k_rope`` (L, B, S, qk_rope_head_dim); for
+the enc-dec family the decoder's K and V beside the encoder's, ``enc_k`` and
+``enc_v`` (L, B, Se, Hkv, hd), which ``init_cache`` leaves at zero, as the
+reference's does (its serving engine attends over that zero cache).
 ``decode_step`` writes the new entries into those tensors in place and
 returns the same tensors with ``pos`` advanced (the reference returns new
 arrays); do not reuse a cache after passing it on.
@@ -37,15 +46,17 @@ arrays); do not reuse a cache after passing it on.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from .attention import (attention_apply, attention_decode_apply, attention_specs, mla_apply,
-                        mla_decode_apply, mla_specs)
+from .attention import (attention_apply, attention_decode_apply, attention_specs,
+                        cross_decode_apply, mla_apply, mla_decode_apply, mla_specs)
 from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm, sigmoid
 from .mamba2 import mamba2_apply, mamba2_decode_apply, mamba2_specs
 from .moe import moe_apply, moe_specs
@@ -56,20 +67,40 @@ from .rwkv6 import _token_shift, rwkv6_apply, rwkv6_decode_apply, rwkv6_specs
 __all__ = ["build_param_specs", "chunked_ce", "forward", "decode_step", "init_cache", "loss_fn"]
 
 _DENSE = ("dense", "vlm")
-_TODO = {
-    "encdec": "10(c) (the enc-dec family)",
-}
+_FAMILIES = _DENSE + ("moe", "ssm", "hybrid", "encdec")
+# the matrix products whose results remat="dots" keeps (jax's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm, torch.ops.aten.baddbmm)
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    """Raise unless the inference path of ``cfg``'s family is ported."""
-    if cfg.family in _DENSE or cfg.family in ("ssm", "hybrid", "moe"):
-        return
-    item = _TODO.get(cfg.family)
-    if item is None:
-        raise ValueError(f"unknown family {cfg.family!r}")
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md item {item})")
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy: keep what a matrix product returns,
+    recompute everything else."""
+    if op.overloadpacket in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, rt: Runtime):
+    """``fn`` under ``rt.remat``'s policy (the reference's ``_remat``):
+    ``"none"`` keeps what the backward needs, ``"dots"`` keeps the products'
+    results, anything else recomputes the whole body in the backward."""
+    if rt.remat == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if rt.remat == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def _ln(stacked: Optional[int], d: int, dtype: torch.dtype) -> ParamSpec:
@@ -125,7 +156,7 @@ def _dense_blocks(cfg: ArchConfig, n: int, dt: torch.dtype) -> Dict[str, Any]:
 
 
 def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
-    _require_ported(cfg)
+    _check_family(cfg)
     rt = rt or Runtime()
     dt = rt.pdtype
     d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
@@ -162,6 +193,18 @@ def build_param_specs(cfg: ArchConfig, rt: Optional[Runtime] = None):
             "ln1": _ln(None, d, dt),
             "ln2": _ln(None, d, dt),
         }
+        return specs
+    if cfg.family == "encdec":
+        specs["enc_blocks"] = _dense_blocks(cfg, cfg.n_encoder_layers, dt)
+        specs["blocks"] = {
+            "attn": attention_specs(cfg, stacked=L, dtype=dt),
+            "xattn": attention_specs(cfg, stacked=L, dtype=dt, cross=True),
+            "ffn": ffn_specs(d, cfg.d_ff, cfg.act, stacked=L, dtype=dt),
+            "ln1": _ln(L, d, dt),
+            "ln2": _ln(L, d, dt),
+            "ln3": _ln(L, d, dt),
+        }
+        specs["enc_ln"] = _ln(None, d, dt)
         return specs
     nd = cfg.moe.first_dense_layers
     if nd:
@@ -216,28 +259,64 @@ def _shared_block(sa, x: torch.Tensor, cfg: ArchConfig, attend) -> torch.Tensor:
     return x + ffn_apply(sa["ffn"], rmsnorm(x, sa["ln2"], cfg.norm_eps), cfg.act)
 
 
-def _stacked_forward(params, cfg: ArchConfig, rt: Runtime, x: torch.Tensor,
-                     positions: torch.Tensor, causal: bool) -> torch.Tensor:
-    for blocks, _ in _stacks(params):
-        for i in range(_depth(blocks)):
-            p = _layer(blocks, i)
-            if cfg.family == "ssm":
-                x = x + rwkv6_apply(p["tmix"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt)
-                x = x + _rwkv_cmix(p["cmix"], rmsnorm(x, p["ln2"], cfg.norm_eps))
-                continue
-            x = x + _attn(cfg)(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rt,
-                               positions, causal)
-            x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
+def _run_stack(blk, x: torch.Tensor, blocks, rt: Runtime, layers=None) -> torch.Tensor:
+    """``blk(h, layer)`` over ``layers`` (all by default) of a stacked tree,
+    each under ``rt.remat``'s policy: the reference's ``_scan_stack``."""
+    body = _remat(blk, rt)
+    for i in range(_depth(blocks)) if layers is None else layers:
+        x = body(x, _layer(blocks, i))
     return x
+
+
+def _block(cfg: ArchConfig, rt: Runtime, positions: torch.Tensor, causal: bool,
+           enc: Optional[torch.Tensor] = None):
+    """The layer body of the stacked families: RWKV's time and channel mix,
+    or attention then the FFN (or MoE), with cross-attention over the
+    encoder output ``enc`` between them where the layer has ``xattn``."""
+    eps = cfg.norm_eps
+
+    def blk(h, p):
+        if cfg.family == "ssm":
+            h = h + rwkv6_apply(p["tmix"], rmsnorm(h, p["ln1"], eps), cfg, rt)
+            return h + _rwkv_cmix(p["cmix"], rmsnorm(h, p["ln2"], eps))
+        h = h + _attn(cfg)(p["attn"], rmsnorm(h, p["ln1"], eps), cfg, rt, positions, causal)
+        if "xattn" in p:
+            h = h + attention_apply(p["xattn"], rmsnorm(h, p["ln3"], eps), cfg, rt, positions,
+                                    causal=False, kv_x=enc)
+        return h + _ffn(p, rmsnorm(h, p["ln2"], eps), cfg, rt)
+
+    return blk
+
+
+def _stacked_forward(params, cfg: ArchConfig, rt: Runtime, x: torch.Tensor,
+                     positions: torch.Tensor, causal: bool,
+                     enc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    blk = _block(cfg, rt, positions, causal, enc)
+    for blocks, _ in _stacks(params):
+        x = _run_stack(blk, x, blocks, rt)
+    return x
+
+
+def _encode(params, cfg: ArchConfig, rt: Runtime, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The enc-dec encoder: ``enc_embeds`` (B, Se, D) in the compute dtype at
+    positions 0 ... Se - 1 through the bidirectional stack, then
+    ``enc_ln``."""
+    e = enc_embeds.to(rt.cdtype)
+    B, S = e.shape[:2]
+    epos = torch.arange(S, dtype=torch.int32, device=e.device)[None].expand(B, S)
+    e = _run_stack(_block(cfg, rt, epos, causal=False), e, params["enc_blocks"], rt)
+    return rmsnorm(e, params["enc_ln"], cfg.norm_eps)
 
 
 def _hybrid_forward(params, cfg: ArchConfig, rt: Runtime, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool) -> torch.Tensor:
     groups, every = _groups(cfg)
+
+    def mblk(h, p):
+        return h + mamba2_apply(p["mamba"], rmsnorm(h, p["ln"], cfg.norm_eps), cfg, rt)
+
     for g in range(groups):
-        for i in range(g * every, (g + 1) * every):
-            p = _layer(params["blocks"], i)
-            x = x + mamba2_apply(p["mamba"], rmsnorm(x, p["ln"], cfg.norm_eps), cfg, rt)
+        x = _run_stack(mblk, x, params["blocks"], rt, range(g * every, (g + 1) * every))
         x = _shared_block(params["shared_attn"], x, cfg, lambda pa, h: attention_apply(
             pa, h, cfg, rt, positions, causal))
     return x
@@ -259,12 +338,16 @@ def forward(
     tokens: Optional[torch.Tensor] = None,        # (B, S) integer
     inputs_embeds: Optional[torch.Tensor] = None,  # (B, S, D) modality stub
     positions: Optional[torch.Tensor] = None,
+    enc_embeds: Optional[torch.Tensor] = None,     # (B, Se, D) enc-dec encoder input
     causal: bool = True,
     return_hidden: bool = False,
 ) -> torch.Tensor:
     """Returns logits (B, S, V) in the compute dtype, or with
-    ``return_hidden`` the hidden states (B, S, D) after ``final_ln``."""
-    _require_ported(cfg)
+    ``return_hidden`` the hidden states (B, S, D) after ``final_ln``. For
+    the enc-dec family ``tokens`` are the decoder's, and the decoder's
+    self-attention is causal whatever ``causal`` says, as in the
+    reference."""
+    _check_family(cfg)
     if inputs_embeds is not None:
         x = inputs_embeds.to(rt.cdtype)
     else:
@@ -278,6 +361,12 @@ def forward(
 
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, cfg, rt, x, positions, causal)
+    elif cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: the enc-dec family needs encoder inputs: pass "
+                             f"enc_embeds (B, Se, d_model), or a batch that holds them")
+        enc = _encode(params, cfg, rt, enc_embeds)
+        x = _stacked_forward(params, cfg, rt, x, positions, True, enc)
     else:
         x = _stacked_forward(params, cfg, rt, x, positions, causal)
     if return_hidden:
@@ -373,20 +462,17 @@ def _mtp_loss(params, cfg: ArchConfig, rt: Runtime, tokens: torch.Tensor,
 
 
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token CE of every ported family (the SSM's and hybrid's scans
+    """Next-token CE of every family (the SSM's and hybrid's scans
     differentiate through K12b and K8b, the MoE expert products through
-    K9b), plus 0.3 times the MTP loss where the config asks for it and the
-    tree has its ``mtp`` subtree (a config without one ignores
-    ``mtp_depth``, as the reference does)."""
-    _require_ported(cfg)
-    if rt.remat != "none":
-        raise NotImplementedError(
-            f"Runtime.remat={rt.remat!r} is not ported yet (ROADMAP.md item 11, with the "
-            f"memory scheduling of the distribution work); use remat='none'")
+    K9b; the enc-dec family reads ``batch["enc_embeds"]``), plus 0.3 times
+    the MTP loss where the config asks for it and the tree has its ``mtp``
+    subtree (a config without one ignores ``mtp_depth``, as the reference
+    does)."""
+    _check_family(cfg)
     tokens, labels = batch.get("tokens"), batch["labels"]
     x = forward(params, cfg, rt, tokens=tokens,
                 inputs_embeds=batch.get("inputs_embeds"), positions=batch.get("positions"),
-                return_hidden=True)
+                enc_embeds=batch.get("enc_embeds"), return_hidden=True)
     loss = chunked_ce(x, _head(params, cfg), labels)
     if cfg.mtp_depth and "mtp" in params and tokens is not None:
         loss = loss + 0.3 * _mtp_loss(params, cfg, rt, tokens, labels)
@@ -404,8 +490,9 @@ def _cache_len(cfg: ArchConfig, max_len: int) -> int:
 
 def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: int = 0,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Stacked-over-layers cache dict. ``pos`` counts tokens generated."""
-    _require_ported(cfg)
+    """Stacked-over-layers cache dict. ``pos`` counts tokens generated;
+    ``enc_len`` is the length of the enc-dec family's encoder cache."""
+    _check_family(cfg)
     dev = resolve_device(device)
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.family == "ssm":
@@ -442,17 +529,24 @@ def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: 
                                     dtype=rt.cdtype, device=dev)
         return c
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    c = {
         "k": torch.zeros(shape, dtype=rt.cdtype, device=dev),
         "v": torch.zeros(shape, dtype=rt.cdtype, device=dev),
-        "pos": pos,
     }
+    if cfg.family == "encdec":
+        enc = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["enc_k"] = torch.zeros(enc, dtype=rt.cdtype, device=dev)
+        c["enc_v"] = torch.zeros(enc, dtype=rt.cdtype, device=dev)
+    c["pos"] = pos
+    return c
 
 
 def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor):
-    """One decode step. tokens: (B, 1) -> logits (B, 1, V), cache."""
-    _require_ported(cfg)
+    """One decode step. tokens: (B, 1) -> logits (B, 1, V), cache. An
+    enc-dec decoder layer attends over the encoder cache between its
+    self-attention and its FFN."""
+    _check_family(cfg)
     x = params["embed"][tokens.long()].to(rt.cdtype)
     pos = cache["pos"]
     if cfg.family == "ssm":
@@ -469,8 +563,12 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Ten
             sub["pos"] = pos
             a, _ = attend(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), sub, cfg, rt)
             x = x + a
+            if "xattn" in p:
+                x = x + cross_decode_apply(p["xattn"], rmsnorm(x, p["ln3"], cfg.norm_eps),
+                                           cache["enc_k"][first + i], cache["enc_v"][first + i],
+                                           cfg, rt)
             x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg, rt)
-    return _logits(params, cfg, x), {**{k: cache[k] for k in keys}, "pos": pos + 1}
+    return _logits(params, cfg, x), dict(cache, pos=pos + 1)
 
 
 def _ssm_decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],

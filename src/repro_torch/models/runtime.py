@@ -8,9 +8,11 @@ In the port the numerics (``param_dtype``, ``compute_dtype``,
 ``softmax_dtype``, and ``opt_state_dtype``, the dtype of the AdamW moments
 that ``Trainer`` allocates), the attention route (``attn_impl``,
 ``attn_chunk``, ``q_block``, ``kv_block``) and the MoE capacity
-(``capacity_factor``) take effect. ``remat`` takes
-only ``"none"`` and ``grad_compression`` only ``"none"`` in training:
-other values raise, naming their ROADMAP.md item. The fields that steer XLA
+(``capacity_factor``) take effect, and so do ``remat`` (each layer
+recomputed in the backward: ``"dots"`` keeps the products' results,
+``"none"`` everything, any other value nothing) and ``grad_compression``
+(``"int8"`` or ``"topk"`` between the backward and AdamW, as the
+reference's ``make_train_step`` applies it). The fields that steer XLA
 or sharding in the reference (``matmul_precision``, ``scan_layers``,
 ``scan_unroll``, ``dp_size``, ``act_shard``, ``fsdp``, ``zero1``,
 ``seq_shard``, ``overlap_collective_matmul``, ``pp_stages``,

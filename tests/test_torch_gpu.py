@@ -2381,3 +2381,124 @@ def test_baseline_on_the_card_equals_its_cpu_run(cuda, name, kernels):
     assert card[1] == host[1]
     assert all(card[2]["launches"][k] > 0 for k in kernels), card[2]
     assert not any(card[2]["plain_calls"].values()), card[2]
+
+
+# ------------------------------------------------------- the enc-dec family
+
+# cross-attention's calls of K4-K6: non-causal, Sq != Sk, G = 1, D = 64;
+# (BH, Sq, Sk): keys that end inside a 128-key tile (1000), fewer queries
+# than keys and more, and the seamless-m4t-medium smoke's shape cut in rows
+CROSS_SHAPES = [(4, 64, 128), (4, 100, 1000), (3, 1000, 100), (2, 256, 4096), (32, 128, 4096)]
+
+
+@pytest.mark.parametrize("BH,Sq,Sk", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_at_cross_shapes_matches_plain(cuda, BH, Sq, Sk, dtype):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attn import ops
+
+    q, k, v = _flash_inputs(BH, Sq, Sk, 1, 64, dtype, cuda, seed=Sq + Sk)
+    kw = dict(causal=False, window=None, q_offset=0, q_block=Sq, kv_block=Sk)
+    before = counts.LAUNCHES["flash_attn_fwd"]
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    assert counts.LAUNCHES["flash_attn_fwd"] == before + 1
+    o_ref, lse_ref = ops.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
+    if dtype == torch.bfloat16:
+        atol, rtol = K4_BF16_O_TOL
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+        assert float((lse - lse_ref).abs().max()) <= K4_LSE_ATOL
+    else:
+        _close(o, o_ref, FLASH_TOL[dtype])
+        _close(lse, lse_ref, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("BH,Sq,Sk", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_at_cross_shapes_matches_plain(cuda, BH, Sq, Sk, dtype):
+    # K6 writes every dk, dv row up to Sk, the last tile's included
+    q, k, v = _flash_inputs(BH, Sq, Sk, 1, 64, dtype, cuda, seed=Sq * Sk)
+    _check_bwd(q, k, v, dict(causal=False, window=None, q_offset=0, q_block=Sq, kv_block=Sk))
+
+
+@pytest.mark.parametrize("S", [128, 1000, 4096])
+@pytest.mark.parametrize("route", [None, "scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_with_every_row_full(cuda, S, route, dtype):
+    """K7 as the cross decode calls it: every row at the encoder's length."""
+    from repro_torch.kernels.flash_decode import ops, ref
+
+    q, k, v, _ = _decode_inputs(2, S, 16, 1, 64, dtype, cuda, seed=S)
+    lens = torch.full((2,), S, dtype=torch.int32, device=cuda)
+    splits = ops.split_plan(S, 4, 128)[0] if route == "scalar" else None
+    o = _decode_on(route, q, k, v, lens, splits)
+    torch.cuda.synchronize()
+    _decode_close(o, ops.decode_plain(q, k, v, lens, *ops.split_plan(S, 4, 128)))
+    _decode_close(o, ref.decode_ref(q, k, v, lens))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_flash_route_matches_xla_route(cuda, dtype):
+    """The reduced seamless-m4t-medium on the card: forward, a decode step
+    over a filled encoder cache and the loss's gradients through K4-K7
+    against the plain route (``xla``), no plain call."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import counts
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params, loss_fn)
+    from repro_torch.models.model import _encode
+    from repro_torch.models.params import tree_leaves
+
+    cfg = reduced(get_arch("seamless-m4t-medium"))
+    rt = Runtime(param_dtype=dtype, compute_dtype=dtype, attn_chunk=16, q_block=32, kv_block=32)
+    flash = dataclasses.replace(rt, attn_impl="flash")
+    params = init_params(build_param_specs(cfg, rt),
+                         torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 65))).to(cuda)
+    enc = torch.from_numpy(rng.standard_normal((2, 96, cfg.d_model)).astype(np.float32)).to(
+        cuda, getattr(torch, dtype))
+    bound = 1e-5 if dtype == "float32" else 5e-2
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+
+    counts.reset()
+    lf = forward(params, cfg, flash, tokens=toks[:, :-1], enc_embeds=enc)
+    assert counts.LAUNCHES["flash_attn_fwd"] == n_attn and not any(counts.PLAIN_CALLS.values())
+    lx = forward(params, cfg, rt, tokens=toks[:, :-1], enc_embeds=enc)
+    err = (torch.softmax(lf.float(), -1) - torch.softmax(lx.float(), -1)).abs().max()
+    assert float(err) < bound, float(err)
+
+    outs = []
+    for r in (rt, flash):
+        cache = init_cache(cfg, r, 2, 8, enc_len=96, device=cuda)
+        e = _encode(params, cfg, r, enc)
+        for i in range(cfg.n_layers):
+            cache["enc_k"][i] = torch.einsum("bsd,dhe->bshe", e, params["blocks"]["xattn"]["wk"][i])
+            cache["enc_v"][i] = torch.einsum("bsd,dhe->bshe", e, params["blocks"]["xattn"]["wv"][i])
+        counts.reset()
+        for t in range(3):
+            lg, cache = decode_step(params, cfg, r, cache, toks[:, t:t + 1])
+        outs.append(lg)
+        want_k7 = 3 * 2 * cfg.n_layers if r is flash else 0
+        assert counts.LAUNCHES["flash_decode"] == want_k7
+    err = (torch.softmax(outs[0].float(), -1) - torch.softmax(outs[1].float(), -1)).abs().max()
+    assert float(err) < bound, float(err)
+
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "enc_embeds": enc}
+    grads = []
+    for r in (rt, flash):
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        counts.reset()
+        loss = loss_fn(params, cfg, r, batch)
+        grads.append((float(loss.detach()), torch.autograd.grad(loss, leaves)))
+        for p in leaves:
+            p.requires_grad_(False)
+        if r is flash:
+            for k in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+                assert counts.LAUNCHES[k] == n_attn and counts.PLAIN_CALLS[k] == 0
+    assert abs(grads[0][0] - grads[1][0]) <= (1e-5 if dtype == "float32" else 1e-2)
+    for gx, gf in zip(grads[0][1], grads[1][1]):
+        scale = max(float(gx.float().abs().max()), 1e-30)
+        assert float((gf.float() - gx.float()).abs().max()) <= (
+            1e-4 if dtype == "float32" else 5e-2) * scale

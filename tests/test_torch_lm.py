@@ -196,10 +196,32 @@ def test_other_families_are_refused_with_their_roadmap_item(family_arch):
         assert all(bool(torch.isfinite(g).all()) for g in grads)
         assert set(p_init_cache(cfg, PRuntime(), 1, 8, device="cpu")) == {"c_kv", "k_rope", "pos"}
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        p_specs(cfg, PRuntime())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        p_init_cache(cfg, PRuntime(), 1, 8, device="cpu")
+    # the enc-dec family (seamless-m4t-medium) serves and trains: a gradient
+    # flows into every leaf, the encoder's included, through K4-K6 (plain
+    # here) at the encoder's, the decoder's and the cross-attention's
+    # shapes; tests/test_torch_encdec.py holds it to the reference
+    from repro_torch.models import loss_fn as p_loss_fn
+    from repro_torch.models.params import tree_leaves
+
+    assert cfg.family == "encdec"
+    params = p_init_params(p_specs(cfg, PRuntime()), torch.Generator().manual_seed(0), CPU)
+    batch = {"tokens": torch.arange(2, 10, dtype=torch.int32)[None],
+             "labels": torch.arange(3, 11, dtype=torch.int32)[None],
+             "enc_embeds": torch.randn((1, 12, cfg.d_model), generator=torch.Generator()
+                                       .manual_seed(1)).to(torch.bfloat16)}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    counts.reset()
+    loss = p_loss_fn(params, cfg, PRuntime(attn_impl="flash"), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    for k in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
+        assert counts.PLAIN_CALLS[k] == n_attn and counts.LAUNCHES[k] == 0
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads)
+    assert set(p_init_cache(cfg, PRuntime(), 1, 8, enc_len=12, device="cpu")) == {
+        "k", "v", "enc_k", "enc_v", "pos"}
 
 
 def test_bf16_weights_carry_their_bits():

@@ -336,8 +336,11 @@ def test_loss_fn_refuses_what_is_not_ported():
     params = _port(_ref_params("float32"))
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
              "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        p_loss_fn(params, cfg, PRuntime(remat="full"), batch)
+    # remat, refused until it was ported, recomputes each layer and gives the
+    # loss that remat="none" gives (tests/test_torch_remat.py holds it)
+    rt = _runtimes("float32")[1]
+    assert torch.equal(p_loss_fn(params, cfg, dataclasses.replace(rt, remat="full"), batch),
+                       p_loss_fn(params, cfg, rt, batch))
     # a config without an mtp subtree ignores mtp_depth, as the reference does
     jcfg = dataclasses.replace(_cfgs()[0], mtp_depth=1)
     jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
@@ -345,8 +348,9 @@ def test_loss_fn_refuses_what_is_not_ported():
     got = float(p_loss_fn(params, dataclasses.replace(cfg, mtp_depth=1), _runtimes("float32")[1],
                           batch))
     assert abs(got - want) <= F32 * want
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        make_train_step(cfg, PRuntime(grad_compression="int8"))
+    # gradient compression, refused until it was ported, builds a step
+    # (tests/test_torch_compression.py holds its steps to the reference)
+    assert callable(make_train_step(cfg, PRuntime(grad_compression="int8")))
 
 
 # ------------------------------------------------------------------ AdamW
