@@ -294,9 +294,25 @@ Phases, in order:
     port's bit for bit; K4 at the encoder's and the cross-attention's first
     call and K7 at the cross decode, each against its plain version and
     timed beside SDPA;
-16. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
+16. ``dist``: (i) the 1 x 1 mesh on a one-rank NCCL group: llama3-8b's
+    full serving parameters placed by ``shardings_for_specs`` (every
+    placement ``Replicate``, each leaf through ``distribute_tensor``), the
+    serve phase's 2 x 4096 prefill and 8 decode steps of 2 rows (K4, K7,
+    K10), then one train step at the train phase's 8-layer cut (K4-K6,
+    K10, K11), with the counts reset just before the meshed calls and read
+    just after; logits, cache, loss and updated parameters must equal the
+    same calls without the mesh bit for bit; (ii) the dry-run of one cell
+    a family (``DIST_CELLS``) on the 16 x 16 and 2 x 16 x 16 fake meshes,
+    traced on the host in a process of its own started before the
+    ``serve`` phase (no card, one thread): every cell ``ok``, each one's
+    per-device memory, bottleneck and H100 step time printed (a data-sheet
+    model, not a measurement); (iii) ``repro_torch.jaxwl.tune.tune_mesh``:
+    MFTune on the card tunes ``CellWorkload`` over llama3-8b ``train_4k``
+    and mixtral-8x22b ``decode_32k`` on 16 x 16 with a budget of 16
+    default evaluations and a fresh evaluation cache; K1 must launch;
+17. ``agree``: a small fixed-seed tuner run on ``cuda`` and on ``cpu`` whose
     observation streams and trajectories must be identical;
-17. the seconds of each phase, one JSON line with the kernels' numbers, the
+18. the seconds of each phase, one JSON line with the kernels' numbers, the
     card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -5778,6 +5794,260 @@ def run_encdec(device) -> dict:
                      losses=losses, remat=remat, compression=compressed))
 
 
+DIST_CELLS = (("llama3-8b", "train_4k"), ("mixtral-8x22b", "decode_32k"),
+              ("deepseek-v3-671b", "train_4k"), ("rwkv6-7b", "decode_32k"),
+              ("zamba2-2.7b", "long_500k"), ("seamless-m4t-medium", "decode_32k"))
+DIST_DECODE = (2, 8, 64)      # batch, decode steps, cache length of the meshed decode check
+JAXWL_CELLS = (("llama3-8b", "train_4k"), ("mixtral-8x22b", "decode_32k"))
+JAXWL_EVALS = 16              # the tuning budget, in default-configuration evaluations
+
+
+def start_dryrun(out_path: Path) -> subprocess.Popen:
+    """The dist phase's dry-run cells (one a family, both meshes) in a
+    process of their own on the host (no card, one thread), started while
+    the card runs the earlier phases."""
+    import os
+
+    code = ("import json, sys\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            "cells = json.loads(sys.argv[1])\n"
+            "out = []\n"
+            "for a, s in cells:\n"
+            "    for mp in (False, True):\n"
+            "        try:\n"
+            "            out.append(run_cell(a, s, mp))\n"
+            "        except Exception as e:\n"
+            "            out.append({'arch': a, 'shape': s, 'multi_pod': mp, 'status': 'error',"
+            " 'error': f'{type(e).__name__}: {e}'})\n"
+            "with open(sys.argv[2], 'w') as f:\n"
+            "    json.dump(out, f)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    with open(out_path.with_suffix(".log"), "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code, json.dumps(DIST_CELLS),
+                                 str(out_path)], env=env, cwd=str(ROOT), stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def local_shards(tree, shardings, mesh):
+    """Each leaf placed on ``mesh`` by its sharding (``distribute_tensor``,
+    a broadcast on the group), then this rank's shard of it."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    leaves, placed = tree_leaves(tree), []
+    for leaf, sh in zip(leaves, tree_leaves(shardings)):
+        if any(p.is_shard() for p in sh.placements):
+            fail(f"a placement on the 1 x 1 mesh is not Replicate: {sh.placements}")
+        placed.append(distribute_tensor(leaf, mesh, sh.placements).to_local())
+    it = iter(placed)
+    return tree_map(lambda _: next(it), tree)
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def dist_serve(device) -> dict:
+    """(i), serving: llama3-8b at full width and depth, placed on the 1 x 1
+    mesh; the prefill and DIST_DECODE's decode steps with and without the
+    mesh must agree bit for bit, the meshed run through K4, K7 and K10."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (make_param_rules, shardings_for_specs,
+                                                  use_mesh)
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import single_card_mesh
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params)
+
+    cfg = get_arch(LM_ARCH)
+    rt = Runtime(attn_impl="flash")
+    specs = build_param_specs(cfg, rt)
+    params = init_params(specs, torch.Generator(device=device).manual_seed(0), device)
+    rng = np.random.default_rng(0)
+    B, S = PREFILL
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (B, S))).to(device)
+    db, steps, dlen = DIST_DECODE
+    dtoks = torch.from_numpy(rng.integers(2, cfg.vocab, (steps, db, 1))).to(device)
+
+    def serve(p):
+        logits = forward(p, cfg, rt, tokens=tokens)
+        cache = init_cache(cfg, rt, db, dlen, device=device)
+        step_logits = []
+        for t in range(steps):
+            lg, cache = decode_step(p, cfg, rt, cache, dtoks[t])
+            step_logits.append(lg)
+        torch.cuda.synchronize()
+        return logits, torch.stack(step_logits), cache
+
+    with torch.no_grad():
+        logits0, steps0, cache0 = serve(params)
+        with single_card_mesh(device) as mesh, use_mesh(mesh):
+            sh = shardings_for_specs(specs, mesh, make_param_rules(rt, mesh))
+            placed = local_shards(params, sh, mesh)
+            counts.reset()
+            logits1, steps1, cache1 = serve(placed)
+            launches = {k: counts.LAUNCHES[k] for k in ("flash_attn_fwd", "flash_decode",
+                                                        "rmsnorm_fwd")}
+            plain = sum(counts.PLAIN_CALLS.values())
+            mesh_desc = (f"{tuple(mesh.shape)} {mesh.mesh_dim_names} "
+                         f"{torch.distributed.get_backend()}")
+    same = (torch.equal(logits0, logits1), torch.equal(steps0, steps1),
+            trees_equal(cache0, cache1))
+    print(f"[dist] serve {cfg.name} full ({cfg.n_layers} layers) on the {mesh_desc} mesh, "
+          f"every placement Replicate: prefill {B}x{S} logits, {steps} decode steps of "
+          f"{db} rows and the cache bit for bit without the mesh {same}; meshed launches "
+          f"{launches} plain calls {plain}", flush=True)
+    want = {"flash_attn_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * steps,
+            "rmsnorm_fwd": (2 * cfg.n_layers + 1) * (1 + steps)}
+    if not all(same):
+        fail(f"the 1 x 1 mesh changed the serving results: {same}")
+    if launches != want or plain:
+        fail(f"meshed serving launched {launches} (want {want}) and plain versions {plain}")
+    if not bool(torch.isfinite(logits1).all()):
+        fail("meshed prefill logits are not finite")
+    return launches
+
+
+def dist_train(device) -> dict:
+    """(i), training: one llama3-8b train step at the train phase's 8-layer
+    cut with and without the 1 x 1 mesh from the same parameters; loss and
+    updated parameters bit for bit, the meshed step through K4-K6, K10, K11."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (make_param_rules, shardings_for_specs,
+                                                  use_mesh)
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import single_card_mesh
+    from repro_torch.models import Runtime, build_param_specs, init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
+    rt = Runtime(attn_impl="flash", remat="none")
+    specs = build_param_specs(cfg, rt)
+    params = init_params(specs, torch.Generator(device=device).manual_seed(0), device)
+    start = tree_map(torch.clone, params)
+    rng = np.random.default_rng(1)
+    B, S = TRAIN_BATCH
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (B, S + 1))).to(device)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    step = make_train_step(cfg, rt, lr=TRAIN_LR)
+
+    p0, _, m0 = step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    with single_card_mesh(device) as mesh, use_mesh(mesh):
+        sh = shardings_for_specs(specs, mesh, make_param_rules(rt, mesh))
+        placed = local_shards(start, sh, mesh)
+        counts.reset()
+        p1, _, m1 = step(placed, adamw_init(placed), batch)
+        torch.cuda.synchronize()
+        launches = {k: counts.LAUNCHES[k] for k in TRAIN_KERNELS}
+        plain = sum(counts.PLAIN_CALLS.values())
+    same = (torch.equal(m0["loss"], m1["loss"]), trees_equal(p0, p1))
+    print(f"[dist] train {cfg.name} at {cfg.n_layers} layers, {B}x{S} tokens, one step on the "
+          f"1 x 1 mesh: loss {float(m1['loss'])} and the updated parameters bit for bit "
+          f"without the mesh {same}; meshed launches {launches} plain calls {plain}",
+          flush=True)
+    if not all(same):
+        fail(f"the 1 x 1 mesh changed the train step: {same}")
+    n = cfg.n_layers
+    want = {"flash_attn_fwd": n, "flash_attn_dq": n, "flash_attn_dkv": n,
+            "rmsnorm_fwd": 2 * n + 1, "rmsnorm_bwd": 2 * n + 1}
+    if launches != want or plain:
+        fail(f"the meshed train step launched {launches} (want {want}), plain {plain}")
+    return launches
+
+
+def dist_cells(proc: subprocess.Popen, out_path: Path, card: str) -> list:
+    """(ii): the dry-run cells from ``start_dryrun``'s process."""
+    t0 = time.perf_counter()
+    proc.wait(timeout=600)
+    if proc.returncode != 0:
+        log = out_path.with_suffix(".log").read_text()
+        fail(f"the dry-run process exited with {proc.returncode}: {log[-2000:]}")
+    with open(out_path) as f:
+        cells = json.load(f)
+    for r in cells:
+        if r["status"] != "ok":
+            fail(f"dry-run {r['arch']} x {r['shape']} multi_pod={r['multi_pod']}: "
+                 f"{r['status']} {r.get('reason') or r.get('error')}")
+        m, rl = r["memory"], r["roofline"]
+        print(f"[dist] dryrun {r['arch']} x {r['shape']} on {r['mesh']}: {r['status']}, "
+              f"per device args {m['args_gb_per_device']} GB temp {m['temp_gb_per_device']} GB, "
+              f"bottleneck {rl['bottleneck']}, step {rl['step_time_s']:.6f} s "
+              f"(compute {rl['compute_s']:.6f}, memory {rl['memory_s']:.6f}, collective "
+              f"{rl['collective_s']:.6f}), useful_ratio {rl['useful_ratio']:.4f}; traced in "
+              f"{r['lower_s'] + r['compile_s']:.1f} s. Step times: a model against the H100 "
+              f"SXM data sheet, not measured on {card}", flush=True)
+    print(f"[dist] dry-run cells waited for {time.perf_counter() - t0:.1f}s after the card's "
+          f"phases", flush=True)
+    return cells
+
+
+def dist_jaxwl(device, card: str) -> dict:
+    """(iii): MFTune on the card tunes CellWorkload over JAXWL_CELLS on the
+    16 x 16 mesh with a fresh evaluation cache."""
+    import tempfile
+
+    from repro_torch.kernels import counts
+    from repro_torch.jaxwl.tune import tune_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        counts.reset()
+        t0 = time.perf_counter()
+        base, res, tuner = tune_mesh(JAXWL_CELLS, JAXWL_EVALS, cache_path=f"{tmp}/evals.json",
+                                     device=device)
+        wl = tuner.wl
+        wall = time.perf_counter() - t0
+        tuner_kernels = ("forest_eval", "radix_rank", "chain_ordinals")
+        launches = {k: counts.LAUNCHES[k] for k in tuner_kernels}
+        # the cells' traces run the LM kernels' plain versions on fake tensors
+        plain = sum(counts.PLAIN_CALLS[k] for k in tuner_kernels)
+        n_cells = len(wl._cache)
+    best = dict(sorted(res.best_config.items()))
+    print(f"[dist] jaxwl MFTune over {wl.queries} on 16x16: {res.n_evaluations} evaluations "
+          f"({n_cells} traced cells) in {wall:.1f}s; default {base.aggregate:.6f} s, best "
+          f"{res.best_performance:.6f} s a step (H100 SXM data-sheet model, not measured on "
+          f"{card}); best config {best}; tuner launches {launches} plain calls {plain}",
+          flush=True)
+    if launches["forest_eval"] == 0 or plain or res.best_config is None:
+        fail(f"the jaxwl tuning run launched {launches} and plain versions {plain}")
+    return {"evaluations": res.n_evaluations, "default_s": base.aggregate,
+            "best_s": res.best_performance, "best_config": best, "launches": launches,
+            "wall_s": wall}
+
+
+def run_dist(device, proc: subprocess.Popen, out_path: Path, card: str) -> dict:
+    """The ``dist`` phase: (i) the 1 x 1 mesh, (ii) the dry-run cells,
+    (iii) the jaxwl tuning run."""
+    serve = dist_serve(device)
+    train = dist_train(device)
+    cells = dist_cells(proc, out_path, card)
+    jaxwl = dist_jaxwl(device, card)
+    return {"serve_launches": serve, "train_launches": train, "jaxwl": jaxwl,
+            "dryrun": [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                        "step_time_s": r["roofline"]["step_time_s"],
+                        "bottleneck": r["roofline"]["bottleneck"],
+                        "args_gb": r["memory"]["args_gb_per_device"],
+                        "temp_gb": r["memory"]["temp_gb_per_device"]} for r in cells]}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
@@ -5840,6 +6110,25 @@ def main() -> int:
     for row in main_rows[:3]:
         row.update(baseline_keys.get(row["name"], {}))
     phase_s["baselines"] = time.perf_counter() - t0
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun_out = Path(tmp) / "dist_dryrun.json"
+        dryrun_proc = start_dryrun(dryrun_out)
+        try:
+            return finish(device, card, phase_s, launches, main_rows, scale_rows, fused,
+                          step_numbers, baselines_phase, dryrun_proc, dryrun_out)
+        finally:
+            if dryrun_proc.poll() is None:
+                dryrun_proc.kill()
+                dryrun_proc.wait()
+
+
+def finish(device, card, phase_s, launches, main_rows, scale_rows, fused, step_numbers,
+           baselines_phase, dryrun_proc, dryrun_out) -> int:
+    """The LM phases from ``serve`` to ``dist``, then the result lines."""
+    import torch
+
     t0 = time.perf_counter()
     k4_row, k4_launches, serve_k10, serve_k7, long_step = run_serve(device)
     phase_s["serve"] = time.perf_counter() - t0
@@ -5904,6 +6193,18 @@ def main() -> int:
         if r["name"] == "flash_decode":
             r["launches_encdec"] = {"decode_step": encdec["decode"]["k7"]}
             r["encdec_cross"] = encdec["k7_cross"]
+    t0 = time.perf_counter()
+    dist = run_dist(device, dryrun_proc, dryrun_out, card)
+    phase_s["dist"] = time.perf_counter() - t0
+    print(f"[dist] phase seconds {phase_s['dist']:.1f}", flush=True)
+    for r in main_rows:
+        meshed = {k: v[r["name"]] for k, v in (("serve", dist["serve_launches"]),
+                                               ("train_step", dist["train_launches"]))
+                  if r["name"] in v}
+        meshed.update({"jaxwl": dist["jaxwl"]["launches"][r["name"]]}
+                      if r["name"] in dist["jaxwl"]["launches"] else {})
+        if meshed:
+            r["launches_dist"] = meshed
     t0 = time.perf_counter()
     run_agreement()
     phase_s["agree"] = time.perf_counter() - t0
@@ -5970,7 +6271,8 @@ def main() -> int:
     print(json.dumps({"kernels": [line(r, launches[r["name"]]) for r in main_rows],
                       "at_scale": [line(r, None) for r in scale_rows],
                       "propose": {"tuner": fused, "step": step_numbers},
-                      "baselines": baselines_phase, "encdec": encdec["numbers"]}), flush=True)
+                      "baselines": baselines_phase, "encdec": encdec["numbers"],
+                      "dist": dist}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

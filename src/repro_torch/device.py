@@ -3,6 +3,8 @@
 Every entry point takes ``device=None``, which means the CUDA card. A run
 without a card raises unless the caller asked for the host with
 ``device="cpu"``; nothing in the package falls back to the CPU on its own.
+``device="meta"`` gives tensors with a shape and no storage, which the
+dry-run's abstract trees use.
 """
 
 from __future__ import annotations
@@ -27,6 +29,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

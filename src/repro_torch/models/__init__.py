@@ -6,8 +6,9 @@ prediction) and the enc-dec family (seamless-m4t-medium), for inference and
 training (``loss_fn``, with the reference's ``Runtime.remat`` policies)."""
 
 from .runtime import Runtime
-from .params import ParamSpec, init_params, param_bytes
+from .params import ParamSpec, abstract_params, init_params, param_bytes, spec_shardings
 from .model import (
+    abstract_cache,
     build_param_specs,
     chunked_ce,
     forward,
@@ -17,6 +18,7 @@ from .model import (
 )
 
 __all__ = [
-    "Runtime", "ParamSpec", "init_params", "param_bytes", "build_param_specs", "forward",
-    "decode_step", "init_cache", "chunked_ce", "loss_fn",
+    "Runtime", "ParamSpec", "abstract_cache", "abstract_params", "init_params", "param_bytes",
+    "spec_shardings", "build_param_specs", "forward", "decode_step", "init_cache",
+    "chunked_ce", "loss_fn",
 ]

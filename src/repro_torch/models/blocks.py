@@ -10,9 +10,10 @@ a bf16 activation to bf16, where one fused torch call (``F.silu``,
 (``jax.nn.gelu`` defaults to the tanh form). Autograd differentiates them;
 ``sigmoid`` takes s (1 - s) from its output as its backward, as
 ``lax.logistic`` does, where differentiating 1 / (1 + exp(-x)) as written
-gives NaN once exp(-x) overflows. The reference's ``shard_batch``
-constrains a layout on a mesh; on one card it is the identity, and the
-port has none.
+gives NaN once exp(-x) overflows. ``shard_batch`` places an activation
+on the current mesh (``distributed.sharding.use_mesh``) as the reference's
+constrains it; without a mesh, or on a mesh of one rank, it is the
+identity.
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding
 from ..kernels.rmsnorm.ops import rmsnorm
 from .params import ParamSpec
+from .runtime import Runtime
 
 __all__ = [
     "rmsnorm", "silu", "sigmoid", "gelu_tanh", "ffn_specs", "ffn_apply", "rope_freqs",
-    "apply_rope", "mrope_positions",
+    "apply_rope", "mrope_positions", "shard_batch",
 ]
 
 
@@ -63,9 +66,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _gelu_constants(dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """sqrt(2 / pi) and 0.044715 as 0-dim CPU tensors in ``dtype``: a CUDA
-    op takes them as scalars, so no call copies them to the card."""
-    return (torch.tensor(0.7978845608028654, dtype=dtype),
-            torch.tensor(0.044715, dtype=dtype))
+    op takes them as scalars, so no call copies them to the card. Made as
+    real tensors even under a fake-tensor trace (the dry-run), which must
+    not leave a fake constant in this cache."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return (torch.tensor(0.7978845608028654, dtype=dtype),
+                torch.tensor(0.044715, dtype=dtype))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -146,3 +154,19 @@ def mrope_positions(batch: int, seq: int, device=None) -> torch.Tensor:
     The vision frontend would supply true (t, h, w) ids per patch."""
     p = torch.arange(seq, dtype=torch.int32, device=device)
     return p[None, :, None].expand(batch, seq, 3)
+
+
+def shard_batch(x: torch.Tensor, rt: Runtime, seq_dim: int = 1) -> torch.Tensor:
+    """Place an activation in the batch-DP (+ optional sequence-parallel)
+    layout: the batch over the data axes where it divides, and with
+    ``rt.seq_shard`` dimension ``seq_dim`` over the model axis. The
+    reference constrains this layout because GSPMD has been seen to carry a
+    d_model-sharded, batch-replicated layout from the FSDP-sharded embedding
+    into the whole residual stream. The identity without ``rt.act_shard``,
+    outside a mesh or on a mesh of one rank."""
+    if not rt.act_shard:
+        return x
+    mesh = sharding.current_mesh()
+    if mesh is None or mesh.size() == 1:
+        return x
+    return sharding.place(x, sharding.activation_spec(x.shape, mesh, rt.seq_shard, seq_dim))

@@ -57,14 +57,15 @@ from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import (attention_apply, attention_decode_apply, attention_specs,
                         cross_decode_apply, mla_apply, mla_decode_apply, mla_specs)
-from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm, sigmoid
+from .blocks import ffn_apply, ffn_specs, mrope_positions, rmsnorm, shard_batch, sigmoid
 from .mamba2 import mamba2_apply, mamba2_decode_apply, mamba2_specs
 from .moe import moe_apply, moe_specs
 from .params import ParamSpec, tree_leaves, tree_map
 from .runtime import Runtime
 from .rwkv6 import _token_shift, rwkv6_apply, rwkv6_decode_apply, rwkv6_specs
 
-__all__ = ["build_param_specs", "chunked_ce", "forward", "decode_step", "init_cache", "loss_fn"]
+__all__ = ["abstract_cache", "build_param_specs", "chunked_ce", "forward", "decode_step",
+           "init_cache", "loss_fn"]
 
 _DENSE = ("dense", "vlm")
 _FAMILIES = _DENSE + ("moe", "ssm", "hybrid", "encdec")
@@ -261,8 +262,13 @@ def _shared_block(sa, x: torch.Tensor, cfg: ArchConfig, attend) -> torch.Tensor:
 
 def _run_stack(blk, x: torch.Tensor, blocks, rt: Runtime, layers=None) -> torch.Tensor:
     """``blk(h, layer)`` over ``layers`` (all by default) of a stacked tree,
-    each under ``rt.remat``'s policy: the reference's ``_scan_stack``."""
-    body = _remat(blk, rt)
+    each under ``rt.remat``'s policy with its input and output placed by
+    ``shard_batch``: the reference's ``_scan_stack``."""
+
+    def constrained(h, p):
+        return shard_batch(blk(shard_batch(h, rt), p), rt)
+
+    body = _remat(constrained, rt)
     for i in range(_depth(blocks)) if layers is None else layers:
         x = body(x, _layer(blocks, i))
     return x
@@ -352,6 +358,7 @@ def forward(
         x = inputs_embeds.to(rt.cdtype)
     else:
         x = params["embed"][tokens.long()].to(rt.cdtype)
+    x = shard_batch(x, rt)
     B, S = x.shape[:2]
     if positions is None:
         if cfg.rope == "mrope":
@@ -539,6 +546,12 @@ def init_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int, enc_len: 
         c["enc_v"] = torch.zeros(enc, dtype=rt.cdtype, device=dev)
     c["pos"] = pos
     return c
+
+
+def abstract_cache(cfg: ArchConfig, rt: Runtime, batch: int, max_len: int,
+                   enc_len: int = 0) -> Dict[str, torch.Tensor]:
+    """``init_cache``'s tree on the ``meta`` device: shapes, no storage."""
+    return init_cache(cfg, rt, batch, max_len, enc_len, device="meta")
 
 
 def decode_step(params, cfg: ArchConfig, rt: Runtime, cache: Dict[str, torch.Tensor],

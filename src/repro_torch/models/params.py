@@ -2,11 +2,14 @@
 
 Model code declares parameters as ``ParamSpec`` leaves (shape + dtype +
 *logical axis names*) in nested dicts, as the reference does; a parameter
-tree is the same nested dict with tensors at the leaves. ``init_params``
-makes real tensors from a seeded ``torch.Generator``; ``param_bytes``
-sizes a tree without allocating it. The reference's ``abstract_params`` and
-``spec_shardings`` serve the dry-run and the mesh and come with the
-distribution item of the port.
+tree is the same nested dict with tensors at the leaves. One spec tree
+serves three consumers:
+
+  * ``abstract_params``  -> tensors on the ``meta`` device (the dry-run:
+                            shapes and dtypes, no allocation)
+  * ``init_params``      -> real tensors from a seeded ``torch.Generator``
+  * ``spec_shardings``   -> a ``NamedSharding`` tree through the
+                            logical -> mesh rules of ``distributed/sharding.py``
 
 Logical axis vocabulary: "layers" (stacked blocks), "embed" (d_model),
 "vocab", "heads", "kv_heads", "qk" (per-head q/k dims), "mlp" (d_ff),
@@ -24,7 +27,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["ParamSpec", "init_params", "param_bytes", "tree_leaves", "tree_map"]
+__all__ = ["ParamSpec", "abstract_params", "init_params", "param_bytes", "spec_shardings",
+           "tree_leaves", "tree_map"]
 
 
 @dataclass(frozen=True)
@@ -52,6 +56,40 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def abstract_params(specs) -> Any:
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, no storage."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def spec_shardings(specs, mesh, rules: Dict[Optional[str], Any]) -> Any:
+    """Map logical axes -> ``NamedSharding`` using ``rules``: the reference's
+    ``spec_shardings``, which, unlike ``sharding.assign_pspec``, takes every
+    free candidate axis with no divisibility check and keeps trailing
+    ``None`` entries."""
+    from ..distributed.sharding import NamedSharding
+
+    def one(s: ParamSpec):
+        used: set = set()
+        parts: list = []
+        for ax in s.axes:
+            mesh_axes = rules.get(ax)
+            if mesh_axes is None:
+                parts.append(None)
+                continue
+            if isinstance(mesh_axes, str):
+                mesh_axes = (mesh_axes,)
+            free = tuple(a for a in mesh_axes if a not in used and a in mesh.mesh_dim_names)
+            if not free:
+                parts.append(None)
+                continue
+            used.update(free)
+            parts.append(free if len(free) > 1 else free[0])
+        return NamedSharding(mesh, tuple(parts))
+
+    return tree_map(one, specs)
 
 
 def _scale(s: ParamSpec) -> float:

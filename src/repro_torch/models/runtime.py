@@ -12,13 +12,23 @@ that ``Trainer`` allocates), the attention route (``attn_impl``,
 recomputed in the backward: ``"dots"`` keeps the products' results,
 ``"none"`` everything, any other value nothing) and ``grad_compression``
 (``"int8"`` or ``"topk"`` between the backward and AdamW, as the
-reference's ``make_train_step`` applies it). The fields that steer XLA
-or sharding in the reference (``matmul_precision``, ``scan_layers``,
-``scan_unroll``, ``dp_size``, ``act_shard``, ``fsdp``, ``zero1``,
-``seq_shard``, ``overlap_collective_matmul``, ``pp_stages``,
-``pp_microbatches``) and ``moe_impl`` are kept and have no effect:
-PyTorch runs eagerly on one card, and the reference's MoE layer reads no
-``moe_impl`` either.
+reference's ``make_train_step`` applies it).
+
+The distribution fields act on a mesh (``distributed/sharding.py``), as in
+the reference: ``fsdp`` through ``make_param_rules``' ``embed`` rule (the
+parameters' data-axis sharding), ``act_shard`` and ``seq_shard`` through
+``models.blocks.shard_batch`` (the residual stream's batch and sequence
+placement), and ``dp_size`` is the mesh's data-parallel degree, inferred
+when None and checked against the mesh otherwise (``sharding.dp_size``).
+The dry-run (``launch/dryrun.py``) reads all four. On one card the mesh
+is 1 x 1, every placement is ``Replicate`` and ``shard_batch`` is the
+identity, so they change nothing there. ``zero1``,
+``overlap_collective_matmul``, ``pp_stages`` and ``pp_microbatches`` are
+read by neither package's step: the features they name are
+``distributed/overlap.py`` and ``distributed/pipeline.py``, called
+directly. ``matmul_precision``, ``scan_layers``, ``scan_unroll`` steer XLA
+in the reference and have no effect here (PyTorch runs eagerly), and the
+reference's MoE layer reads no ``moe_impl`` either.
 """
 
 from __future__ import annotations

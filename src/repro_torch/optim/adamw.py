@@ -23,7 +23,7 @@ import torch
 
 from ..models.params import tree_leaves, tree_map
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update"]
+__all__ = ["AdamWState", "adamw_init", "adamw_init_abstract", "adamw_update"]
 
 _SLICE = 1 << 24  # elements per slice of the in-place update
 
@@ -39,6 +39,13 @@ def adamw_init(params, dtype: torch.dtype = torch.float32) -> AdamWState:
     dev = leaves[0].device if leaves else torch.device("cpu")
     z = lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)  # noqa: E731
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), tree_map(z, params),
+                      tree_map(z, params))
+
+
+def adamw_init_abstract(params, dtype: torch.dtype = torch.float32) -> AdamWState:
+    """The state of ``adamw_init`` on the ``meta`` device: shapes, no storage."""
+    z = lambda p: torch.empty(p.shape, dtype=dtype, device="meta")  # noqa: E731
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"), tree_map(z, params),
                       tree_map(z, params))
 
 

@@ -68,6 +68,10 @@ K1's leaf stats), Q2 with no host sync; the engine's graphs to the CPU
 engine and the staged path over pools, planes and source counts (no host
 sync before the result's copy, each replay's launches counted), and its
 device pool to fresh draws a replay and the same draws from one seed.
+On the 1 x 1 mesh of a one-rank NCCL group (every placement Replicate) a
+reduced llama3-8b's prefill, decode steps, cache and train step equal the
+unmeshed calls bit for bit, and ``pipeline_forward`` and
+``ring_allgather_matmul`` run on that group.
 """
 from __future__ import annotations
 
@@ -2502,3 +2506,112 @@ def test_encdec_flash_route_matches_xla_route(cuda, dtype):
         scale = max(float(gx.float().abs().max()), 1e-30)
         assert float((gf.float() - gx.float()).abs().max()) <= (
             1e-4 if dtype == "float32" else 5e-2) * scale
+
+
+# ------------------------------------------------- the 1 x 1 mesh (NCCL)
+
+
+def _placed(tree, specs, mesh, rt):
+    """Each leaf distributed on ``mesh`` by ``shardings_for_specs`` (a
+    broadcast on the NCCL group), then this rank's shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import make_param_rules, shardings_for_specs
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    sh = tree_leaves(shardings_for_specs(specs, mesh, make_param_rules(rt, mesh)))
+    assert all(not p.is_shard() for s in sh for p in s.placements)
+    it = iter([distribute_tensor(t, mesh, s.placements).to_local()
+               for t, s in zip(tree_leaves(tree), sh)])
+    return tree_map(lambda _: next(it), tree)
+
+
+@pytest.mark.gpu
+def test_single_card_mesh_serve_bit_for_bit(cuda):
+    """Reduced llama3-8b on the flash route: prefill logits, decode steps and
+    the cache on the 1 x 1 NCCL mesh equal the unmeshed calls bit for bit."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import single_card_mesh
+    from repro_torch.models import (Runtime, build_param_specs, decode_step, forward,
+                                    init_cache, init_params)
+    from repro_torch.models.params import tree_leaves
+
+    cfg, rt = reduced(get_arch("llama3-8b")), Runtime(attn_impl="flash")
+    specs = build_param_specs(cfg, rt)
+    params = init_params(specs, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 64))).to(cuda)
+
+    def serve(p):
+        out = [forward(p, cfg, rt, tokens=toks)]
+        cache = init_cache(cfg, rt, 2, 16, device=cuda)
+        for t in range(4):
+            lg, cache = decode_step(p, cfg, rt, cache, toks[:, t:t + 1])
+            out.append(lg)
+        return out, cache
+
+    with torch.no_grad():
+        want, want_cache = serve(params)
+        with single_card_mesh(cuda) as mesh, use_mesh(mesh):
+            counts.reset()
+            got, cache = serve(_placed(params, specs, mesh, rt))
+            assert counts.LAUNCHES["flash_attn_fwd"] == cfg.n_layers
+            assert counts.LAUNCHES["flash_decode"] == 4 * cfg.n_layers
+            assert sum(counts.PLAIN_CALLS.values()) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)))
+
+
+@pytest.mark.gpu
+def test_single_card_mesh_train_step_bit_for_bit(cuda):
+    """One reduced llama3-8b train step on the flash route with and without
+    the 1 x 1 NCCL mesh: the loss and every updated leaf bit for bit."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import single_card_mesh
+    from repro_torch.models import Runtime, build_param_specs, init_params
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    cfg, rt = reduced(get_arch("llama3-8b")), Runtime(attn_impl="flash")
+    specs = build_param_specs(cfg, rt)
+    params = init_params(specs, torch.Generator(device=cuda).manual_seed(0), cuda)
+    start = tree_map(torch.clone, params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(2, cfg.vocab, (2, 129))).to(cuda)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    step = make_train_step(cfg, rt)
+    p0, _, m0 = step(params, adamw_init(params), batch)
+    with single_card_mesh(cuda) as mesh, use_mesh(mesh):
+        placed = _placed(start, specs, mesh, rt)
+        counts.reset()
+        p1, _, m1 = step(placed, adamw_init(placed), batch)
+        assert counts.LAUNCHES["flash_attn_dkv"] == cfg.n_layers
+        assert sum(counts.PLAIN_CALLS.values()) == 0
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p0), tree_leaves(p1)))
+
+
+@pytest.mark.gpu
+def test_pipeline_and_ring_on_one_nccl_rank(cuda):
+    """``pipeline_forward`` and ``ring_allgather_matmul`` on a one-rank NCCL
+    group: one stage, one shard, the plain computation on the CPU."""
+    from repro_torch.distributed.overlap import ring_allgather_matmul
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import single_card_mesh
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((5, 3, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 8, 8)).astype(np.float32))
+    rx = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32))
+    rw = torch.from_numpy(rng.standard_normal((16, 6)).astype(np.float32))
+    fn = lambda p, h: torch.tanh(h @ p["w"])  # noqa: E731
+    with single_card_mesh(cuda) as mesh:
+        pipe = pipeline_forward(fn, {"w": w.to(cuda)}, x.to(cuda))
+        ring = ring_allgather_matmul(rx.to(cuda), rw.to(cuda), mesh, axis="model")
+    want = torch.tanh(x @ w[0])
+    assert float((pipe.cpu() - want).abs().max()) <= 1e-5
+    assert float((ring.cpu() - rx @ rw).abs().max()) <= 1e-4 * float((rx @ rw).abs().max())
