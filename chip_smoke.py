@@ -381,7 +381,7 @@ HOPPER_KERNELS = {
     # out
     "chain_ordinals": {"chain_staged_kernel": ("1", "2")},
     # the fused propose step's Q1 and Q2
-    "qs_descent": {"qs_descent_kernel": ("",)},
+    "qs_descent": {"qs_descent_kernel": ("",), "qs_descent_tree_kernel": ("",)},
     "combine_ei": {"combine_ei_kernel": ("",)},
 }
 
@@ -1187,6 +1187,7 @@ def run_tuner_fused(kb, device, first) -> tuple:
     import torch
 
     from repro_torch import obs
+    from repro_torch.core.propose import QS_AUTO_MIN
     from repro_torch.kernels import counts
     from repro_torch.sparksim import make_task_id
 
@@ -1232,14 +1233,20 @@ def run_tuner_fused(kb, device, first) -> tuple:
     if plain or not (launches["combine_ei"] and launches["radix_rank"]
                      and launches["forest_eval"] + launches["qs_descent"]):
         fail(f"the fused run launched {launches}, plain calls {plain}")
+    auto_q1 = [b for b in buckets if b >= QS_AUTO_MIN["cuda"]]
+    print(f"[propose] the fused run's buckets {buckets}: auto takes Q1 at {auto_q1} "
+          f"(QS_AUTO_MIN {QS_AUTO_MIN['cuda']}), K1 below; Q1 by route "
+          f"{ {k: v for k, v in routes.items() if k.startswith('qs_descent')} }", flush=True)
+    if auto_q1 and not routes.get("qs_descent/per_tree"):
+        fail(f"auto took no Q1 per_tree launch at buckets {auto_q1}: {routes}")
     out["propose_tuner_last_call"] = hold_last_call(eng)
     return out, launches
 
 
 def hold_last_call(eng) -> dict:
-    """Q1 and Q2 against their plain versions at the shapes of the fused
-    run's last call: its plane and its pool, as its graph's buffers hold
-    them."""
+    """Q1 (on its plan's route and on ``merged``) and Q2 against their
+    plain versions at the shapes of the fused run's last call: its plane
+    and its pool, as its graph's buffers hold them."""
     import torch
 
     from repro_torch.kernels.forest_eval import ops
@@ -1257,10 +1264,11 @@ def hold_last_call(eng) -> dict:
     want2 = P.combine_ei_plain(m, v, ystats, inc, meta)
     same = torch.equal(q2.view(torch.int64), want2.view(torch.int64))
     if qs is not None:   # else a tree has more than 128 leaves: no Q1 there
-        q1 = P.qs_leaf_stats_cuda(X, qs)
         want1 = P.qs_leaf_stats_plain(X, qs)
-        same &= all(torch.equal(a.view(torch.int64), b.view(torch.int64))
-                    for a, b in zip(q1, want1)) and torch.equal(q1[0], m)
+        for route in (None, "merged"):   # the plan's route, then the first design
+            q1 = P.qs_leaf_stats_cuda(X, qs, route=route)
+            same &= all(torch.equal(a.view(torch.int64), b.view(torch.int64))
+                        for a, b in zip(q1, want1)) and torch.equal(q1[0], m)
     torch.cuda.synchronize()
     shape = (f"sources={entry.S} trees={entry.T} pool={X.shape[0]}x{X.shape[1]} "
              f"valid={int(meta[2])}")
@@ -1305,14 +1313,17 @@ def host_ms(fn, reps: int = 10) -> float:
 
 def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
     """The fused step at 12 sources x 10 trees over the 60-knob space, at
-    every pool bucket from 256 to 131072: the engine's graphs (host pool,
-    both descents, no host sync before the result's copy) with the counts
-    reset just before and read just after, each selection equal to the
-    staged path's; Q1 and Q2 against their plain versions bit for bit;
-    at two sizes Q1 against K1 ``tiled`` by trace in turns (K1, Q1, Q1,
-    K1), Q2 against the staged torch combine + EI, the step's device time
-    by stage and its host clock, graph against eager; the device pool's
-    draws. Returns (Q1's row, Q2's row, the drive's launches, numbers)."""
+    every pool bucket from 256 to 131072: the engines' graphs (host pool,
+    both descents, Q1 on its plan's route ``per_tree`` and, in an engine
+    that forces it, on ``merged``; no host sync before the result's copy)
+    with the counts reset just before and read just after, each selection
+    equal to the staged path's, no plain call; Q1 on both routes and Q2
+    against their plain versions (and Q1 against K1) bit for bit; at two
+    sizes Q1 ``per_tree`` against K1 ``tiled`` and against ``merged`` by
+    trace in turns (first, new, new, first), Q2 against the staged torch
+    combine + EI, the step's device time by stage and its host clock,
+    graph against eager; the device pool's draws. Returns (Q1's row, Q2's
+    row, the drive's launches, numbers)."""
     import numpy as np
     import torch
 
@@ -1323,6 +1334,7 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
     from repro_torch.kernels import counts
     from repro_torch.kernels.forest_eval import ops
     from repro_torch.kernels.forest_eval import propose as P
+    from repro_torch.kernels.launch import n_sms
 
     space, forests, plane = scale_plane(kb, device)
     S, tps = len(forests), plane.uniform_tree_count
@@ -1342,37 +1354,51 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
         staged[N] = np.argsort(aggregate_ranks(scores, ws).cpu().numpy(),
                                kind="stable")[:PROPOSE_N]
 
-    # the drive: every bucket, both descents, through the engine's graphs
+    # the drive: every bucket, both descents, Q1 on both routes, through the
+    # engines' graphs (Q1 on its plan's route, per_tree at this plane, and
+    # on the first design, merged, in an engine that forces it)
     eng = ProposeEngine(space, seed=0)
-    eng.check_sync = True
+    eng_m = ProposeEngine(space, seed=0)
+    eng_m.qs_route = "merged"
+    drives = [(eng, "forest"), (eng, "qs"), (eng_m, "qs")]
+    for e, _ in drives:
+        e.check_sync = True
     for N, X in pools.items():   # capture first: the counted run only replays
-        for d in ("forest", "qs"):
-            eng.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d)
+        for e, d in drives:
+            e.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d)
     torch.cuda.synchronize()
     counts.reset()
     bad = []
     for N, X in pools.items():
-        for d in ("forest", "qs"):
-            if not np.array_equal(eng.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d),
+        for e, d in drives:
+            if not np.array_equal(e.score_topk(forests, X, incs, ws, PROPOSE_N, descent=d),
                                   staged[N]):
-                bad.append((N, d))
+                bad.append((N, d, e.qs_route))
     torch.cuda.synchronize()
     launches = dict(counts.LAUNCHES)
     routes = dict(counts.ROUTE_LAUNCHES)
+    plain = {k: v for k, v in counts.PLAIN_CALLS.items() if v}
     stats = eng.graph_stats()
+    plans = {N: tuple(eng.graphs[("host", N, "qs")].plan) for N in PROPOSE_BUCKETS}
     print(f"[propose] the step at 12 x 10 trees, 60 knobs, buckets {list(PROPOSE_BUCKETS)}, "
-          f"both descents through the graphs (no host sync before the result's copy): "
-          f"launches={ {k: v for k, v in launches.items() if v} } routes={routes} "
-          f"graphs={stats}; selections equal to the staged path's except {bad}", flush=True)
+          f"both descents and Q1 on both routes through the graphs (no host sync before the "
+          f"result's copy): launches={ {k: v for k, v in launches.items() if v} } "
+          f"routes={routes} plain_calls={plain} graphs={stats} (merged engine "
+          f"{eng_m.graph_stats()}); Q1's plans by bucket {plans}; selections equal to the "
+          f"staged path's except {bad}", flush=True)
     if bad:
         fail(f"the fused step's selections differ from the staged path's at {bad}")
-    if not all(launches[k] for k in ("forest_eval", "radix_rank", "qs_descent", "combine_ei")):
-        fail(f"the step's drive left a kernel unlaunched: {launches}")
-    if stats["graphs"] != 2 * len(PROPOSE_BUCKETS) or routes.get("forest_eval/tiled") != \
-            launches["forest_eval"]:
-        fail(f"the drive took {stats} graphs and K1 routes {routes}")
+    if plain or not all(launches[k] for k in ("forest_eval", "radix_rank", "qs_descent",
+                                              "combine_ei")):
+        fail(f"the step's drive left a kernel unlaunched or called a plain version: "
+             f"{launches}, {plain}")
+    n_b = len(PROPOSE_BUCKETS)
+    if stats["graphs"] != 2 * n_b or routes.get("forest_eval/tiled") != \
+            launches["forest_eval"] or routes.get("qs_descent/per_tree") != n_b or \
+            routes.get("qs_descent/merged") != n_b:
+        fail(f"the drive took {stats} graphs, K1 routes and Q1 routes {routes}")
 
-    # Q1 and Q2 against their plain versions at every bucket
+    # Q1 (both routes) and Q2 against their plain versions at every bucket
     ystats = torch.stack([plane.y_means, plane.y_stds, plane.y_std_sqs])
     inc = torch.tensor(incs, dtype=torch.float64, device=device)
     err = {"qs_descent": 0.0, "combine_ei": 0.0}
@@ -1383,7 +1409,7 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            q1 = P.qs_leaf_stats_cuda(Xt, qs)
+            q1s = [P.qs_leaf_stats_cuda(Xt, qs, route=r) for r in P.QS_ROUTES]
             m, v = ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean,
                                         plane.var, plane.roots, Xt, plane.depth, nodes)
             q2 = P.combine_ei_cuda(m, v, ystats, inc, meta)
@@ -1392,14 +1418,16 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
         q1p = P.qs_leaf_stats_plain(Xt, qs)
         q2p = P.combine_ei_plain(m, v, ystats, inc, meta)
         torch.cuda.synchronize()
-        for g, w in zip(q1, q1p):
-            match["qs_descent"] &= torch.equal(g.view(torch.int64), w.view(torch.int64))
-            err["qs_descent"] = max(err["qs_descent"], float((g - w).abs().max()))
-        match["qs_descent"] &= torch.equal(q1[0], m) and torch.equal(q1[1], v)
+        for q1 in q1s:
+            for g, w in zip(q1, q1p):
+                match["qs_descent"] &= torch.equal(g.view(torch.int64), w.view(torch.int64))
+                err["qs_descent"] = max(err["qs_descent"], float((g - w).abs().max()))
+            match["qs_descent"] &= torch.equal(q1[0], m) and torch.equal(q1[1], v)
         match["combine_ei"] &= torch.equal(q2.view(torch.int64), q2p.view(torch.int64))
         err["combine_ei"] = max(err["combine_ei"], float((q2 - q2p).abs().max()))
-    print(f"[propose] Q1 and Q2 against their plain versions at every bucket (bit for bit, no "
-          f"host sync): {match}, max_abs_err {err}; Q1's leaf stats equal K1's", flush=True)
+    print(f"[propose] Q1 on {P.QS_ROUTES} and Q2 against their plain versions at every bucket "
+          f"(bit for bit, no host sync): {match}, max_abs_err {err}; Q1's leaf stats equal "
+          f"K1's on both routes", flush=True)
     if not all(match.values()):
         fail(f"Q1 or Q2 differs from its plain version: {match}")
 
@@ -1412,14 +1440,18 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
         meta = torch.tensor([S, tps, N], dtype=torch.int32, device=device)
         k1 = lambda: ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean,
                                           plane.var, plane.roots, Xt, plane.depth, nodes)
-        q1 = lambda: P.qs_leaf_stats_cuda(Xt, qs)
+        q1 = lambda: P.qs_leaf_stats_cuda(Xt, qs, route="per_tree")
+        q1m = lambda: P.qs_leaf_stats_cuda(Xt, qs, route="merged")
         m, v = k1()
         q2 = lambda: P.combine_ei_cuda(m, v, ystats, inc, meta)
         staged_ei = lambda: ei_matrix(*combine(m.view(S, tps, N), v.view(S, tps, N),
                                                plane.y_means, plane.y_stds, plane.y_std_sqs),
                                       incs)
-        k1_ms, q1_ms, q1_turns, q1_held = traced_turns(
-            k1, q1, [("forest_eval_tiled", 1)], [("qs_descent", 1)])
+        tree_tag = [("qs_descent_tree_kernel", 1)]
+        k1_ms, q1_ms, q1_turns, q1_held = traced_turns(k1, q1, [("forest_eval_tiled", 1)],
+                                                       tree_tag)
+        q1m_ms, q1t_ms, q1m_turns, q1m_held = traced_turns(
+            q1m, q1, [("qs_descent_kernel", 1)], tree_tag)
         st_ms, q2_ms, q2_turns, q2_held = traced_turns(
             staged_ei, q2, [("", None)], [("combine_ei", 1)])
         q1_bound = bound(nbytes(Xt) + 2 * T * N * 8, 0)
@@ -1437,11 +1469,16 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
             graph[d] = dict(graph_device_ms=step_profile(run), eager_device_ms=step_profile(eager),
                             host_turns_ms=[host_ms(f) for f in (eager, run, run, eager)])
         numbers[N] = dict(k1_traced_ms=k1_ms, q1_traced_ms=q1_ms, q1_turns_ms=q1_turns,
-                          q1_held=q1_held, q1_bound_ms=q1_bound[0], staged_ei_traced_ms=st_ms,
+                          q1_held=q1_held, q1_merged_traced_ms=q1m_ms,
+                          q1_merged_turns_ms=q1m_turns, q1_merged_held=q1m_held,
+                          q1_plan=tuple(P.qs_plan(qs, N, space.dim, n_sms(Xt.device))),
+                          q1_bound_ms=q1_bound[0], staged_ei_traced_ms=st_ms,
                           q2_traced_ms=q2_ms, q2_turns_ms=q2_turns, q2_held=q2_held,
                           q2_bound_ms=q2_bound[0], q2_bound_by=q2_bound[1], step=graph)
-        print(f"[propose] N={N}: Q1 against K1 tiled by trace in turns (K1, Q1, Q1, K1): "
-              f"{q1_turns} ms (held {q1_held}), bound {q1_bound[0]:.6f} ms ({q1_bound[1]}); "
+        print(f"[propose] N={N}: Q1 per_tree (plan {numbers[N]['q1_plan']}) against K1 tiled "
+              f"by trace in turns (K1, per_tree, per_tree, K1): {q1_turns} ms (held {q1_held}); "
+              f"against merged (merged, per_tree, per_tree, merged): {q1m_turns} ms (held "
+              f"{q1m_held}); bound {q1_bound[0]:.6f} ms ({q1_bound[1]}); "
               f"Q2 against the staged torch combine + EI in turns (staged, Q2, Q2, staged): "
               f"{q2_turns} ms (held {q2_held}), bound {q2_bound[0]:.6f} ms ({q2_bound[1]}); "
               f"launch floor {floor_ms} ms", flush=True)
@@ -1466,6 +1503,14 @@ def check_propose_at_scale(kb, device, floor_ms: float) -> tuple:
     for name, r in rows.items():
         r["tuner_pool_traced_ms"] = numbers[PROPOSE_TIMED[0]][
             "q1_traced_ms" if name == "qs_descent" else "q2_traced_ms"]
+    rows["qs_descent"]["route"] = "cuda"
+    rows["qs_descent"]["launches_by_route"] = {k: v for k, v in routes.items()
+                                               if k.startswith("qs_descent")}
+    rows["qs_descent"]["by_route"] = {
+        N: {"per_tree_ms": numbers[N]["q1_traced_ms"],
+            "merged_ms": numbers[N]["q1_merged_traced_ms"],
+            "k1_tiled_ms": numbers[N]["k1_traced_ms"], "bound_ms": numbers[N]["q1_bound_ms"],
+            "plan": numbers[N]["q1_plan"]} for N in PROPOSE_TIMED}
 
     # the device pool: fresh draws a replay, the same pools from the same seed
     pool_eng = [ProposeEngine(space, seed=0, pool_size=PROPOSE_BUCKETS[-1]) for _ in range(2)]
@@ -6219,9 +6264,9 @@ def finish(device, card, phase_s, launches, main_rows, scale_rows, fused, step_n
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         out.update({k: v for k, v in r.items()
                     if k.startswith(("library", "decode_", "float32_", "cache_", "launches_",
-                                     "by_path", "simt_", "floor_", "prior_", "path_route",
-                                     "w_down_", "with_dw_", "turns_", "split", "long_",
-                                     "first_design", "step_", "tuner_", "traced_",
+                                     "by_path", "by_route", "simt_", "floor_", "prior_",
+                                     "path_route", "w_down_", "with_dw_", "turns_", "split",
+                                     "long_", "first_design", "step_", "tuner_", "traced_",
                                      "launch_floor", "design_floor", "staged_", "values_",
                                      "eval_", "events_", "propose_", "baselines_", "dx_",
                                      "dw_", "mla_", "encdec_"))

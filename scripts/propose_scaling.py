@@ -2,7 +2,7 @@
 """The propose step against its pool size: staged against fused, graph
 against eager, host pool against device pool.
 
-    PYTHONPATH=src python3 scripts/propose_scaling.py
+    PYTHONPATH=src python3 scripts/propose_scaling.py [--kernels]
 
 Needs ``nvcc`` and an NVIDIA GPU. The port's counterpart of
 ``benchmarks/bench_pool_scaling.py``: MFTune's combined surrogate at 12
@@ -24,10 +24,14 @@ Each is timed by its host clock a call, ending in the copy of the result to
 the host (the mean of 3 calls after a warm-up), and the graph calls' device
 time a call by stage from a ``torch.profiler`` trace (descent, Q2, K2's
 ranks, the rest in torch: the draw, the aggregate, the keys and the
-scatter), with the draw alone traced beside them. At each size Q1 against
-K1 ``tiled`` by trace in turns (K1, Q1, Q1, K1) gives the crossover that
-``core.propose.QS_AUTO_MIN`` takes. After the sweep the engine must hold
-at most one graph a (mode, bucket, descent).
+scatter), with the draw alone traced beside them. At each size Q1's two
+routes, each bit for bit with the plain version and K1, by trace in turns:
+``per_tree`` against ``merged`` and against K1 ``tiled`` (first, new, new,
+first); the smallest bucket from which ``per_tree`` beats K1 at every
+larger bucket is the crossover that ``core.propose.QS_AUTO_MIN`` takes
+(printed last; none where it wins nowhere). After the sweep the engine
+must hold at most one graph a (mode, bucket, descent). ``--kernels`` runs
+the Q1 and K1 sweep alone.
 
 Prints one line a measurement, the card's name and power limit first.
 """
@@ -68,6 +72,38 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) / REPS * 1e3
 
 
+def q1_routes(plane, qs, X0, dev, floor) -> bool:
+    """Q1's routes at one pool, bit for bit with the plain version and K1,
+    then by trace in turns: per_tree against merged and against K1
+    ``tiled``. Returns whether per_tree beat K1."""
+    from repro_torch.kernels.launch import n_sms
+
+    N, D = X0.shape
+    Xt = torch.from_numpy(X0).to(dev)
+    nodes = plane.node_table()
+    k1 = lambda: ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean,
+                                      plane.var, plane.roots, Xt, plane.depth, nodes)
+    tree = lambda: P.qs_leaf_stats_cuda(Xt, qs, route="per_tree")
+    merged = lambda: P.qs_leaf_stats_cuda(Xt, qs, route="merged")
+    want = P.qs_leaf_stats_plain(Xt, qs)
+    bits = lambda t: t.view(torch.int64)
+    for name, fn in (("per_tree", tree), ("merged", merged), ("K1", k1)):
+        if not all(torch.equal(bits(g), bits(w)) for g, w in zip(fn(), want)):
+            smoke.fail(f"Q1's {name} differs from the plain version at {N}")
+    plan = P.qs_plan(qs, N, D, n_sms(dev))
+    tags = [("qs_descent_tree_kernel", 1)]
+    tm = smoke.traced_turns(merged, tree, [("qs_descent_kernel", 1)], tags)
+    tk = smoke.traced_turns(k1, tree, [("forest_eval_tiled", 1)], tags)
+    T = qs.n_trees
+    bnd = smoke.bound(Xt.numel() * 8 + 2 * T * N * 8, 0)
+    print(f"[scaling] N={N}: Q1 bit for bit with the plain version and K1 on both routes; "
+          f"plan {tuple(plan)}; per_tree against merged in turns (merged, per_tree, per_tree, "
+          f"merged) {tm[2]} ms (held {tm[3]}): merged {tm[0]}, per_tree {tm[1]}; against K1 "
+          f"tiled (K1, per_tree, per_tree, K1) {tk[2]} ms (held {tk[3]}): K1 {tk[0]}, per_tree "
+          f"{tk[1]}; bound {bnd[0]:.6f} ms ({bnd[1]}); launch floor {floor} ms", flush=True)
+    return tk[0] is not None and tk[1] < tk[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         smoke.fail("needs a CUDA device")
@@ -90,8 +126,13 @@ def main() -> int:
     eng = ProposeEngine(space, seed=0)
     gen = torch.Generator(device=dev).manual_seed(1)
     rng = np.random.default_rng(0)
+    kernels_only = "--kernels" in sys.argv[1:]
+    wins = {}
     for N in POOLS:
         X0 = space.sample(np.random.default_rng(N), N).unit()
+        wins[N] = q1_routes(plane, qs, X0, dev, floor)
+        if kernels_only:
+            continue
         staged0 = np.argsort(aggregate_ranks(score_sources(
             forests, torch.from_numpy(X0).to(dev), incs), ws).cpu().numpy(), kind="stable")[:K]
         for d in ("forest", "qs"):
@@ -134,16 +175,12 @@ def main() -> int:
                   f"{smoke.step_profile(lambda: device_graph(d), REPS)}", flush=True)
         draw = smoke.traced_call_ms(lambda: P.draw_unit_pool(gen, sig, cols, N),
                                     [("", None)])[0]
-        Xt = torch.from_numpy(X0).to(dev)
-        k1 = lambda: ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean,
-                                          plane.var, plane.roots, Xt, plane.depth,
-                                          plane.node_table())
-        k1_ms, q1_ms, turns, held = smoke.traced_turns(
-            k1, lambda: P.qs_leaf_stats_cuda(Xt, qs), [("forest_eval_tiled", 1)],
-            [("qs_descent", 1)])
-        print(f"[scaling] N={N}: the draw alone {draw} ms (trace); Q1 against K1 tiled in turns "
-              f"(K1, Q1, Q1, K1) {turns} ms (held {held}): K1 {k1_ms}, Q1 {q1_ms}; launch floor "
-              f"{floor} ms", flush=True)
+        print(f"[scaling] N={N}: the draw alone {draw} ms (trace)", flush=True)
+    cross = next((N for N in POOLS if all(wins[M] for M in POOLS if M >= N)), None)
+    print(f"[scaling] Q1 per_tree beats K1 tiled at {[N for N in POOLS if wins[N]]}; the "
+          f"crossover for QS_AUTO_MIN: {cross}", flush=True)
+    if kernels_only:
+        return 0
     stats = eng.graph_stats()
     print(f"[scaling] graphs {stats}, keys {sorted(eng.graphs)}", flush=True)
     if stats["graphs"] > 4 * len(POOLS):

@@ -55,13 +55,15 @@ _CONST_SIG = (4, False, False, False, False, 1)  # dropped knob: unit default
 
 DESCENTS = ("auto", "qs", "forest")
 
-# descent="auto" takes the merged QuickScorer tables (Q1) at pool buckets
-# of at least this many candidates, K1 below. The CPU keeps the reference's
-# XLA:CPU crossover. The card has none: K1 `tiled` beats Q1 at every bucket
-# from 256 (0.0056 against 0.081 ms) to 131072 (0.23 against 0.73 ms) at 12
-# sources x 10 trees on an NVIDIA H100 80GB HBM3 at 700 W
-# (scripts/propose_scaling.py, PERF.md), so auto keeps K1 there.
-QS_AUTO_MIN = {"cpu": 32768, "cuda": float("inf")}
+# descent="auto" takes the QuickScorer descent (Q1) at pool buckets of at
+# least this many candidates, K1 below. The CPU keeps the reference's XLA:CPU
+# crossover. On the card Q1's per_tree route beats K1 `tiled` at every
+# bucket of the sweep, from 256 (0.005043 against 0.005293 ms, by trace in
+# turns) to 131072 (0.153730 against 0.235805 ms), at 12 sources x 10 trees
+# and 60 knobs on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (scripts/propose_scaling.py, PERF.md), so auto takes Q1 from the smallest
+# bucket.
+QS_AUTO_MIN = {"cpu": 32768, "cuda": 256}
 
 _DEPTH_CAP = 1 << 16   # K1 walks each tree for its own levels, at most this many
 _INF_BITS = int(np.array(np.inf).view(np.int64))
@@ -98,14 +100,33 @@ class _PlaneEntry:
                                          [f.y_std**2 for f in plane.forests]],
                                         dtype=torch.float64)
         self._qs: Optional[Tuple[Optional[P.QSTables], str]] = None
+        self._qs_plans: Dict[tuple, P.QSPlan] = {}
 
-    def qs(self) -> Tuple[Optional[P.QSTables], str]:
-        if self._qs is None:
+    def qs(self, merged: bool = True) -> Tuple[Optional[P.QSTables], str]:
+        """The plane's QuickScorer tables (or None and the reason), built on
+        first use; without ``merged`` the per-tree records may come alone,
+        which is all the per_tree route reads (the merged tables cost as
+        much host time again, a new plane each tuner iteration)."""
+        qs = None if self._qs is None else self._qs[0]
+        if self._qs is None or (merged and qs is not None and qs.tables is None):
             p = self.plane
             host, reason = P.build_qs_plan_ex(*(t.cpu().numpy() for t in (
-                p.feat, p.thr, p.child, p.mean, p.var, p.roots)), self.dim)
+                p.feat, p.thr, p.child, p.mean, p.var, p.roots)), self.dim, merged)
             self._qs = (None if host is None else P.qs_tables(host, p.device), reason)
         return self._qs
+
+    def qs_plan(self, bucket: int, sms: int, route: Optional[str] = None) -> P.QSPlan:
+        """Q1's plan for a pool bucket (``route="merged"`` forces that
+        route; ``"per_tree"`` raises where the plane cannot take it)."""
+        key = (bucket, sms, route)
+        if key not in self._qs_plans:
+            plan = P.qs_plan(self.qs(merged=False)[0], bucket, self.dim, sms)
+            if route == "merged":
+                plan = P.QSPlan("merged", reason="forced")
+            elif route is not None and plan.route != route:
+                raise ValueError(f"Q1's {route} route cannot take this plane: {plan.reason}")
+            self._qs_plans[key] = plan
+        return self._qs_plans[key]
 
 
 @dataclass(eq=False)
@@ -147,6 +168,9 @@ class ProposeEngine:
         # torch.cuda.set_sync_debug_mode("error"): no host sync before the
         # one that collects the result
         self.check_sync = False
+        # forces Q1's route on the card ("per_tree" or "merged"; None: the
+        # plan's)
+        self.qs_route: Optional[str] = None
 
     # ----------------------------------------------------------- availability
     @staticmethod
@@ -225,12 +249,13 @@ class ProposeEngine:
     def _descent(self, descent: str, bucket: int, entry: _PlaneEntry) -> str:
         if descent not in DESCENTS:
             raise ValueError(f"unknown descent {descent!r}; expected one of {DESCENTS}")
-        if descent == "auto":
-            use_qs = bucket >= QS_AUTO_MIN[entry.plane.device.type]
-            return "qs" if use_qs and entry.qs()[0] is not None else "forest"
-        if descent == "qs" and entry.qs()[0] is None:
-            raise ValueError(f"no QuickScorer plan: {entry.qs()[1]}")
-        return descent
+        kind = entry.plane.device.type
+        if descent == "forest" or (descent == "auto" and bucket < QS_AUTO_MIN[kind]):
+            return "forest"
+        qs, reason = entry.qs(merged=kind != "cuda")   # the card's plan reads the records alone
+        if qs is None and descent == "qs":
+            raise ValueError(f"no QuickScorer plan: {reason}")
+        return "forest" if qs is None else "qs"
 
     @staticmethod
     def _check_uniform(plane: ForestPlane, what: str) -> int:
@@ -318,7 +343,7 @@ class ProposeEngine:
                 torch.from_numpy(np.asarray(weights, dtype=float).copy()))
 
     # ------------------------------------------------------------- the graphs
-    def _need(self, descent: str, entry: _PlaneEntry) -> Dict[str, int]:
+    def _need(self, descent: str, bucket: int, entry: _PlaneEntry) -> Dict[str, int]:
         need = {"S": entry.S, "T": entry.T}
         if descent == "forest":
             if entry.nodes is None:
@@ -329,11 +354,16 @@ class ProposeEngine:
                                  f"{self.space.dim}-dim space")
             need.update(R=entry.nodes.n_records + 1,
                         rt=_pow2(int(np.diff(entry.nodes.tree_start).max(initial=1))))
+        elif self._qs_plan(bucket, entry).route == "per_tree":
+            need.update(blob=entry.qs(merged=False)[0].trees.blob.numel())
         else:
             qs = entry.qs()[0]
             need.update(M=max(1, qs.thr.numel()), words=qs.tables.numel(),
                         L=max(1, qs.leaf_mean.numel()))
         return need
+
+    def _qs_plan(self, bucket: int, entry: _PlaneEntry) -> P.QSPlan:
+        return entry.qs_plan(bucket, n_sms(entry.plane.device), self.qs_route)
 
     def _slot(self, mode: str, bucket: int, descent: str, entry: _PlaneEntry,
               tables=None) -> _Slot:
@@ -341,11 +371,14 @@ class ProposeEngine:
         hold ``entry`` (and its graph dropped where they grow or the sample
         space's tables changed)."""
         dev = entry.plane.device
-        need = self._need(descent, entry)
+        need = self._need(descent, bucket, entry)
         key = (mode, bucket, descent)
         slot = self.graphs.get(key)
+        qplan = self._qs_plan(bucket, entry) if descent == "qs" else None
         if slot is not None and all(slot.caps.get(k, 0) >= v for k, v in need.items()) and (
-                tables is None or slot.tables is tables):
+                tables is None or slot.tables is tables) and (
+                qplan is None or (slot.plan.route == qplan.route and P.qs_plan_fits(
+                    slot.plan, entry.qs(merged=False)[0], self.space.dim))):
             return slot
         caps = _grow(slot.caps if slot is not None else {}, need)
         D = self.space.dim
@@ -367,7 +400,13 @@ class ProposeEngine:
             if slot.plan.route != "tiled":
                 raise ValueError(f"K1's tiled route cannot hold trees of {caps['rt']} records "
                                  f"beside a tile of {D} features")
+        elif qplan.route == "per_tree":
+            slot.plan = qplan
+            b["blob"] = torch.zeros(caps["blob"], dtype=torch.uint8, device=dev)
+            b["tree_off"] = torch.zeros(T_rows + 1, **i32)
+            b["tmeta"] = torch.zeros(2, **i32)
         else:
+            slot.plan = qplan
             b["thr"] = torch.zeros(caps["M"], **f64)
             b["thr_off"] = torch.zeros(D + 1, **i32)
             b["tables"] = torch.zeros(caps["words"], dtype=torch.int64, device=dev)
@@ -412,6 +451,11 @@ class ProposeEngine:
             b["trees"][T:T_rows, 0].fill_(R)
             b["trees"][T:, 1].fill_(0)
             b["trees"][T_rows, 0].fill_(R + (T < T_rows))
+        elif slot.plan.route == "per_tree":
+            tt = entry.qs(merged=False)[0].trees
+            b["blob"][:tt.blob.numel()].copy_(tt.blob)
+            b["tree_off"][:entry.T + 1].copy_(tt.tree_off)
+            b["tmeta"].copy_(tt.meta)
         else:
             qs = entry.qs()[0]
             for name in ("thr", "tables", "leaf_mean", "leaf_var"):
@@ -431,10 +475,14 @@ class ProposeEngine:
 
         def body():
             X = X_fn()
-            if slot.descent == "qs":
+            if slot.descent == "qs" and slot.plan.route == "per_tree":
+                trees = P.TreeTables(b["blob"], b["tree_off"], b["tmeta"], None, 0, 0, 0)
+                qs = P.QSTables(*(None,) * 7, T_rows, 0, trees)
+                m, v = P.qs_leaf_stats_cuda(X, qs, T_rows, slot.plan)
+            elif slot.descent == "qs":
                 qs = P.QSTables(b["thr"], b["thr_off"], b["tables"], b["leaf_mean"],
                                 b["leaf_var"], b["leaf_off"], b["qmeta"], T_rows, 0)
-                m, v = P.qs_leaf_stats_cuda(X, qs, T_rows)
+                m, v = P.qs_leaf_stats_cuda(X, qs, T_rows, slot.plan)
             else:
                 m, v = forest_eval_records(b["nodes"], b["stats"], b["trees"], X, slot.plan,
                                            _DEPTH_CAP)

@@ -2231,19 +2231,25 @@ def _spark_plane(device, n_sources=12):
     return space, forests, ForestPlane([f.pack() for f in forests])
 
 
+@pytest.mark.parametrize("route", ["per_tree", "merged"])
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 4097, 131072])
-def test_qs_descent_matches_plain(cuda, n):
+def test_qs_descent_matches_plain(cuda, route, n):
+    """Each Q1 route against the plain version and K1 bit for bit at the
+    tuner's plane, counted under its route; the plan takes per_tree there."""
     from repro_torch.core.propose import _PlaneEntry
     from repro_torch.kernels import counts
     from repro_torch.kernels.forest_eval import ops, propose
+    from repro_torch.kernels.launch import n_sms
 
     space, _, plane = _spark_plane(cuda)
     qs = _PlaneEntry(plane, space.dim).qs()[0]
+    assert propose.qs_plan(qs, n, space.dim, n_sms(cuda)).route == "per_tree"
     X = space.sample(np.random.default_rng(n), n).unit_tensor(cuda)
     T = qs.n_trees
     counts.reset()
-    got = propose.qs_leaf_stats_cuda(X, qs, T + 5)
+    got = propose.qs_leaf_stats_cuda(X, qs, T + 5, route=route)
     assert counts.LAUNCHES["qs_descent"] == 1
+    assert counts.ROUTE_LAUNCHES == {f"qs_descent/{route}": 1}
     want = propose.qs_leaf_stats_plain(X, qs)
     k1 = ops.forest_eval_cuda(plane.feat, plane.thr, plane.child, plane.mean, plane.var,
                               plane.roots, X, plane.depth, plane.node_table())
@@ -2252,22 +2258,64 @@ def test_qs_descent_matches_plain(cuda, n):
         assert torch.equal(_bits(g[:T]), _bits(w)) and torch.equal(_bits(w), _bits(k))
 
 
-def test_qs_descent_two_words_and_root_leaves(cuda):
+@pytest.mark.parametrize("route", ["per_tree", "merged", "per_tree_chunks"])
+def test_qs_descent_two_words_and_root_leaves(cuda, route):
+    """Two-word trees (65-128 leaves) and a source of root leaves on each
+    route; ``per_tree_chunks`` plans for 20 KB of shared memory, so that
+    blocks walk many chunks and restage their tables."""
     from repro_torch.core.propose import _PlaneEntry
     from repro_torch.core.surrogate import ForestPlane, make_forest
+    from repro_torch.kernels import counts
     from repro_torch.kernels.forest_eval import propose
+    from repro_torch.kernels.launch import n_sms
 
     rng = np.random.default_rng(1)
     X = rng.random((220, 5))
     forests = [make_forest(seed=0, device=cuda).fit(X, rng.normal(size=220)),
                make_forest(seed=1, device=cuda).fit(X, np.full(220, 2.0))]
     qs = _PlaneEntry(ForestPlane([f.pack() for f in forests]), 5).qs()[0]
-    assert qs.n_words == 2
+    assert qs.n_words == 2 and qs.trees.word_bytes == 16
     pool = torch.from_numpy(rng.random((3000, 5))).to(cuda)
-    got = propose.qs_leaf_stats_cuda(pool, qs)
+    plan = None
+    if route == "per_tree_chunks":
+        plan = propose.qs_plan(qs, 3000, 5, n_sms(cuda), smem_block=20000)
+        assert plan.route == "per_tree" and plan.trees < qs.n_trees // 4
+    counts.reset()
+    got = propose.qs_leaf_stats_cuda(pool, qs, plan=plan,
+                                     route=None if plan is not None else route)
+    assert counts.ROUTE_LAUNCHES == {f"qs_descent/{route.split('_chunks')[0]}": 1}
     want = propose.qs_leaf_stats_plain(pool, qs)
     torch.cuda.synchronize()
     assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("route", ["per_tree", "merged"])
+def test_qs_descent_graph_replays_after_a_plane_swap(cuda, route):
+    """One captured graph a bucket serves another plane whose tables fit
+    its buffers: the second call replays (no capture), its selection is
+    the staged path's, and each replay counts Q1 under the slot's route."""
+    from repro_torch.core import ProposeEngine, aggregate_ranks, score_sources
+    from repro_torch.kernels import counts
+
+    space, card, _ = _spark_plane(cuda, 6)
+    eng = ProposeEngine(space, seed=0)
+    eng.qs_route = route
+    eng.check_sync = True
+    rng = np.random.default_rng(2)
+    for i, models in enumerate((card[:6], card[1:6], card[:3])):
+        X = space.sample(rng, 3000).unit()
+        incs, ws = list(rng.random(len(models))), list(rng.random(len(models)) + 0.1)
+        counts.reset()
+        got = eng.score_topk(models, X, incs, ws, 9, descent="qs")
+        # the first call warms the step up twice before its capture
+        assert counts.ROUTE_LAUNCHES == {f"qs_descent/{route}": 3 if i == 0 else 1,
+                                         "radix_rank/onesweep": 6 if i == 0 else 2}, i
+        staged = np.argsort(aggregate_ranks(score_sources(models, torch.from_numpy(X).to(cuda),
+                                                          incs), ws).cpu().numpy(),
+                            kind="stable")[:9]
+        assert np.array_equal(got, staged), i
+    assert eng.graph_stats() == {"graphs": 1, "captures": 1, "replays": 3}
+    assert eng.graphs[("host", 4096, "qs")].plan.route == route
 
 
 @pytest.mark.parametrize("n", [256, 131072])
